@@ -15,7 +15,7 @@ Phases, in order; any failure exits non-zero:
      outputs and that each kernel ran on this path.
   5. timings (CUDA events after warm-up), each line with the card's name,
      and torch.profiler's device time by kernel over a render of each view,
-     which gives the card's idle share during a render.
+     which gives the card's idle share during that profiled render.
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}.
 """
@@ -38,7 +38,19 @@ WIDTH, HEIGHT = 1296, 968
 N_SPLATS = 200_000
 N_VIEWS = 3
 TOL = dict(atol=3e-5, rtol=1e-4)
-OPS_PER_PAIR = 43  # fp32 operations per live (slot, pixel) pair of the blend
+# fp32 operations per (slot, pixel) pair of the blend, by what the pair needs:
+# every evaluated pair: dx, dy and the conic's quadratic form (11), the clamp
+# of power (1), expf (~8: range reduction, ex2 and scaling without fast
+# math), the power test, o * gauss, the 0.99 clamp and the 1/255 test (4)
+OPS_EVALUATED = 24
+OPS_TESTED = 3  # alpha >= 1/255: 1 - alpha, T * (1 - alpha), the 1e-4 test
+
+
+def ops_blended(C: int) -> int:
+    """A pair that composites: w = alpha * T, then a multiply-add per channel."""
+    return 1 + 2 * C
+
+
 # NVIDIA data sheets: fp32 (non-tensor) FLOP/s and HBM bytes/s per H100 model
 PEAKS = (("PCIe", 51e12, 2.0e12), ("NVL", 60e12, 3.9e12),
          ("", 67e12, 3.35e12))  # "" = SXM, what "H100 80GB HBM3" names
@@ -148,19 +160,20 @@ def frame_streams(camera, state):
 
 
 def check_kernel_against_plain(streams, chunk: int) -> tuple[float, dict]:
-    """blend_stream_fwd (CUDA) against blend_stream_walk (plain) at each C.
-    -> (max abs error, {C: live (slot, pixel) pairs})."""
+    """blend_stream_fwd (CUDA) against blend_stream_fwd_plain at each C.
+    -> (max abs error, {C: the plain version's work counts})."""
     from opengaussian_tpu_torch.ops.rasterize_kernels import (
         blend_stream_fwd,
-        blend_stream_walk,
+        blend_stream_fwd_plain,
     )
 
-    worst, pairs = 0.0, {}
+    worst, work = 0.0, {}
     for C, (rows, counts, tstart, toff, gx, _) in streams.items():
         acc, t_final = blend_stream_fwd(rows, counts, tstart, toff, gx, chunk)
         torch.cuda.synchronize()
-        acc_p, t_p, walked = blend_stream_walk(rows, counts, tstart, toff, gx, chunk)
-        pairs[C] = int(walked.sum())
+        acc_p, t_p, work[C] = blend_stream_fwd_plain(rows, counts, tstart, toff, gx,
+                                                     chunk, count_work=True)
+        log(f"work C={C}: " + ", ".join(f"{k} {v}" for k, v in work[C].items()))
         for name, x, y in (("accum", acc, acc_p), ("t_final", t_final, t_p)):
             if not bool(torch.isfinite(x).all()):
                 raise AssertionError(f"C={C}: kernel {name} is not finite")
@@ -176,7 +189,7 @@ def check_kernel_against_plain(streams, chunk: int) -> tuple[float, dict]:
                 raise AssertionError(
                     f"C={C} {name} disagrees with the plain version at {idx}: "
                     f"kernel {float(x.flatten()[i])!r} plain {float(y.flatten()[i])!r}")
-    return worst, pairs
+    return worst, work
 
 
 def check_against_oracle(dev):
@@ -208,26 +221,32 @@ def check_against_oracle(dev):
     log(f"oracle: 160x120, {n} splats: image/alpha/depth/radii agree")
 
 
-def bound_ms(streams, pairs, peak_flops, peak_bytes) -> tuple[float, str]:
-    """Least time for the blend of one launch, averaged over the widths:
-    max(bytes moved / HBM rate, live pairs x OPS_PER_PAIR / fp32 rate)."""
-    t_bytes, t_ops = [], []
+def bound_ms(streams, work, peak_flops, peak_bytes) -> tuple[dict, str]:
+    """Least time of one launch at each C: the larger of the bytes moved over
+    the HBM rate and the operations this stream's data needs (from the plain
+    version's work counts) over the fp32 rate. -> ({C: ms}, what bounds the
+    larger of them)."""
+    bound, by = {}, {}
     for C, (rows, counts, *_rest) in streams.items():
         T = counts.shape[0]
         moved = (int(counts.sum()) * rows.shape[1] * 4  # each slot row read once
                  + 3 * T * 4  # counts, tstart, toff
                  + T * 256 * (C + 1) * 4)  # accum and t_final written once
-        t_bytes.append(moved / peak_bytes * 1e3)
-        t_ops.append(pairs[C] * OPS_PER_PAIR / peak_flops * 1e3)
-        log(f"bound: blend_stream_fwd C={C}: {moved} bytes -> {t_bytes[-1]:.4f} ms, "
-            f"{pairs[C]} live pairs x {OPS_PER_PAIR} ops -> {t_ops[-1]:.4f} ms")
-    b, o = sum(t_bytes) / len(t_bytes), sum(t_ops) / len(t_ops)
-    return (b, "bytes") if b >= o else (o, "operations")
+        w = work[C]
+        ops = (w["evaluated"] * OPS_EVALUATED + w["tested"] * OPS_TESTED
+               + w["blended"] * ops_blended(C))
+        t_bytes, t_ops = moved / peak_bytes * 1e3, ops / peak_flops * 1e3
+        bound[C] = max(t_bytes, t_ops)
+        by[C] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"bound: blend_stream_fwd C={C}: {moved} bytes -> {t_bytes:.4f} ms, "
+            f"{ops} ops -> {t_ops:.4f} ms")
+    return bound, by[max(bound, key=bound.get)]
 
 
-def profile_render(views, state) -> float:
+def profile_render(views, state) -> tuple[float, float]:
     """torch.profiler over one render of every view: device time by kernel.
-    -> device busy ms per view (the union of the kernels' intervals)."""
+    -> (device busy ms per view, the union of the kernels' intervals; host
+    wall ms per view of the same profiled renders, to the last kernel's end)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -236,10 +255,13 @@ def profile_render(views, state) -> float:
 
     bg = torch.zeros(3, device=state.device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for v in views:
             render(v.camera, state, bg, 3, RasterizeConfig(), render_color=True,
                    render_feat_map=True, origin_feat=True)
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / len(views)
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy, end, by_name = 0.0, -math.inf, {}
     for e in sorted(kernels, key=lambda e: e.time_range.start):
@@ -248,11 +270,13 @@ def profile_render(views, state) -> float:
         end = max(end, t)
         by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
     busy_ms = busy / 1e3 / len(views)
-    log(f"profile: device busy {busy_ms:.3f} ms/view, "
+    span_ms = (end - kernels[0].time_range.start) / 1e3 / len(views)
+    log(f"profile: device busy {busy_ms:.3f} ms/view, first kernel start to last "
+        f"kernel end {span_ms:.3f} ms/view, host wall {wall_ms:.3f} ms/view, "
         f"{len(kernels) / len(views):.0f} kernel launches/view")
     for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         log(f"profile:   {us / 1e3 / len(views):8.4f} ms/view  {k[:90]}")
-    return busy_ms
+    return busy_ms, wall_ms
 
 
 def main() -> int:
@@ -278,7 +302,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _, build_log = rk.build_library("blend_stream_fwd")
+    _, build_log = rk.build()
     log(f"build: blend_stream_fwd.cu in {time.perf_counter() - t0:.3f} s")
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line:
@@ -297,7 +321,7 @@ def main() -> int:
         chunk = RasterizeConfig().chunk
         with torch.no_grad():
             streams = frame_streams(views[0].camera, state)
-            max_err, pairs = check_kernel_against_plain(streams, chunk)
+            max_err, work = check_kernel_against_plain(streams, chunk)
             check_against_oracle(dev)
 
         # 4. main path, through the CLI a user runs
@@ -351,7 +375,7 @@ def main() -> int:
                     rows, counts, tstart, toff, gx, chunk), iters=2)
                 log(f"timing: blend_stream_fwd C={C}: kernel {k_ms[C]:.4f} ms/launch "
                     f"({cold:.4f} with L2 flushed), plain {p_ms[C]:.3f} ms/launch, "
-                    f"live pairs {pairs[C]} [{card}]")
+                    f"evaluated pairs {work[C]['evaluated']} [{card}]")
             bg = torch.zeros(3, device=dev)
             r_ms = cuda_ms(lambda: [render(v.camera, state, bg, 3, RasterizeConfig(),
                                            render_color=True, render_feat_map=True,
@@ -363,11 +387,15 @@ def main() -> int:
                 f"{s_ms:.3f} ms/view [{card}]")
             log("timing: library_ms null: no single PyTorch call computes a "
                 "depth-ordered alpha blend with early stop")
-            busy = profile_render(views, state)
-            log(f"timing: device idle share during render {1.0 - busy / r_ms:.3f} "
-                f"(busy {busy:.3f} of {r_ms:.3f} ms/view) [{card}]")
-        b_ms, b_by = bound_ms(streams, pairs, peak_flops, peak_bytes)
-        log(f"bound: blend_stream_fwd {b_ms:.4f} ms/launch ({b_by}) [{card}]")
+            busy, wall = profile_render(views, state)
+            log(f"timing: device idle share during the profiled render "
+                f"{1.0 - busy / wall:.3f} (busy {busy:.3f} of {wall:.3f} ms/view, "
+                f"both from that run) [{card}]")
+        bound, b_by = bound_ms(streams, work, peak_flops, peak_bytes)
+        for C, b in bound.items():
+            log(f"bound: blend_stream_fwd C={C}: {b:.4f} ms/launch ({b_by}), "
+                f"kernel at {b / k_ms[C]:.3f} of it [{card}]")
+        b_ms = sum(bound.values()) / len(bound)
 
     kernels = [{
         "name": "blend_stream_fwd", "route": "cuda",

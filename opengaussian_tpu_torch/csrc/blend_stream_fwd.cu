@@ -8,14 +8,15 @@
 // transmittance after it stays >= 1e-4, and the first slot that would take
 // it below stops the pixel for good.
 //
-// Bound on an H100: operations. Each live (slot, pixel) pair costs ~43 fp32
-// operations (the quadratic form, one expf, the threshold tests and the
-// C-channel multiply-add) against ~44 bytes read per slot for a whole
-// 256-pixel tile, so the fp32 issue rate, not the 3.35 TB/s of HBM, is the
-// floor. On the 1296x968 frame with 200k splats (102M live pairs a pass)
-// that floor is 0.066 ms per launch at 67 TFLOP/s fp32 (H100 SXM, 700 W);
-// this kernel takes 0.27 ms there (chip_smoke.py; PERF.md). The design
-// does about that bound:
+// Bound on an H100: operations. A (slot, pixel) pair costs ~24 fp32
+// operations to evaluate (the quadratic form, one expf, the threshold
+// tests); a pair that passes 1/255 adds 3 (the transmittance test) and one
+// that composites 1 + 2C more. Against ~44 bytes read per slot for a whole
+// 256-pixel tile, the fp32 issue rate, not the 3.35 TB/s of HBM, is the
+// floor. On the 1296x968 frame with 200k splats a pass evaluates 102M pairs,
+// of which 11M pass 1/255 and composite: 0.039 ms per launch at 67 TFLOP/s
+// fp32 (H100 SXM, 700 W). This kernel takes 0.27 ms there, 14% of that
+// bound (chip_smoke.py; PERF.md). The design does about that bound:
 //   * one CTA per 16x16 tile and one thread per pixel, so every live pair is
 //     evaluated exactly once and nothing is recomputed;
 //   * the tile's run is staged chunk by chunk into shared memory with
@@ -38,7 +39,7 @@ namespace {
 
 constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;  // threads per CTA: one per pixel
-constexpr int kMaxC = 16;            // payload channels one thread accumulates
+constexpr int kMaxC = 16;  // payload channels one thread accumulates (MAX_C)
 
 // opengaussian_tpu/ops/blend.py, rounded to float as the JAX package does
 constexpr float kAlphaMin = static_cast<float>(1.0 / 255.0);
@@ -113,8 +114,6 @@ blend_stream_fwd_kernel(const float* __restrict__ rows, int n_fields,
 }  // namespace
 
 extern "C" {
-
-int og_blend_stream_fwd_max_channels() { return kMaxC; }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 int og_blend_stream_fwd(const float* rows, int n_fields, const int* counts,

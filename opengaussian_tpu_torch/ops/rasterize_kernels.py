@@ -36,7 +36,10 @@ BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+MAX_C = 16  # payload channels one thread accumulates: kMaxC in the source
+SOURCE = CSRC / "blend_stream_fwd.cu"
+
+_lib: ctypes.CDLL | None = None
 
 
 def _nvcc() -> str:
@@ -47,35 +50,33 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build_library(name: str) -> tuple[Path, str]:
-    """Compile csrc/<name>.cu into a shared library unless a build of the
-    same source exists. -> (library path, compiler output; "" if cached)."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{name}_{digest}.so"
+def build() -> tuple[Path, str]:
+    """Compile csrc/blend_stream_fwd.cu into a shared library unless a build
+    of the same source exists. -> (library path, compiler output; "" if
+    cached)."""
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libblend_stream_fwd_{digest}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
     os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
     return lib, proc.stdout + proc.stderr
 
 
-def _blend_lib() -> ctypes.CDLL:
-    name = "blend_stream_fwd"
-    if name not in _LIBS:
-        lib = ctypes.CDLL(str(build_library(name)[0]))
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()[0]))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.og_blend_stream_fwd.argtypes = [p, i, p, p, p, i, i, i, p, p, p]
         lib.og_blend_stream_fwd.restype = i
-        lib.og_blend_stream_fwd_max_channels.argtypes = []
-        lib.og_blend_stream_fwd_max_channels.restype = i
-        _LIBS[name] = lib
-    return _LIBS[name]
+        _lib = lib
+    return _lib
 
 
 def _check_stream(rows, counts, tstart, toff, chunk) -> None:
@@ -96,13 +97,18 @@ def _check_stream(rows, counts, tstart, toff, chunk) -> None:
         raise ValueError(f"chunk must be positive, got {chunk}")
 
 
-def blend_stream_walk(rows, counts, tstart, toff, grid_x: int, chunk: int):
-    """The plain walk: vectorized over tiles and pixels, a loop over chunks
-    of each run and, inside a chunk, over its slots in depth order. Same
-    operations in the same order as the kernel, so both round alike.
-    -> (accum [T, C, 256], t_final [T, 256], walked [T, 256] int64: the
-    slots each pixel evaluated, up to and including the one that stopped
-    it, i.e. the live (slot, pixel) pairs of the blend's work)."""
+def blend_stream_fwd_plain(rows, counts, tstart, toff, grid_x: int, chunk: int,
+                           count_work: bool = False):
+    """Plain PyTorch version of the kernel: vectorized over tiles and pixels,
+    a loop over chunks of each run and, inside a chunk, over its slots in
+    depth order. Same operations in the same order as the kernel, so both
+    round alike. Arguments and outputs as for `blend_stream_fwd`.
+
+    With count_work, also returns the work this stream's data needs, as
+    (slot, pixel) pair counts: {"evaluated": alpha computed (every slot a
+    pixel walks, up to and including the one that stops it), "tested":
+    alpha >= 1/255, so the transmittance test ran, "blended": the pair
+    composited its payload}."""
     _check_stream(rows, counts, tstart, toff, chunk)
     dev = rows.device
     T = counts.shape[0]
@@ -117,7 +123,8 @@ def blend_stream_walk(rows, counts, tstart, toff, grid_x: int, chunk: int):
     trans = torch.ones((T, NPIX), dtype=torch.float32, device=dev)
     done = torch.zeros((T, NPIX), dtype=torch.bool, device=dev)
     acc = torch.zeros((T, NPIX, C), dtype=torch.float32, device=dev)
-    walked = torch.zeros((T, NPIX), dtype=torch.int64, device=dev)
+    work = {k: torch.zeros((T, NPIX), dtype=torch.int64, device=dev)
+            for k in ("evaluated", "tested", "blended")}
     counts = counts.to(torch.int64)
     start = tstart.to(torch.int64)
     max_count = int(counts.max()) if T else 0
@@ -138,21 +145,21 @@ def blend_stream_walk(rows, counts, tstart, toff, grid_x: int, chunk: int):
         a = torch.where((a >= blend.ALPHA_MIN) & kmask[..., None], a, 0.0)
         for j in range(min(chunk, max_count - base)):
             aj = a[:, j]  # [T, NPIX]
-            walked += kmask[:, j, None] & ~done
             t_next = trans * (1.0 - aj)
             stop = t_next < blend.T_EPS
             contrib = (aj > 0.0) & ~stop & ~done
+            if count_work:
+                work["evaluated"] += kmask[:, j, None] & ~done
+                work["tested"] += (aj > 0.0) & ~done
+                work["blended"] += contrib
             w = torch.where(contrib, aj * trans, 0.0)
             acc = acc + w[..., None] * g[:, j, None, N_GEOM:]
             trans = torch.where(contrib, t_next, trans)
             done = done | stop
-    return acc.transpose(1, 2).contiguous(), trans, walked
-
-
-def blend_stream_fwd_plain(rows, counts, tstart, toff, grid_x: int, chunk: int):
-    """Plain PyTorch version of the kernel (see `blend_stream_walk`).
-    Arguments and outputs as for `blend_stream_fwd`."""
-    return blend_stream_walk(rows, counts, tstart, toff, grid_x, chunk)[:2]
+    out = acc.transpose(1, 2).contiguous(), trans
+    if count_work:
+        return (*out, {k: int(v.sum()) for k, v in work.items()})
+    return out
 
 
 def blend_stream_fwd(rows, counts, tstart, toff, grid_x: int, chunk: int):
@@ -171,13 +178,11 @@ def blend_stream_fwd(rows, counts, tstart, toff, grid_x: int, chunk: int):
     if rows.device.type != "cuda":
         raise ValueError(f"blend_stream_fwd runs on cpu or cuda, not {rows.device}")
     _check_stream(rows, counts, tstart, toff, chunk)
-    lib = _blend_lib()
     T = counts.shape[0]
     F = rows.shape[1]
     C = F - N_GEOM
-    max_c = lib.og_blend_stream_fwd_max_channels()
-    if C > max_c:
-        raise ValueError(f"the kernel blends at most {max_c} channels, got {C}")
+    if C > MAX_C:
+        raise ValueError(f"the kernel blends at most {MAX_C} channels, got {C}")
     if chunk * F * 4 > 48 * 1024:
         raise ValueError(f"chunk {chunk} x {F} fields exceeds 48 KiB of "
                          "shared memory")
@@ -187,7 +192,7 @@ def blend_stream_fwd(rows, counts, tstart, toff, grid_x: int, chunk: int):
         return accum, t_final
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.og_blend_stream_fwd(
+        err = _load().og_blend_stream_fwd(
             rows.data_ptr(), F, counts.data_ptr(), tstart.data_ptr(),
             toff.data_ptr(), T, grid_x, chunk, accum.data_ptr(),
             t_final.data_ptr(), stream)

@@ -70,6 +70,46 @@ def test_plain_blend_chunk_invariant():
         assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
 
 
+def numpy_work(rows, counts, tstart, toff):
+    """The blend's work counts by a direct per-pixel walk in numpy: each
+    tile's 256 pixels step through its run slot by slot, in float32."""
+    n = dict(evaluated=0, tested=0, blended=0)
+    lane = np.arange(256)
+    for t in range(len(counts)):
+        px = ((toff[t] % GRID_X) * 16 + lane % 16).astype(np.float32)
+        py = ((toff[t] // GRID_X) * 16 + lane // 16).astype(np.float32)
+        trans = np.ones(256, np.float32)
+        live = np.ones(256, bool)
+        for r in rows[tstart[t]:tstart[t] + counts[t]]:
+            dx, dy = r[0] - px, r[1] - py
+            power = np.float32(-0.5) * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy
+            a = np.minimum(np.where(power <= 0, r[5] * np.exp(np.minimum(power, 0)), 0),
+                           np.float32(0.99))
+            tested = live & (a >= np.float32(1 / 255))
+            t_next = trans * (np.float32(1) - a)
+            stop = tested & (t_next < np.float32(1e-4))
+            blended = tested & ~stop
+            n["evaluated"] += int(live.sum())
+            n["tested"] += int(tested.sum())
+            n["blended"] += int(blended.sum())
+            trans = np.where(blended, t_next, trans)
+            live &= ~stop
+    return n
+
+
+def test_plain_blend_work_counts():
+    """count_work gives the pairs this stream's data needs, as the direct
+    walk counts them, and leaves the blend itself unchanged."""
+    stream = make_stream(seed=2)
+    args = tuple(map(torch.as_tensor, stream))
+    acc, t_final, work = blend_stream_fwd_plain(*args, GRID_X, CHUNK, count_work=True)
+    ref = blend_stream_fwd_plain(*args, GRID_X, CHUNK)
+    assert torch.equal(acc, ref[0]) and torch.equal(t_final, ref[1])
+    assert work == numpy_work(*stream)
+    rows, counts = stream[:2]
+    assert 0 < work["blended"] < work["tested"] < work["evaluated"] < 256 * counts.sum()
+
+
 def test_blend_wrapper_validates_inputs():
     rows, counts, tstart, toff = map(torch.as_tensor, make_stream())
     with pytest.raises(ValueError, match="rows must be float32"):
