@@ -81,18 +81,20 @@ def write_ply(path, fields: dict[str, np.ndarray]):
 
 
 def save_gaussian_ply(path, state, sh_degree: int = 3):
-    """state: models.gaussians.GaussianState (alive slots only are written)."""
-    alive = np.asarray(state.alive)
-    means = np.asarray(state.means)[alive]
-    ins = np.asarray(state.ins_feat)[alive]
-    f_dc = np.asarray(state.sh_dc)[alive].reshape(means.shape[0], -1)  # [N,3]
-    f_rest = np.asarray(state.sh_rest)[alive]
+    """state: models.gaussians.GaussianState on any device (alive slots only
+    are written)."""
+    host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    alive = host(state.alive)
+    means = host(state.means)[alive]
+    ins = host(state.ins_feat)[alive]
+    f_dc = host(state.sh_dc)[alive].reshape(means.shape[0], -1)  # [N,3]
+    f_rest = host(state.sh_rest)[alive]
     # reference layout: features [N, K, 3] flattened channel-major (transpose
     # of (K,3) -> (3,K)) to f_rest_0..f_rest_44
     f_rest = f_rest.transpose(0, 2, 1).reshape(means.shape[0], -1)
-    op = np.asarray(state.logit_opacity)[alive]
-    scl = np.asarray(state.log_scales)[alive]
-    rot = np.asarray(state.quats)[alive]
+    op = host(state.logit_opacity)[alive]
+    scl = host(state.log_scales)[alive]
+    rot = host(state.quats)[alive]
 
     fields: dict[str, np.ndarray] = {}
     for i, k in enumerate("xyz"):

@@ -28,8 +28,6 @@ class TileBins:
     counts: torch.Tensor  # [T] int32 slots each tile blends (<= max_per_tile)
     tile_start: torch.Tensor  # [T] int32 offset of each tile's run
     sorted_gauss: torch.Tensor  # [P] int32 splat index per sorted slot
-    sorted_carry: torch.Tensor | None  # [P, D] the caller's `carry` rows in
-    # sorted-slot order
     total: torch.Tensor  # [] int32 intersections (rect slots before the cull)
     n_dropped: torch.Tensor  # [] int32, always 0 (P is sized per frame)
     n_truncated: torch.Tensor  # [] int32 slots lost to max_per_tile
@@ -46,12 +44,8 @@ def depth_rank(depth: torch.Tensor) -> torch.Tensor:
 
 def bin_gaussians(
     proj: Projected, grid_x: int, grid_y: int, max_per_tile: int,
-    carry: torch.Tensor | None = None,
 ) -> TileBins:
-    """Sort the frame's (splat, tile) slots by (tile, depth rank).
-
-    carry [N, D]: per-splat rows to deliver in sorted-slot order (one row
-    gather after the sort; returned as `sorted_carry`)."""
+    """Sort the frame's (splat, tile) slots by (tile, depth rank)."""
     num_tiles = grid_x * grid_y
     dev = proj.depth.device
     nt = proj.num_tiles.to(torch.int64)
@@ -98,7 +92,6 @@ def bin_gaussians(
         counts=i32(counts),
         tile_start=i32(tstart),
         sorted_gauss=i32(g_sorted),
-        sorted_carry=carry[g_sorted] if carry is not None else None,
         total=i32(nt.sum()),
         n_dropped=torch.zeros((), dtype=torch.int32, device=dev),
         n_truncated=i32((full_counts - counts).sum()),

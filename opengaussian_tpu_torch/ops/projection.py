@@ -85,11 +85,15 @@ def project(
     cov3d: torch.Tensor,
     camera: Camera,
     opacities: torch.Tensor | None = None,
+    screen_tap: torch.Tensor | None = None,
 ) -> Projected:
     """Project Gaussians to screen space.
 
     means3d [N,3] world-space centers, cov3d [N,3,3] world-space
-    covariances, opacities [N] (enables the opacity-aware tight radius)."""
+    covariances, opacities [N] (enables the opacity-aware tight radius),
+    screen_tap [N,2]: zeros added to the NDC position; its gradient is the
+    screen-space positional gradient densification reads (the reference's
+    `means2D` tap, gaussian_renderer/__init__.py:45-49)."""
     t = means3d @ camera.R_w2c.T + camera.t_w2c  # [N,3] camera space
     tz = t[..., 2]
     in_front = tz > NEAR_Z
@@ -148,6 +152,9 @@ def project(
     # pixel center via NDC
     ndc_x = t[..., 0] / tz_safe / tanfovx
     ndc_y = t[..., 1] / tz_safe / tanfovy
+    if screen_tap is not None:
+        ndc_x = ndc_x + screen_tap[..., 0]
+        ndc_y = ndc_y + screen_tap[..., 1]
     px = ((ndc_x + 1.0) * camera.width - 1.0) * 0.5
     py = ((ndc_y + 1.0) * camera.height - 1.0) * 0.5
     mean2d = torch.stack([px, py], dim=-1)

@@ -30,6 +30,8 @@ class RenderOutputs:
     depth: torch.Tensor | None = None  # [H,W]
     silhouette: torch.Tensor | None = None  # [H,W] alpha of the feature pass
     ins_feat: torch.Tensor | None = None  # [H,W,6]
+    screen_grad_tap: torch.Tensor | None = None  # the [N,2] tap whose grad
+    # is the densification signal
     visibility_filter: torch.Tensor | None = None  # [N] bool
     radii: torch.Tensor | None = None  # [N] int32
     n_lost: torch.Tensor | None = None  # [] int32 dropped+truncated slots
@@ -55,8 +57,11 @@ def render(
     quantized_feat: torch.Tensor | None = None,
     rescale_factor: torch.Tensor | float = 1.0,
     scale_modifier: float = 1.0,
+    screen_tap: torch.Tensor | None = None,
 ) -> RenderOutputs:
-    """Render one view: the color pass and/or the instance-feature pass."""
+    """Render one view: the color pass and/or the instance-feature pass.
+    screen_tap [N,2] (zeros) joins the color pass's NDC positions and comes
+    back as `screen_grad_tap`."""
     camera = camera.to(gs.device)
     scales = gs.scales * scale_modifier
     opac = gs.opacity
@@ -65,10 +70,11 @@ def render(
     if render_color:
         cov3d = build_cov3d(scales, gs.quats)
         rgb = sh_to_rgb(active_sh_degree, gs.sh, gs.means, camera.cam_center)
-        r = rasterize(camera, gs.means, cov3d, opac, rgb, bg, config)
+        r = rasterize(camera, gs.means, cov3d, opac, rgb, bg, config, screen_tap)
         out = dataclasses.replace(
             out, render=r.image, alpha=r.alpha, depth=r.depth, radii=r.radii,
             visibility_filter=r.radii > 0, n_lost=r.n_dropped + r.n_truncated,
+            screen_grad_tap=screen_tap,
         )
 
     if render_feat_map:

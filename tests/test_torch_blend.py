@@ -1,10 +1,12 @@
-"""Kernel contract of the port's stream blend (K1).
+"""Kernel contracts of the port's stream blend (K1), its backward (K2) and
+the per-splat reduce (K3).
 
-One slot stream is built with numpy and blended by the JAX package's Pallas
-kernel `blend_stream_pallas_fwd` (interpret mode on the CPU, as
-tests/test_pallas.py runs it) and by the port's `blend_stream_fwd`, which on
-a CPU tensor runs its plain PyTorch version. The CUDA kernel itself is held
-against the same plain version on the card by chip_smoke.py and by
+One slot stream is built with numpy and goes through the JAX package's
+Pallas kernels `blend_stream_pallas_fwd` / `blend_stream_pallas_bwd` /
+`sorted_segment_reduce` (interpret mode on the CPU, as tests/test_pallas.py
+runs them) and through the port's wrappers, which on a CPU tensor run their
+plain PyTorch versions. The CUDA kernels themselves are held against the
+same plain versions on the card by chip_smoke.py and by
 tests/test_torch_gpu.py.
 
 Traps to rule out before filing a mismatch as a fault:
@@ -24,24 +26,40 @@ import numpy as np
 import pytest
 import torch
 
-from opengaussian_tpu.ops.rasterize_pallas import LANES, blend_stream_pallas_fwd
+from opengaussian_tpu.ops.rasterize_pallas import (
+    LANES,
+    WSEG,
+    blend_stream_pallas_bwd,
+    blend_stream_pallas_fwd,
+    sorted_segment_reduce,
+)
 from opengaussian_tpu_torch.ops.rasterize_kernels import (
+    blend_stream_bwd,
+    blend_stream_bwd_plain,
     blend_stream_fwd,
     blend_stream_fwd_plain,
+    segment_reduce,
+    segment_reduce_plain,
 )
-from tests.test_torch_gpu import CHUNK, GRID_X, make_stream
+from tests.test_torch_gpu import CHUNK, GRID_X, make_bwd_stream, make_stream
 
 torch.set_num_threads(1)
 
-def jax_blend(rows, counts, tstart, toff, K):
+
+def _padded(rows, K):
+    """The JAX kernels' layout: lane-padded rows with the slot id as an
+    extra f32 column and K rows of zero padding."""
     P, F = rows.shape
-    ids = np.arange(P, dtype=np.float32)[:, None]
     padded = np.zeros((P + K, LANES), np.float32)
     padded[:P, :F] = rows
-    padded[:P, F:F + 1] = ids
+    padded[:P, F] = np.arange(P, dtype=np.float32)
+    return jnp.asarray(padded)
+
+
+def jax_blend(rows, counts, tstart, toff, K):
     acc, t_final = blend_stream_pallas_fwd(
-        jnp.asarray(padded), jnp.asarray(counts), jnp.asarray(tstart), GRID_X,
-        CHUNK, K, F + 1, jnp.asarray(toff))
+        _padded(rows, K), jnp.asarray(counts), jnp.asarray(tstart), GRID_X,
+        CHUNK, K, rows.shape[1] + 1, jnp.asarray(toff))
     return np.asarray(acc), np.asarray(t_final)
 
 
@@ -122,3 +140,85 @@ def test_blend_wrapper_validates_inputs():
         blend_stream_fwd(rows.t().contiguous().t(), counts, tstart, toff, GRID_X, CHUNK)
     with pytest.raises(ValueError, match="chunk"):
         blend_stream_fwd(rows, counts, tstart, toff, GRID_X, 0)
+
+
+def test_plain_bwd_matches_pallas():
+    """K2: the JAX kernel's dense [T, K, F + 1] rows, moved to stream order
+    by tstart, against the port's stream-order rows [P, F]."""
+    rows, counts, tstart, toff, acc, t_final, g_acc, g_t = make_bwd_stream()
+    K, F = 160, rows.shape[1]
+    d = np.asarray(blend_stream_pallas_bwd(
+        _padded(rows, K), jnp.asarray(counts), jnp.asarray(tstart),
+        jnp.asarray(acc), jnp.asarray(t_final), jnp.asarray(g_acc), jnp.asarray(g_t),
+        GRID_X, CHUNK, K, F + 1, jnp.asarray(toff)))
+    want = np.zeros_like(rows)
+    for t in range(len(counts)):
+        want[tstart[t]:tstart[t] + counts[t]] = d[t, :counts[t], :F]
+    got = blend_stream_bwd(*map(torch.as_tensor, (rows, counts, tstart, toff, acc,
+                                                  t_final, g_acc, g_t)),
+                           GRID_X, CHUNK)
+    np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4)
+    # the fixture exercises what it claims: tile 0 stops early, so the rest
+    # of its run has no gradient; tile 7 holds alphas clamped at 0.99
+    live = np.abs(want[:counts[0]]).sum(1) > 0
+    assert live[:5].all() and not live[-20:].any()
+    lane = np.arange(256)
+    px = (toff[7] % GRID_X) * 16 + lane % 16
+    py = (toff[7] // GRID_X) * 16 + lane // 16
+    r = rows[tstart[7]:tstart[7] + 5]
+    dx, dy = r[:, :1] - px, r[:, 1:2] - py
+    power = -0.5 * (r[:, 2:3] * dx * dx + r[:, 4:5] * dy * dy) - r[:, 3:4] * dx * dy
+    assert (np.exp(np.minimum(power, 0)) >= 0.99).any()
+    assert np.abs(got.numpy()).max() > 10.0
+
+
+def test_plain_bwd_chunk_invariant():
+    args = tuple(map(torch.as_tensor, make_bwd_stream(seed=1)))
+    ref = blend_stream_bwd_plain(*args, GRID_X, 7)
+    for chunk in (1, 32, 256):
+        assert torch.equal(blend_stream_bwd_plain(*args, GRID_X, chunk), ref)
+
+
+def test_plain_bwd_work_counts_match_forward():
+    """The replay walks exactly the forward's pairs."""
+    stream = make_bwd_stream(seed=2)
+    args = tuple(map(torch.as_tensor, stream))
+    _, work = blend_stream_bwd_plain(*args, GRID_X, CHUNK, count_work=True)
+    assert work == numpy_work(*stream[:4])
+
+
+@pytest.mark.parametrize("R,n", [(3000, 700), (5000, WSEG * 2), (2000, 33)])
+def test_plain_reduce_matches_pallas(R, n):
+    """K3 at tests/test_pallas.py's shapes: ids equal to n are dropped, ids
+    on the JAX kernel's window edges are summed like any other."""
+    rng = np.random.default_rng(5)
+    rows = rng.normal(0, 1, (R, 11)).astype(np.float32)
+    ids = rng.integers(0, n + 1, R)
+    ids[:50] = np.clip([0, n - 1, WSEG - 1, WSEG, n], 0, n)[rng.integers(0, 5, 50)]
+    ids = ids.astype(np.int32)
+    want = np.asarray(sorted_segment_reduce(jnp.asarray(rows), jnp.asarray(ids), n))
+    got = segment_reduce(torch.as_tensor(rows), torch.as_tensor(ids), n)
+    assert got.shape == (n, 11)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    assert (ids == n).any()
+
+
+def test_reduce_wrapper_validates_inputs():
+    rows = torch.zeros((4, 3))
+    ids = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="ids must be int32"):
+        segment_reduce(rows, ids.long(), 2)
+    with pytest.raises(ValueError, match="rows must be float32"):
+        segment_reduce(rows.double(), ids, 2)
+    assert torch.equal(segment_reduce_plain(rows + 1, ids - 1, 2), torch.zeros(2, 3))
+
+
+def test_bwd_wrapper_validates_inputs():
+    rows, counts, tstart, toff, acc, t_final, g_acc, g_t = map(
+        torch.as_tensor, make_bwd_stream())
+    with pytest.raises(ValueError, match="g_accum must be float32"):
+        blend_stream_bwd(rows, counts, tstart, toff, acc, t_final, g_acc[:, :2],
+                         g_t, GRID_X, CHUNK)
+    with pytest.raises(ValueError, match="t_final must be contiguous"):
+        blend_stream_bwd(rows, counts, tstart, toff, acc, t_final.t().contiguous().t(),
+                         g_acc, g_t, GRID_X, CHUNK)

@@ -18,8 +18,12 @@ from opengaussian_tpu_torch.ops.oracle import rasterize_oracle
 from opengaussian_tpu_torch.ops.projection import build_cov3d
 from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
 from opengaussian_tpu_torch.ops.rasterize_kernels import (
+    blend_stream_bwd,
+    blend_stream_bwd_plain,
     blend_stream_fwd,
     blend_stream_fwd_plain,
+    segment_reduce,
+    segment_reduce_plain,
 )
 
 GRID_X, GRID_Y = 4, 3
@@ -59,6 +63,25 @@ def make_stream(seed=0, C=4):
     return rows, counts, tstart, toff
 
 
+def make_bwd_stream(seed=0, C=4):
+    """make_stream's stream, with opacity 1 on five slots of tile 7 (their
+    alpha clamps at 0.99 near their centers), its forward outputs from the
+    plain version, and seeded cotangents g_accum [T, C, 256], g_t [T, 256]
+    ~ N(0, 0.1^2). (A mean loss's cotangents are smaller still. At unit
+    cotangents the conic gradients grow so large that near-cancelling sums
+    over a tile's pixels differ by more than 3e-5 between two summation
+    orders.)
+    -> (rows, counts, tstart, toff, accum, t_final, g_accum, g_t)."""
+    rows, counts, tstart, toff = make_stream(seed, C)
+    rows[tstart[7]:tstart[7] + 5, 5] = 1.0
+    acc, t_final = blend_stream_fwd_plain(
+        *map(torch.as_tensor, (rows, counts, tstart, toff)), GRID_X, CHUNK)
+    rng = np.random.default_rng(seed + 100)
+    g_acc = rng.normal(0, 0.1, size=acc.shape).astype(np.float32)
+    g_t = rng.normal(0, 0.1, size=t_final.shape).astype(np.float32)
+    return rows, counts, tstart, toff, acc.numpy(), t_final.numpy(), g_acc, g_t
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -77,6 +100,30 @@ def test_kernel_matches_plain(cuda, C):
     acc_p, t_p = blend_stream_fwd_plain(*args, GRID_X, CHUNK)
     torch.testing.assert_close(acc, acc_p, **TOL)
     torch.testing.assert_close(t_final, t_p, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [4, 7])
+def test_bwd_kernel_matches_plain(cuda, C):
+    args = [torch.as_tensor(x, device=cuda) for x in make_bwd_stream(C=C)]
+    before = blend_stream_bwd.launches
+    d = blend_stream_bwd(*args, GRID_X, CHUNK)
+    torch.cuda.synchronize()
+    assert blend_stream_bwd.launches == before + 1
+    torch.testing.assert_close(d, blend_stream_bwd_plain(*args, GRID_X, CHUNK), **TOL)
+
+
+@pytest.mark.gpu
+def test_reduce_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(5)
+    rows = torch.as_tensor(rng.normal(0, 1, (50_000, 10)).astype(np.float32), device=cuda)
+    ids = torch.as_tensor(rng.integers(0, 3001, 50_000).astype(np.int32), device=cuda)
+    before = segment_reduce.launches
+    out = segment_reduce(rows, ids, 3000)
+    torch.cuda.synchronize()
+    assert segment_reduce.launches == before + 1
+    torch.testing.assert_close(out, segment_reduce_plain(rows, ids, 3000),
+                               atol=2e-5, rtol=1e-4)
 
 
 @pytest.mark.gpu

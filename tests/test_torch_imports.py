@@ -21,10 +21,12 @@ def test_port_imports_no_jax():
                      if m.split(".")[0] in ("jax", "jaxlib", "opengaussian_tpu"))
         print(len(names), bad)
         assert not bad, bad
-        assert "opengaussian_tpu_torch.cli.render" in names
+        for m in ("cli.render", "cli.train", "train.loop", "train.losses", "ops.ssim",
+                  "models.optimizer", "config"):
+            assert "opengaussian_tpu_torch." + m in names, m
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 20
+    assert int(proc.stdout.split()[0]) >= 26

@@ -128,13 +128,19 @@ def test_rasterize_matches_oracle(tight):
 
 
 def test_rasterize_is_forward_only():
+    """The forward is the same with and without autograd; with it, the
+    backward (StreamBlend) gives finite gradients. Their values are held
+    against jax.grad in tests/test_torch_rasterize_grad.py."""
     s = state_from_numpy(random_state_arrays(n=20, cap=20), device="cpu")
     _, cam = cameras(32, 32)
     means = s.means.clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        rasterize(cam, means, build_cov3d(s.scales, s.quats), s.opacity,
-                  s.means, torch.zeros(3))
+    out = rasterize(cam, means, build_cov3d(s.scales, s.quats), s.opacity,
+                    s.means, torch.zeros(3))
+    out.image.sum().backward()
+    assert means.grad is not None and bool(torch.isfinite(means.grad).all())
+    assert float(means.grad.abs().sum()) > 0
     with torch.no_grad():
-        out = rasterize(cam, means, build_cov3d(s.scales, s.quats), s.opacity,
-                        s.means, torch.zeros(3))
-    assert out.image.shape == (32, 32, 3)
+        out2 = rasterize(cam, means, build_cov3d(s.scales, s.quats), s.opacity,
+                         s.means, torch.zeros(3))
+    assert out2.image.shape == (32, 32, 3)
+    assert torch.equal(out2.image, out.image.detach())
