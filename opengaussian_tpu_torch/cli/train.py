@@ -1,13 +1,14 @@
-"""Training CLI, stage 0 (port of opengaussian_tpu/cli/train.py; reference
-train.py:1029-1064), with the same flags.
+"""Training CLI, stages 0 to 2.1 (port of opengaussian_tpu/cli/train.py;
+reference train.py:1029-1064), with the same flags.
 
     python -m opengaussian_tpu_torch.cli.train -s <scene> -m <out> --iterations N
 
-Runs on the GPU. This slice of the port trains stage 0 (3DGS pretraining),
-so --iterations must not pass start_ins_feat_iter; it saves
-point_cloud/iteration_N/point_cloud.ply at the save milestones, which
-`opengaussian_tpu_torch.cli.render` renders. A flag whose feature the port
-does not have yet raises NotImplementedError.
+Runs on the GPU. The port trains stage 0 (3DGS pretraining), stage 1 (SAM
+instance features) and stage 2.1 (the root codebook), so --iterations must
+not pass start_leaf_cb_iter. It saves point_cloud/iteration_N/point_cloud.ply
+at the save milestones, which `opengaussian_tpu_torch.cli.render` renders,
+and past start_root_cb_iter the root codebook beside it. A flag whose feature
+the port does not have yet raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import os
 from opengaussian_tpu_torch.config import PRESETS, Config, ModelConfig
 from opengaussian_tpu_torch.data.dataset import load_scene
 from opengaussian_tpu_torch.device import resolve_device
+from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig
 from opengaussian_tpu_torch.train.loop import LATER_STAGES, Trainer
 
 OPT_FLAGS = (
@@ -36,7 +38,7 @@ OPT_FLAGS = (
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Train OpenGaussian (PyTorch port, stage 0)")
+    p = argparse.ArgumentParser(description="Train OpenGaussian (PyTorch port, stages 0-2.1)")
     p.add_argument("--source_path", "-s", required=True)
     p.add_argument("--model_path", "-m", default="")
     p.add_argument("--images", default="images")
@@ -107,16 +109,17 @@ def _refuse_left_out(args, cfg: Config) -> None:
         if given:
             raise NotImplementedError(
                 f"{flag}: {what} is not in the PyTorch port yet (see ROADMAP.md)")
-    if cfg.opt.iterations > cfg.opt.start_ins_feat_iter:
+    if cfg.opt.iterations > cfg.opt.start_leaf_cb_iter:
         raise NotImplementedError(
-            f"--iterations {cfg.opt.iterations} is past start_ins_feat_iter="
-            f"{cfg.opt.start_ins_feat_iter}: the port trains stage 0 only; "
+            f"--iterations {cfg.opt.iterations} is past start_leaf_cb_iter="
+            f"{cfg.opt.start_leaf_cb_iter}: the port trains stages 0 to 2.1; "
             + LATER_STAGES)
 
 
-def main(argv=None, device="cuda") -> Trainer:
-    """Parse the flags, train stage 0 on `device` and save at the
-    milestones. -> the Trainer, whose `losses` and `history` hold the run."""
+def main(argv=None, device="cuda", rcfg: RasterizeConfig | None = None) -> Trainer:
+    """Parse the flags, train on `device` and save at the milestones. rcfg:
+    the rasterizer's settings (default RasterizeConfig(), the stream layout).
+    -> the Trainer, whose `losses` and `history` hold the run."""
     args = build_parser().parse_args(argv)
     cfg = PRESETS.get(args.preset, Config()) if args.preset else Config()
     opt_over = {k: getattr(args, k) for k in OPT_FLAGS if getattr(args, k) is not None}
@@ -137,7 +140,7 @@ def main(argv=None, device="cuda") -> Trainer:
     print(f"{len(scene.train_views)} train / {len(scene.test_views)} test views, "
           f"{len(scene.points)} init points, extent {scene.cameras_extent:.2f}",
           flush=True)
-    tr = Trainer(scene, cfg, out_dir, seed=args.seed, device=dev)
+    tr = Trainer(scene, cfg, out_dir, rcfg=rcfg, seed=args.seed, device=dev)
 
     o = cfg.opt
     save_iters = args.save_iterations or [o.start_ins_feat_iter, o.start_root_cb_iter,

@@ -4,21 +4,13 @@
 // (the Pallas call at line 670; kernel _bwd_stream_kernel, math
 // _chunk_blend_math + _chunk_grad_rows). Given the forward's accum and
 // t_final and the cotangents g_accum and g_t, every pixel walks its tile's
-// run again in the forward's order (same alpha, skip and early-stop rules as
-// csrc/blend_stream_fwd.cu) and uses the suffix form of the blend's
-// derivative, which needs no back-to-front pass and no stored per-slot state:
-//   ga_total = sum_c g_accum[c] * accum[c]            (per pixel, once)
-//   gc       = sum_c g_accum[c] * payload[c]          (per slot and pixel)
-//   b_inc   += w * gc                                 (inclusive running sum)
-//   d_alpha  = T_prev * gc - (ga_total - b_inc) / (1 - a)
-//              - g_t * t_final / (1 - a)              (1 - a floored at 0.01)
-// d_alpha is zero where alpha was clamped at 0.99 and for pixels that had
-// stopped. From it: d_power = a * d_alpha, the conic and mean2d gradients of
-// the quadratic form, d_opacity = d_alpha * exp(power), d_payload = w * g_accum.
-// Each slot's row is the sum of its 256 pixels' contributions, written at the
-// slot's position in the stream: d_rows [P, 6 + C] (dmean2d 2, dconic 3,
-// dopacity 1, dpayload C). Rows no tile walks (past counts[t], past the last
-// tile, or after a CTA stopped early) are left as the caller zeroed them.
+// run again in the forward's order and takes the suffix form of the blend's
+// derivative (blend_tile.cuh:blend_run_bwd, which the dense-block backward
+// blend_tiles_bwd.cu, K6, shares). Each slot's row is the sum of its 256
+// pixels' contributions, written at the slot's position in the stream:
+// d_rows [P, 6 + C] (dmean2d 2, dconic 3, dopacity 1, dpayload C). Rows no
+// tile walks (past counts[t], past the last tile, or after a CTA stopped
+// early) are left as the caller zeroed them.
 //
 // Bound on an H100: operations. A (slot, pixel) pair costs the forward's ~24
 // fp32 operations to evaluate again (+3 past the 1/255 test); a pair that
@@ -48,20 +40,11 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_tile.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;  // threads per CTA: one per pixel
-constexpr int kWarps = kPix / 32;
-constexpr int kMaxC = 16;  // payload channels one thread holds (MAX_C)
-constexpr int kMaxF = 6 + kMaxC;
-constexpr unsigned kFull = 0xffffffffu;
-
-// opengaussian_tpu/ops/blend.py, rounded to float as the JAX package does
-constexpr float kAlphaMin = static_cast<float>(1.0 / 255.0);
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
-constexpr float kMinOneMinusA = static_cast<float>(1.0 - 0.99);
+using og_blend::kPix;
 
 // rows: [P, n_fields] f32 = mean2d x/y, conic a/b/c, opacity, payload (C).
 // counts/tstart/toff: [T] int32. accum/g_accum: [T, C, 256];
@@ -76,123 +59,13 @@ blend_stream_bwd_kernel(const float* __restrict__ rows, int n_fields,
                         const float* __restrict__ g_accum,
                         const float* __restrict__ g_t,
                         float* __restrict__ d_rows) {
-  extern __shared__ float smem[];
-  float* srow = smem;                       // [chunk, n_fields]
-  float* part = smem + chunk * n_fields;    // [kWarps, chunk, n_fields]
-  const int t = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int warp = lane / 32;
-  const int wl = lane % 32;
-  const int C = n_fields - 6;
-  const int cnt = counts[t];
-  const long long start = tstart[t];
-  const int tile = toff[t];
-  // integer pixel coordinates (rasterize_pallas.py:_pixels), not +0.5
-  const float px = static_cast<float>((tile % grid_x) * kTile + lane % kTile);
-  const float py = static_cast<float>((tile / grid_x) * kTile + lane / kTile);
-
-  const long long pix = static_cast<long long>(t) * kPix + lane;
-  const long long cbase = static_cast<long long>(t) * C * kPix + lane;
-  float gacc[kMaxC];
-  float ga_total = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kMaxC; ++c) {
-    gacc[c] = 0.0f;
-    if (c < C) {
-      gacc[c] = g_accum[cbase + c * kPix];
-      const float term = gacc[c] * accum[cbase + c * kPix];
-      ga_total = c == 0 ? term : ga_total + term;
-    }
-  }
-  const float gtt = g_t[pix] * t_final[pix];
-
-  float T = 1.0f;
-  float bacc = 0.0f;
-  int done = 0;
-  for (int base = 0; base < cnt; base += chunk) {
-    // Every pixel stopped: the rest of the run gets no gradient. This is
-    // also the barrier that keeps the staging below from overwriting rows
-    // and partials the previous chunk is still reading.
-    if (__syncthreads_and(done)) break;
-    const int n = min(chunk, cnt - base);
-    const float* src = rows + (start + base) * n_fields;
-    for (int i = lane; i < n * n_fields; i += kPix) srow[i] = src[i];
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-      const float* g = srow + k * n_fields;
-      float v[kMaxF];
-#pragma unroll
-      for (int f = 0; f < kMaxF; ++f) v[f] = 0.0f;
-      bool contrib = false;
-      if (!done) {
-        const float dx = g[0] - px;
-        const float dy = g[1] - py;
-        const float power =
-            -0.5f * (g[2] * dx * dx + g[4] * dy * dy) - g[3] * dx * dy;
-        const float gauss = expf(fminf(power, 0.0f));
-        const float araw = power <= 0.0f ? g[5] * gauss : 0.0f;
-        const float a = fminf(araw, kAlphaMax);
-        if (a >= kAlphaMin) {
-          const float t_next = T * (1.0f - a);
-          if (t_next < kTEps) {
-            done = 1;
-          } else {
-            contrib = true;
-            const float w = a * T;
-            float gc = 0.0f;
-#pragma unroll
-            for (int c = 0; c < kMaxC; ++c) {
-              if (c < C) {
-                const float term = g[6 + c] * gacc[c];
-                gc = c == 0 ? term : gc + term;
-              }
-            }
-            bacc = bacc + w * gc;
-            const float one_m_a = fmaxf(1.0f - a, kMinOneMinusA);
-            float d_alpha =
-                T * gc - (ga_total - bacc) / one_m_a - gtt / one_m_a;
-            // min(0.99, .) has no gradient where it clamped
-            if (!(araw < kAlphaMax)) d_alpha = 0.0f;
-            const float d_power = a * d_alpha;
-            const float ca = g[2], cb = g[3], cc = g[4];
-            v[0] = d_power * -(ca * dx + cb * dy);
-            v[1] = d_power * -(cc * dy + cb * dx);
-            v[2] = d_power * (-0.5f * dx * dx);
-            v[3] = d_power * (-dx * dy);
-            v[4] = d_power * (-0.5f * dy * dy);
-            v[5] = d_alpha * gauss;
-#pragma unroll
-            for (int c = 0; c < kMaxC; ++c)
-              if (c < C) v[6 + c] = w * gacc[c];
-            T = t_next;
-          }
-        }
-      }
-      float* out = part + (warp * chunk + k) * n_fields;
-      if (__any_sync(kFull, contrib)) {
-#pragma unroll
-        for (int f = 0; f < kMaxF; ++f) {
-          if (f < n_fields) {
-            float x = v[f];
-#pragma unroll
-            for (int off = 16; off > 0; off /= 2)
-              x = x + __shfl_down_sync(kFull, x, off);
-            if (wl == 0) out[f] = x;
-          }
-        }
-      } else if (wl == 0) {
-        for (int f = 0; f < n_fields; ++f) out[f] = 0.0f;
-      }
-    }
-    __syncthreads();
-    // each (slot, field): the 8 warps' partials in warp order
-    float* dst = d_rows + (start + base) * n_fields;
-    for (int i = lane; i < n * n_fields; i += kPix) {
-      float s = part[i];
-      for (int w = 1; w < kWarps; ++w) s = s + part[w * chunk * n_fields + i];
-      dst[i] = s;
-    }
-  }
+  const long long t = blockIdx.x;
+  const long long C = n_fields - 6;
+  const long long start = tstart[t] * static_cast<long long>(n_fields);
+  og_blend::blend_run_bwd(rows + start, n_fields, counts[t], toff[t], grid_x,
+                          chunk, accum + t * C * kPix, t_final + t * kPix,
+                          g_accum + t * C * kPix, g_t + t * kPix,
+                          d_rows + start);
 }
 
 }  // namespace
@@ -206,8 +79,7 @@ int og_blend_stream_bwd(const float* rows, int n_fields, const int* counts,
                         const float* t_final, const float* g_accum,
                         const float* g_t, float* d_rows, void* stream) {
   if (n_tiles > 0) {
-    const size_t smem =
-        static_cast<size_t>(1 + kWarps) * chunk * n_fields * sizeof(float);
+    const size_t smem = og_blend::bwd_smem_bytes(chunk, n_fields);
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
           blend_stream_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -28,6 +28,9 @@
 // Left for later work: warp-level culling of slots no pixel of the warp
 // touches, and load balance for very deep tiles.
 //
+// The walk itself is blend_tile.cuh:blend_run_fwd, which the dense-block
+// forward (blend_tiles_fwd.cu, K5) shares.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared.
 // No --use_fast_math: expf near the 1/255 and 1e-4 thresholds must round as
 // in the plain PyTorch version, and -fmad=false keeps every multiply and add
@@ -35,16 +38,11 @@
 
 #include <cuda_runtime.h>
 
+#include "blend_tile.cuh"
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;  // threads per CTA: one per pixel
-constexpr int kMaxC = 16;  // payload channels one thread accumulates (MAX_C)
-
-// opengaussian_tpu/ops/blend.py, rounded to float as the JAX package does
-constexpr float kAlphaMin = static_cast<float>(1.0 / 255.0);
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
+using og_blend::kPix;
 
 // rows: [P, n_fields] f32 = mean2d x/y, conic a/b/c, opacity, payload (C).
 // counts/tstart/toff: [T] int32. accum: [T, C, 256], t_final: [T, 256].
@@ -55,60 +53,11 @@ blend_stream_fwd_kernel(const float* __restrict__ rows, int n_fields,
                         const int* __restrict__ toff, int grid_x, int chunk,
                         float* __restrict__ accum,
                         float* __restrict__ t_final) {
-  extern __shared__ float srow[];  // [chunk, n_fields]
-  const int t = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int C = n_fields - 6;
-  const int cnt = counts[t];
-  const long long start = tstart[t];
-  const int tile = toff[t];
-  // integer pixel coordinates (rasterize_pallas.py:_pixels), not +0.5
-  const float px = static_cast<float>((tile % grid_x) * kTile + lane % kTile);
-  const float py = static_cast<float>((tile / grid_x) * kTile + lane / kTile);
-
-  float T = 1.0f;
-  int done = 0;
-  float acc[kMaxC];
-#pragma unroll
-  for (int c = 0; c < kMaxC; ++c) acc[c] = 0.0f;
-
-  for (int base = 0; base < cnt; base += chunk) {
-    // Every pixel stopped: the tile is finished. This is also the barrier
-    // that keeps the staging below from overwriting rows still being read.
-    if (__syncthreads_and(done)) break;
-    const int n = min(chunk, cnt - base);
-    const float* src = rows + (start + base) * n_fields;
-    for (int i = lane; i < n * n_fields; i += kPix) srow[i] = src[i];
-    __syncthreads();
-    if (done) continue;
-    for (int k = 0; k < n; ++k) {
-      const float* g = srow + k * n_fields;
-      const float dx = g[0] - px;
-      const float dy = g[1] - py;
-      const float power =
-          -0.5f * (g[2] * dx * dx + g[4] * dy * dy) - g[3] * dx * dy;
-      const float gauss = expf(fminf(power, 0.0f));
-      const float araw = power <= 0.0f ? g[5] * gauss : 0.0f;
-      const float a = fminf(araw, kAlphaMax);
-      if (!(a >= kAlphaMin)) continue;
-      const float t_next = T * (1.0f - a);
-      if (t_next < kTEps) {
-        done = 1;
-        break;
-      }
-      const float w = a * T;
-#pragma unroll
-      for (int c = 0; c < kMaxC; ++c)
-        if (c < C) acc[c] += g[6 + c] * w;
-      T = t_next;
-    }
-  }
-
-  float* out = accum + static_cast<long long>(t) * C * kPix + lane;
-#pragma unroll
-  for (int c = 0; c < kMaxC; ++c)
-    if (c < C) out[c * kPix] = acc[c];
-  t_final[static_cast<long long>(t) * kPix + lane] = T;
+  const long long t = blockIdx.x;
+  const long long C = n_fields - 6;
+  og_blend::blend_run_fwd(rows + tstart[t] * static_cast<long long>(n_fields),
+                          n_fields, counts[t], toff[t], grid_x, chunk,
+                          accum + t * C * kPix, t_final + t * kPix);
 }
 
 }  // namespace

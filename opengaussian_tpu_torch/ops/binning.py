@@ -1,10 +1,13 @@
 """Tile binning: splat -> (tile, depth)-sorted slot stream.
 
-Port of opengaussian_tpu/ops/binning.py, stream layout only. Each splat is
-expanded into one slot per tile of its rect, slots that fail the exact
-circle-tile cull are moved past the last tile, and one sort by (tile, global
-depth rank) makes every tile's slots a contiguous front-to-back run of the
-stream: `tile_start[t]` and `counts[t]` address it.
+Port of opengaussian_tpu/ops/binning.py, stream and dense layouts. Each
+splat is expanded into one slot per tile of its rect, slots that fail the
+exact circle-tile cull are moved past the last tile, and one sort by (tile,
+global depth rank) makes every tile's slots a contiguous front-to-back run of
+the stream: `tile_start[t]` and `counts[t]` address it. The dense layout
+also lays each run out as row t of a [T, K] splat-index matrix `gauss_idx`
+(K = max_per_tile): its first counts[t] entries are the run, front to back,
+and the rest hold 0, as the JAX package's scatter leaves them.
 
 Unlike the JAX package, the slot buffer is sized from this frame's exact
 intersection total (as the reference CUDA rasterizer sizes its key buffer
@@ -32,6 +35,7 @@ class TileBins:
     n_dropped: torch.Tensor  # [] int32, always 0 (P is sized per frame)
     n_truncated: torch.Tensor  # [] int32 slots lost to max_per_tile
     deepest: torch.Tensor  # [] int32 slots in the deepest tile, before the cap
+    gauss_idx: torch.Tensor | None = None  # [T, K] int32 splat per dense slot
 
 
 def depth_rank(depth: torch.Tensor) -> torch.Tensor:
@@ -43,9 +47,10 @@ def depth_rank(depth: torch.Tensor) -> torch.Tensor:
 
 
 def bin_gaussians(
-    proj: Projected, grid_x: int, grid_y: int, max_per_tile: int,
+    proj: Projected, grid_x: int, grid_y: int, max_per_tile: int, dense: bool = False,
 ) -> TileBins:
-    """Sort the frame's (splat, tile) slots by (tile, depth rank)."""
+    """Sort the frame's (splat, tile) slots by (tile, depth rank); with
+    dense, also build the [T, max_per_tile] splat-index matrix."""
     num_tiles = grid_x * grid_y
     dev = proj.depth.device
     nt = proj.num_tiles.to(torch.int64)
@@ -88,6 +93,13 @@ def bin_gaussians(
     full_counts = edges[1:] - tstart
     counts = torch.clamp(full_counts, max=max_per_tile)
     i32 = lambda x: x.to(torch.int32)  # noqa: E731
+    gauss_idx = None
+    if dense:  # slot k of tile t is stream slot tstart[t] + k while k < counts[t]
+        k = torch.arange(max_per_tile, device=dev)
+        pos = torch.clamp(tstart[:, None] + k[None, :], max=max(g_sorted.shape[0] - 1, 0))
+        live = k[None, :] < counts[:, None]
+        src = g_sorted if g_sorted.numel() else torch.zeros(1, dtype=g.dtype, device=dev)
+        gauss_idx = i32(torch.where(live, src[pos], 0))
     return TileBins(
         counts=i32(counts),
         tile_start=i32(tstart),
@@ -96,4 +108,5 @@ def bin_gaussians(
         n_dropped=torch.zeros((), dtype=torch.int32, device=dev),
         n_truncated=i32((full_counts - counts).sum()),
         deepest=i32(full_counts.max()),
+        gauss_idx=gauss_idx,
     )

@@ -2,11 +2,19 @@
 
 project -> bin (sorted slot stream) -> per-tile blend -> untile. Any
 C-channel payload composites in one pass, with depth appended as one more
-channel. The blend is `StreamBlend`, the counterpart of the JAX package's
-custom VJP `rasterize_pallas.py:blend_tiles_pallas_stream`: its forward
-launches `rasterize_kernels.blend_stream_fwd`, its backward
-`blend_stream_bwd` (per-slot gradient rows) and then `segment_reduce`
-(per-splat sums). On the CPU each of them runs its plain PyTorch version.
+channel. The blend takes one of two input layouts, as in the JAX package
+(`RasterizeConfig.pallas_input`):
+  * "stream" (default): `StreamBlend`, the counterpart of the custom VJP
+    `rasterize_pallas.py:blend_tiles_pallas_stream`. Its forward launches
+    `rasterize_kernels.blend_stream_fwd` (K1) on the sorted slot rows, its
+    backward `blend_stream_bwd` (K2, per-slot gradient rows) and then
+    `segment_reduce` (K3, per-splat sums).
+  * "dense": `DenseBlend`, the counterpart of the custom VJP
+    `blend_tiles_pallas`. Its forward gathers a [T, K, 6 + C] block and
+    launches `blend_tiles_fwd` (K5), its backward `blend_tiles_bwd` (K6,
+    d_slot [T, K, 6 + C]) and then `segment_reduce` over the block's rows.
+Both give the same images and gradients. On the CPU each kernel runs its
+plain PyTorch version.
 
 Gradients by means3d, cov3d, opacities, payload and the screen tap flow
 through `project` by ordinary autograd; only the blend has its own backward.
@@ -25,8 +33,12 @@ from opengaussian_tpu_torch.ops.rasterize_kernels import (
     N_GEOM,
     blend_stream_bwd,
     blend_stream_fwd,
+    blend_tiles_bwd,
+    blend_tiles_fwd,
     segment_reduce,
 )
+
+LAYOUTS = ("stream", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +51,17 @@ class RasterizeConfig:
     # opacity-aware cutoff radius (pixel-exact, touches fewer tiles than the
     # classic 3-sigma rect; radii shrink for translucent splats)
     tight_radius: bool = True
+    # blend input layout: "stream" = the kernels read each tile's run out of
+    # the sorted slot stream; "dense" = a [T, K, 6 + C] block gathered per
+    # tile (the JAX package's field of the same name)
+    pallas_input: str = "stream"
+
+    def __post_init__(self):
+        if self.chunk <= 0 or self.max_per_tile % self.chunk:
+            raise ValueError("max_per_tile must be a multiple of chunk")
+        if self.pallas_input not in LAYOUTS:
+            raise ValueError(f"pallas_input must be one of {LAYOUTS}, got "
+                             f"{self.pallas_input!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,7 +82,8 @@ def _prepare(camera: Camera, means3d, cov3d, opacities, config: RasterizeConfig,
     proj = project(means3d, cov3d, camera,
                    opacities=opacities if config.tight_radius else None,
                    screen_tap=screen_tap)
-    bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile)
+    bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile,
+                         dense=config.pallas_input == "dense")
     return proj, bins, (grid_x, grid_y)
 
 
@@ -67,15 +91,19 @@ def _prepare(camera: Camera, means3d, cov3d, opacities, config: RasterizeConfig,
 def deepest_tile(camera: Camera, means3d, cov3d, opacities,
                  config: RasterizeConfig) -> int:
     """Slots in this frame's deepest tile, before the max_per_tile cap."""
+    config = dataclasses.replace(config, pallas_input="stream")  # no [T, K] matrix
     _, bins, _ = _prepare(camera.to(means3d.device), means3d, cov3d, opacities, config)
     return int(bins.deepest)
 
 
-def stream_rows(mean2d, conic, opac, payload, sorted_gauss) -> torch.Tensor:
-    """The blend's input rows in sorted-slot order: per slot its splat's
-    mean2d (2), conic (3), opacity (1) and payload (C). -> [P, 6 + C]."""
+def gather_rows(mean2d, conic, opac, payload, idx) -> torch.Tensor:
+    """The blend's input rows: for each slot of idx (any shape), its splat's
+    mean2d (2), conic (3), opacity (1) and payload (C). -> [*idx.shape, 6 + C].
+    With the stream's sorted_gauss [P] these are the sorted slot rows; with
+    the dense gauss_idx [T, K] the block `gdata` (the JAX package's
+    rasterize_pallas.py:_make_gdata)."""
     table = torch.cat([mean2d, conic, opac[:, None], payload], dim=-1)
-    return table[sorted_gauss.to(torch.int64)]
+    return table[idx.to(torch.int64)]
 
 
 class StreamBlend(torch.autograd.Function):
@@ -91,7 +119,7 @@ class StreamBlend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mean2d, conic, opac, payload, sorted_gauss, tile_start,
                 counts, toff, grid_x: int, chunk: int):
-        rows = stream_rows(mean2d, conic, opac, payload, sorted_gauss)
+        rows = gather_rows(mean2d, conic, opac, payload, sorted_gauss)
         accum, t_final = blend_stream_fwd(rows, counts, tile_start, toff, grid_x,
                                           chunk)
         ctx.save_for_backward(rows, sorted_gauss, tile_start, counts, toff,
@@ -108,6 +136,40 @@ class StreamBlend(torch.autograd.Function):
         per = segment_reduce(d_rows, sorted_gauss, ctx.n)
         return (per[:, 0:2], per[:, 2:5], per[:, 5], per[:, N_GEOM:],
                 None, None, None, None, None, None)
+
+
+class DenseBlend(torch.autograd.Function):
+    """Blend of a dense [T, K] layout with a per-splat backward (the JAX
+    package's custom VJP rasterize_pallas.py:blend_tiles_pallas).
+
+    forward(mean2d [N,2], conic [N,3], opac [N], payload [N,C], gauss_idx
+    [T,K], counts [T], grid_x, chunk) -> (accum [T, C, 256], t_final
+    [T, 256]). The block gdata [T, K, 6+C] is gathered inside the forward,
+    where autograd records nothing, as in StreamBlend. The backward takes
+    d_slot [T, K, 6+C] from the K6 replay and sums its rows per splat with
+    K3; slots k >= counts[t] hold splat 0 in gauss_idx, so their ids are set
+    to n, which the reduce drops."""
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, opac, payload, gauss_idx, counts, grid_x: int,
+                chunk: int):
+        gdata = gather_rows(mean2d, conic, opac, payload, gauss_idx)
+        accum, t_final = blend_tiles_fwd(gdata, counts, grid_x, chunk)
+        ctx.save_for_backward(gdata, gauss_idx, counts, accum, t_final)
+        ctx.grid_x, ctx.chunk, ctx.n = grid_x, chunk, mean2d.shape[0]
+        return accum, t_final
+
+    @staticmethod
+    def backward(ctx, g_accum, g_t):
+        gdata, gauss_idx, counts, accum, t_final = ctx.saved_tensors
+        d_slot = blend_tiles_bwd(gdata, counts, accum, t_final, g_accum.contiguous(),
+                                 g_t.contiguous(), ctx.grid_x, ctx.chunk)
+        T, K, F = gdata.shape
+        live = torch.arange(K, device=counts.device)[None, :] < counts[:, None]
+        ids = torch.where(live, gauss_idx, ctx.n).to(torch.int32)
+        per = segment_reduce(d_slot.view(T * K, F), ids.view(T * K), ctx.n)
+        return (per[:, 0:2], per[:, 2:5], per[:, 5], per[:, N_GEOM:],
+                None, None, None, None)
 
 
 def _untile(x: torch.Tensor, grid_x: int, grid_y: int, H: int, W: int) -> torch.Tensor:
@@ -136,13 +198,18 @@ def _images(camera: Camera, grids, accum, t_final, bg):
 def _composite(camera: Camera, proj: Projected, bins: TileBins, grids,
                opacities, payload, bg, config: RasterizeConfig):
     grid_x, grid_y = grids
-    toff = torch.arange(grid_x * grid_y, dtype=torch.int32,
-                        device=bins.counts.device)
     opac = torch.where(proj.valid, opacities, 0.0)
     full_payload = torch.cat([payload, proj.depth[:, None]], dim=-1)
-    accum, t_final = StreamBlend.apply(
-        proj.mean2d, proj.conic, opac, full_payload, bins.sorted_gauss,
-        bins.tile_start, bins.counts, toff, grid_x, config.chunk)
+    if config.pallas_input == "dense":
+        accum, t_final = DenseBlend.apply(
+            proj.mean2d, proj.conic, opac, full_payload, bins.gauss_idx, bins.counts,
+            grid_x, config.chunk)
+    else:
+        toff = torch.arange(grid_x * grid_y, dtype=torch.int32,
+                            device=bins.counts.device)
+        accum, t_final = StreamBlend.apply(
+            proj.mean2d, proj.conic, opac, full_payload, bins.sorted_gauss,
+            bins.tile_start, bins.counts, toff, grid_x, config.chunk)
     return _images(camera, grids, accum, t_final, bg)
 
 

@@ -9,6 +9,13 @@
     of the stream its gradient row.
   * `segment_reduce` (csrc/segment_reduce.cu) is the counterpart of
     `sorted_segment_reduce`: the per-splat sum of those rows.
+  * `blend_tiles_fwd` (csrc/blend_tiles_fwd.cu) and `blend_tiles_bwd`
+    (csrc/blend_tiles_bwd.cu) are the counterparts of `blend_tiles_pallas_fwd`
+    and `blend_tiles_pallas_bwd`: the same blend and replay over a dense
+    [T, K, 6 + C] block of gathered rows (the dense input layout). A dense
+    block is a stream whose tile t starts at t * K, so the stream kernels and
+    the dense ones share their walk (csrc/blend_tile.cuh), and the dense
+    plain versions are the stream plain versions over that strided stream.
 
 Each source notes the bound on the card and what its design does about it.
 Each wrapper dispatches on the device of its inputs: a CPU tensor runs the
@@ -19,8 +26,8 @@ kernel's launches in `<wrapper>.launches`.
 Every `csrc/*.cu` is compiled with nvcc for sm_90a at first use, one nvcc
 process per source, all started together, into its own shared library with
 a plain C entry point, loaded with ctypes. The build directory
-`csrc/build/<hash>/` is keyed by the hash of all the sources and the flags,
-so an edited source rebuilds.
+`csrc/build/<hash>/` is keyed by the hash of all the sources, the headers
+they include and the flags, so an edited source or header rebuilds.
 """
 
 from __future__ import annotations
@@ -54,6 +61,10 @@ _ENTRIES = {
     "og_blend_stream_bwd": ("blend_stream_bwd", [_p, _i, _p, _p, _p, _i, _i, _i,
                                                  _p, _p, _p, _p, _p, _p]),
     "og_segment_reduce": ("segment_reduce", [_p, _p, _ll, _i, _i, _p, _p]),
+    "og_blend_tiles_fwd": ("blend_tiles_fwd", [_p, _i, _i, _i, _p, _i, _i, _i, _p, _p,
+                                               _p]),
+    "og_blend_tiles_bwd": ("blend_tiles_bwd", [_p, _i, _i, _i, _p, _i, _i, _i,
+                                               _p, _p, _p, _p, _p, _p]),
 }
 
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -69,11 +80,11 @@ def _nvcc() -> str:
 
 def build() -> tuple[dict[str, Path], str]:
     """Compile every csrc/*.cu into its own shared library unless a build of
-    the same sources exists; the nvcc processes run in parallel.
+    the same sources and headers exists; the nvcc processes run in parallel.
     -> ({source stem: library path}, compiler output; "" if cached)."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     out = BUILD_DIR / h.hexdigest()[:16]
     libs = {src.stem: out / f"lib{src.stem}.so" for src in sources}
@@ -253,15 +264,15 @@ def blend_stream_fwd(rows, counts, tstart, toff, grid_x: int, chunk: int):
 blend_stream_fwd.launches = 0
 
 
-def _check_bwd(rows, counts, accum, t_final, g_accum, g_t) -> None:
-    T, C = counts.shape[0], rows.shape[1] - N_GEOM
+def _check_bwd(n_fields: int, dev, counts, accum, t_final, g_accum, g_t) -> None:
+    T, C = counts.shape[0], n_fields - N_GEOM
     for nm, x, shape in (("accum", accum, (T, C, NPIX)), ("t_final", t_final, (T, NPIX)),
                          ("g_accum", g_accum, (T, C, NPIX)), ("g_t", g_t, (T, NPIX))):
         if x.dtype != torch.float32 or tuple(x.shape) != shape:
             raise ValueError(f"{nm} must be float32 {list(shape)}, got {x.dtype} "
                              f"{tuple(x.shape)}")
-        if x.device != rows.device:
-            raise ValueError(f"{nm} is on {x.device}, rows on {rows.device}")
+        if x.device != dev:
+            raise ValueError(f"{nm} is on {x.device}, the rows on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{nm} must be contiguous")
 
@@ -293,7 +304,7 @@ def blend_stream_bwd_plain(rows, counts, tstart, toff, accum, t_final, g_accum,
     {"evaluated": alpha computed again, "tested": alpha >= 1/255,
     "blended": the pair composited, so it has gradient terms}."""
     _check_stream(rows, counts, tstart, toff, chunk)
-    _check_bwd(rows, counts, accum, t_final, g_accum, g_t)
+    _check_bwd(rows.shape[1], rows.device, counts, accum, t_final, g_accum, g_t)
     dev = rows.device
     T, F = counts.shape[0], rows.shape[1]
     C = F - N_GEOM
@@ -375,7 +386,7 @@ def blend_stream_bwd(rows, counts, tstart, toff, accum, t_final, g_accum, g_t,
     if rows.device.type != "cuda":
         raise ValueError(f"blend_stream_bwd runs on cpu or cuda, not {rows.device}")
     _check_stream(rows, counts, tstart, toff, chunk)
-    _check_bwd(rows, counts, accum, t_final, g_accum, g_t)
+    _check_bwd(rows.shape[1], rows.device, counts, accum, t_final, g_accum, g_t)
     T, F = counts.shape[0], rows.shape[1]
     if F - N_GEOM > MAX_C:
         raise ValueError(f"the kernel takes at most {MAX_C} channels, got {F - N_GEOM}")
@@ -442,3 +453,131 @@ def segment_reduce(rows, ids, n: int):
 
 
 segment_reduce.launches = 0
+
+
+def _check_dense(gdata, counts, chunk: int) -> None:
+    if gdata.dtype != torch.float32 or gdata.dim() != 3 or gdata.shape[2] <= N_GEOM:
+        raise ValueError(f"gdata must be float32 [T, K, {N_GEOM}+C], got "
+                         f"{gdata.dtype} {tuple(gdata.shape)}")
+    T, K, _ = gdata.shape
+    if counts.dtype != torch.int32 or tuple(counts.shape) != (T,):
+        raise ValueError(f"counts must be int32 [{T}], got {counts.dtype} "
+                         f"{tuple(counts.shape)}")
+    if counts.device != gdata.device:
+        raise ValueError(f"counts is on {counts.device}, gdata on {gdata.device}")
+    if not (gdata.is_contiguous() and counts.is_contiguous()):
+        raise ValueError("gdata and counts must be contiguous")
+    if chunk <= 0 or K % chunk:
+        raise ValueError(f"max_per_tile must be a multiple of chunk, got K={K}, "
+                         f"chunk={chunk}")
+    if T * K >= 2**31:
+        raise ValueError(f"a dense block of {T} x {K} slots exceeds int32 offsets")
+
+
+def _strided(gdata, counts, tile_offset: int):
+    """The dense block as the stream whose tile t starts at t * K:
+    -> (rows [T*K, F], counts clamped at K, tstart, toff), each [T] int32."""
+    T, K, F = gdata.shape
+    ar = torch.arange(T, dtype=torch.int32, device=gdata.device)
+    return (gdata.reshape(T * K, F), torch.clamp(counts, max=K), ar * K,
+            ar + tile_offset)
+
+
+def blend_tiles_fwd_plain(gdata, counts, grid_x: int, chunk: int, tile_offset: int = 0,
+                          count_work: bool = False):
+    """Plain PyTorch version of the dense forward kernel: the stream forward's
+    plain version over the strided stream, which is what the kernel walks.
+    Arguments and outputs as for `blend_tiles_fwd`; count_work as for
+    `blend_stream_fwd_plain`."""
+    _check_dense(gdata, counts, chunk)
+    return blend_stream_fwd_plain(*_strided(gdata, counts, tile_offset), grid_x, chunk,
+                                  count_work)
+
+
+def blend_tiles_fwd(gdata, counts, grid_x: int, chunk: int, tile_offset: int = 0):
+    """Forward blend of a dense block of gathered rows.
+
+    gdata [T, K, 6+C] f32: row k of tile t is the k-th slot of its
+    depth-ordered run (mean2d x/y, conic a/b/c, opacity, C payload channels);
+    rows k >= counts[t] are not read. counts [T] int32 (clamped at K).
+    Tile t shades the pixels of image tile t + tile_offset. K must be a
+    multiple of chunk. -> (accum [T, C, 256], t_final [T, 256]).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    `blend_tiles_fwd.launches` counts kernel launches."""
+    if gdata.device.type == "cpu":
+        return blend_tiles_fwd_plain(gdata, counts, grid_x, chunk, tile_offset)
+    if gdata.device.type != "cuda":
+        raise ValueError(f"blend_tiles_fwd runs on cpu or cuda, not {gdata.device}")
+    _check_dense(gdata, counts, chunk)
+    T, K, F = gdata.shape
+    C = F - N_GEOM
+    if C > MAX_C:
+        raise ValueError(f"the kernel blends at most {MAX_C} channels, got {C}")
+    if chunk * F * 4 > 48 * 1024:
+        raise ValueError(f"chunk {chunk} x {F} fields exceeds 48 KiB of "
+                         "shared memory")
+    accum = torch.empty((T, C, NPIX), dtype=torch.float32, device=gdata.device)
+    t_final = torch.empty((T, NPIX), dtype=torch.float32, device=gdata.device)
+    if T == 0:
+        return accum, t_final
+    _launch("og_blend_tiles_fwd", gdata.device, gdata.data_ptr(), T, K, F,
+            counts.data_ptr(), tile_offset, grid_x, chunk, accum.data_ptr(),
+            t_final.data_ptr())
+    blend_tiles_fwd.launches += 1
+    return accum, t_final
+
+
+blend_tiles_fwd.launches = 0
+
+
+def blend_tiles_bwd_plain(gdata, counts, accum, t_final, g_accum, g_t, grid_x: int,
+                          chunk: int, tile_offset: int = 0, count_work: bool = False):
+    """Plain PyTorch version of the dense backward kernel: the stream
+    backward's plain version over the strided stream. Arguments and output as
+    for `blend_tiles_bwd`; count_work as for `blend_stream_bwd_plain`."""
+    _check_dense(gdata, counts, chunk)
+    out = blend_stream_bwd_plain(*_strided(gdata, counts, tile_offset), accum, t_final,
+                                 g_accum, g_t, grid_x, chunk, count_work)
+    if count_work:
+        return out[0].view(gdata.shape), out[1]
+    return out.view(gdata.shape)
+
+
+def blend_tiles_bwd(gdata, counts, accum, t_final, g_accum, g_t, grid_x: int,
+                    chunk: int, tile_offset: int = 0):
+    """Per-slot gradient rows of the dense-block blend.
+
+    gdata, counts, grid_x, chunk, tile_offset: the forward's inputs (see
+    `blend_tiles_fwd`); accum [T, C, 256], t_final [T, 256]: its outputs;
+    g_accum [T, C, 256], g_t [T, 256]: their cotangents. -> d_slot
+    [T, K, 6 + C] f32: slot k of tile t gets the loss gradient by its row's
+    fields (mean2d 2, conic 3, opacity 1, payload C) summed over the tile's
+    pixels; zero for k >= counts[t] and for slots the walk did not reach.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    `blend_tiles_bwd.launches` counts kernel launches."""
+    if gdata.device.type == "cpu":
+        return blend_tiles_bwd_plain(gdata, counts, accum, t_final, g_accum, g_t,
+                                     grid_x, chunk, tile_offset)
+    if gdata.device.type != "cuda":
+        raise ValueError(f"blend_tiles_bwd runs on cpu or cuda, not {gdata.device}")
+    _check_dense(gdata, counts, chunk)
+    T, K, F = gdata.shape
+    _check_bwd(F, gdata.device, counts, accum, t_final, g_accum, g_t)
+    if F - N_GEOM > MAX_C:
+        raise ValueError(f"the kernel takes at most {MAX_C} channels, got {F - N_GEOM}")
+    if (1 + NPIX // WARP) * chunk * F * 4 > 227 * 1024:
+        raise ValueError(f"chunk {chunk} x {F} fields exceeds the shared memory "
+                         "of a block")
+    d_slot = torch.zeros_like(gdata)
+    if T == 0:
+        return d_slot
+    _launch("og_blend_tiles_bwd", gdata.device, gdata.data_ptr(), T, K, F,
+            counts.data_ptr(), tile_offset, grid_x, chunk, accum.data_ptr(),
+            t_final.data_ptr(), g_accum.data_ptr(), g_t.data_ptr(), d_slot.data_ptr())
+    blend_tiles_bwd.launches += 1
+    return d_slot
+
+
+blend_tiles_bwd.launches = 0

@@ -1,20 +1,29 @@
-"""Training loop, stage 0 (3DGS pretraining).
+"""Training loop, stages 0, 1 and 2.1.
 
-Port of the stage-0 half of opengaussian_tpu/train/loop.py (reference
-train.py:157-635). Every view's ground truth and camera sits on the device
-in stacked tensors (`ViewBundle`); one step renders the color pass with the
-screen tap, takes the L1 + SSIM loss, differentiates it (the blend's
-backward is the K2 + K3 kernels, ops/rasterize.py:StreamBlend), applies
-Adam and accumulates the densification statistics. Densification and the
-opacity reset run between steps, as in the JAX package.
+Port of opengaussian_tpu/train/loop.py (reference train.py:157-635) through
+the coarse codebook:
+  * stage 0 (3DGS pretraining): one step renders the color pass with the
+    screen tap, takes the L1 + SSIM loss, differentiates it, applies Adam and
+    accumulates the densification statistics; densification and the opacity
+    reset run between steps;
+  * stage 1 (instance features): the feature pass of the frozen geometry
+    against the view's SAM masks, with the cohesion and separation losses;
+  * stage 2.1 (coarse codebook): pseudo labels from sweep 1 at entry, the
+    root k-means every 200 iterations, and an L1 loss of the quantized
+    feature render against the view's pseudo features.
+Past stage 0 only ins_feat has a gradient; the geometry's learning rates are
+zero, so it stays as it was, bit for bit. The blend's backward is K2 + K3
+(ops/rasterize.py:StreamBlend) or, with RasterizeConfig(pallas_input=
+"dense"), K6 + K3 (DenseBlend). Every view's ground truth and camera sits on
+the device in stacked tensors (`ViewBundle`).
 
 The port runs eagerly: a step is one Python function, with no jit and no
 scanned blocks of steps. Its binning sizes the slot buffer per frame, so of
 the JAX trainer's budget probe only the per-tile cap is left: the trainer
 raises max_per_tile past the deepest tile it finds, as the JAX trainer's
-probe does, so that no slot is truncated. What this slice leaves out raises
-NotImplementedError: the stages past stage 0 (iterations past
-start_ins_feat_iter), save_memory and lazy view bundles, the device mesh,
+probe does, so that no slot is truncated. What the port leaves out so far
+raises NotImplementedError: stage 2.2 and later (iterations past
+start_leaf_cb_iter), save_memory and lazy view bundles, the device mesh,
 frozen binning plans, training dumps and TensorBoard.
 """
 
@@ -34,13 +43,16 @@ from opengaussian_tpu_torch.data.ply import save_gaussian_ply
 from opengaussian_tpu_torch.device import resolve_device
 from opengaussian_tpu_torch.models import gaussians as G
 from opengaussian_tpu_torch.models import optimizer as opt_mod
+from opengaussian_tpu_torch.ops import kmeans as km
 from opengaussian_tpu_torch.ops.projection import build_cov3d
 from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, deepest_tile
 from opengaussian_tpu_torch.render import render
 from opengaussian_tpu_torch.train import losses
-from opengaussian_tpu_torch.utils.masks import decode_sam_level
+from opengaussian_tpu_torch.train import pseudo as pseudo_mod
+from opengaussian_tpu_torch.utils import codebook as cb
+from opengaussian_tpu_torch.utils import masks as masku
 
-LATER_STAGES = "the feature stages (1-3) arrive with later slices of the port"
+LATER_STAGES = "stage 2.2 and stage 3 arrive with later slices of the port"
 HEADROOM = 1.3  # scenes evolve between probes (the JAX package's ops/budget.py)
 
 
@@ -85,7 +97,7 @@ def bundle_views(views: list[View], sam_level: int, device="cuda") -> ViewBundle
     max_masks = 8
     for v in views:
         if v.sam_mask is not None:
-            m = decode_sam_level(np.asarray(v.sam_mask), sam_level)
+            m = masku.decode_sam_level(np.asarray(v.sam_mask), sam_level)
             max_masks = max(max_masks, int(m.max()))
             ids.append(m.astype(np.int32))
         else:
@@ -135,9 +147,7 @@ def stage0_step(state: G.GaussianState, adam: opt_mod.AdamState, stats: G.Densif
     gs = _mask_sh(state.with_params(params), iteration)
     out = render(bundle.camera(view_idx), gs, bg, 3, rcfg, screen_tap=tap)
     loss = losses.rgb_loss(out.render, gt, ocfg.lambda_dssim)
-    loss = loss + torch.where(
-        bundle.has_alpha[view_idx],
-        ((out.alpha - bundle.alpha_masks[view_idx]) ** 2).mean(), 0.0)
+    loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
     leaves = list(params.values()) + [tap]
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     # ins_feat is not rendered by the color pass: its gradient is zero
@@ -152,6 +162,75 @@ def stage0_step(state: G.GaussianState, adam: opt_mod.AdamState, stats: G.Densif
             out.n_lost)
 
 
+def _freeze_geometry(params: dict) -> dict:
+    """Every leaf but ins_feat detached; ins_feat a fresh leaf that requires
+    grad (the JAX package's stop_gradient on the geometry)."""
+    return {k: v.detach().requires_grad_(k == "ins_feat") for k, v in params.items()}
+
+
+def _alpha_mask_loss(out_alpha, bundle: ViewBundle, view_idx: int):
+    """Per-view gate: maskless views carry an all-ones placeholder that must
+    not be regressed against (reference train.py:491 checks per camera)."""
+    return torch.where(bundle.has_alpha[view_idx],
+                       ((out_alpha - bundle.alpha_masks[view_idx]) ** 2).mean(), 0.0)
+
+
+def _feature_update(state: G.GaussianState, adam: opt_mod.AdamState, params: dict, loss,
+                    iteration: int, ocfg: OptimizationConfig):
+    """Adam on every leaf with the gradient by ins_feat alone (the frozen
+    leaves get zeros and learning rate 0, so they stay as they were)."""
+    (g,) = torch.autograd.grad(loss, [params["ins_feat"]])
+    grads = {k: g if k == "ins_feat" else torch.zeros_like(v) for k, v in params.items()}
+    lrs = opt_mod.learning_rates(ocfg, iteration, 1.0)
+    new_p, adam = opt_mod.apply(state.params(), grads, adam, lrs)
+    return state.with_params(new_p), adam
+
+
+def stage1_step(state: G.GaussianState, adam: opt_mod.AdamState, bundle: ViewBundle,
+                view_idx: int, iteration: int, bg: torch.Tensor, rescale_factor: float,
+                rcfg: RasterizeConfig, ocfg: OptimizationConfig,
+                with_alpha_loss: bool = False):
+    """One stage-1 step (the JAX package's _stage1_body): the feature pass of
+    the frozen geometry, mask means inside the silhouette, separation +
+    loss_weight * cohesion against the view's SAM masks.
+    -> (state, adam, loss, n_lost), the last two 0-d tensors."""
+    params = _freeze_geometry(state.params())
+    out = render(bundle.camera(view_idx), state.with_params(params), bg, 3, rcfg,
+                 render_color=with_alpha_loss, render_feat_map=True,
+                 rescale_factor=rescale_factor)
+    sil = (out.silhouette > 0.7).to(torch.float32)
+    masks, valid = masku.masks_onehot(bundle.sam_ids[view_idx], bundle.max_masks)
+    means = masku.mask_feature_mean(out.ins_feat, masks, image_mask=sil)
+    l_coh = losses.cohesion_loss(out.ins_feat, masks, valid, means)
+    l_sep = losses.separation_loss(means, valid, iteration)
+    loss = l_sep + ocfg.loss_weight * l_coh
+    if with_alpha_loss:
+        loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
+    state, adam = _feature_update(state, adam, params, loss, iteration, ocfg)
+    return state, adam, loss.detach(), out.n_lost
+
+
+def stage21_step(state: G.GaussianState, adam: opt_mod.AdamState, kms: km.KMeansState,
+                 bundle: ViewBundle, view_idx: int, iteration: int, bg: torch.Tensor,
+                 rescale_factor: float, pseudo_feat: torch.Tensor, rcfg: RasterizeConfig,
+                 ocfg: OptimizationConfig, with_alpha_loss: bool = False):
+    """One stage-2.1 step (the JAX package's _stage21_body; reference
+    train.py:464-473): L1 of the rendered root-quantized features against
+    the view's pseudo features, inside the rendered silhouette.
+    -> (state, adam, loss, n_lost), the last two 0-d tensors."""
+    params = _freeze_geometry(state.params())
+    q = km.quantize(kms, params["ins_feat"], "root")
+    out = render(bundle.camera(view_idx), state.with_params(params), bg, 3, rcfg,
+                 render_color=with_alpha_loss, render_feat_map=True, quantized_feat=q,
+                 rescale_factor=rescale_factor)
+    keep = (out.silhouette > 0.7).to(torch.float32)[..., None]
+    loss = losses.l1_loss(out.ins_feat, pseudo_feat, keep)
+    if with_alpha_loss:
+        loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
+    state, adam = _feature_update(state, adam, params, loss, iteration, ocfg)
+    return state, adam, loss.detach(), out.n_lost
+
+
 @torch.no_grad()
 def eval_view(state: G.GaussianState, bundle: ViewBundle, view_idx: int, bg,
               rcfg: RasterizeConfig):
@@ -163,12 +242,13 @@ def eval_view(state: G.GaussianState, bundle: ViewBundle, view_idx: int, bg,
 
 
 class Trainer:
-    """Host-side stage-0 trainer (the JAX package's Trainer, stage 0).
+    """Host-side trainer through stage 2.1 (the JAX package's Trainer).
 
-    View order and the random background come from
-    np.random.default_rng(seed), as in the JAX package, so both trainers
-    visit the same views; the split noise of densification comes from a
-    torch.Generator seeded with `seed` on the training device."""
+    View order, the random background and the stage-2.1 rescale factor come
+    from np.random.default_rng(seed), drawn in the JAX package's order, so
+    both trainers visit the same views; the split noise of densification and
+    the k-means++ seeds come from a torch.Generator seeded with `seed` on
+    the training device."""
 
     def __init__(self, scene: Scene, cfg: Config, out_dir: str,
                  rcfg: RasterizeConfig | None = None, seed: int = 0,
@@ -206,6 +286,10 @@ class Trainer:
             sh_degree=cfg.model.sh_degree, seed=seed, device=self.device)
         self.adam = opt_mod.init(self.state.params())
         self.stats = G.DensifyStats.zeros(self.state.capacity, self.device)
+        self.kms = km.KMeansState.create(self.state.capacity, cfg.opt.root_node_num,
+                                         cfg.opt.leaf_node_num, self.device)
+        self.pseudo: pseudo_mod.PseudoLabels | None = None
+        self.any_alpha = bool(self.bundle.has_alpha.any())
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.iteration = 0
@@ -226,8 +310,12 @@ class Trainer:
         o = self.cfg.opt
         if it <= o.start_ins_feat_iter:
             return "0"
+        if it <= o.start_root_cb_iter:
+            return "1"
+        if it <= o.start_leaf_cb_iter:
+            return "2.1"
         raise NotImplementedError(
-            f"iteration {it} is past start_ins_feat_iter={o.start_ins_feat_iter}: "
+            f"iteration {it} is past start_leaf_cb_iter={o.start_leaf_cb_iter}: "
             + LATER_STAGES)
 
     def _bg_for(self, stage: str) -> torch.Tensor:
@@ -265,7 +353,35 @@ class Trainer:
                                           nu=G.grow_capacity(self.adam.nu, new_cap),
                                           count=self.adam.count)
             self.stats = G.grow_capacity(self.stats, new_cap)
+            self.kms = self.kms.grow(new_cap)
             self._budgets_tuned = False  # re-probe at the new scale
+
+    def _rescale_factor(self, it: int) -> float:
+        """50% chance of a uniform rescale once past start_root_cb_iter
+        (reference gaussian_renderer/__init__.py:121-124, train.py:347-350)."""
+        if it <= self.cfg.opt.start_root_cb_iter:
+            return 1.0
+        if self.rng.random() > 0.5:
+            return float(self.rng.random())
+        return 1.0
+
+    def _ensure_pseudo(self, mode: str):
+        cams = [self.bundle.camera(i) for i in range(self.bundle.num_views)]
+        self.pseudo = pseudo_mod.construct_pseudo_labels(
+            self.state, cams, self.bundle.sam_ids, self.bg, self.bundle.max_masks,
+            self.rcfg, mode=mode)
+
+    def _pre_events(self, it: int, stage: str):
+        """Events BEFORE step `it` (reference train.py:265-355): sweep 1 at
+        stage-2.1 entry, and the root k-means there and every 200
+        iterations."""
+        o = self.cfg.opt
+        if it == o.start_root_cb_iter + 1:
+            self._ensure_pseudo("root")
+        if stage == "2.1" and (it % 200 == 1 or it == o.start_root_cb_iter + 1):
+            self.kms = km.assign_root(
+                self.kms, self.state.ins_feat, self.state.means, self.state.alive,
+                o.pos_weight, self.generator, init=(it == o.start_root_cb_iter + 1))
 
     def _post_events(self, it: int, stage: str):
         """Densification / opacity reset AFTER step `it` (reference
@@ -297,6 +413,7 @@ class Trainer:
                 self._fit_max_per_tile()
             it = self.iteration + 1
             stage = self._stage(it)
+            self._pre_events(it, stage)
             loss = self._run_single(it, stage)
             self.losses.append(loss)
             self.iteration = it
@@ -316,11 +433,22 @@ class Trainer:
                       f"pts {rec['num_alive']} ({rec['elapsed']:.0f}s)", flush=True)
 
     def _run_single(self, it: int, stage: str) -> torch.Tensor:
+        o = self.cfg.opt
         vi = self._next_view()
         bg = self._bg_for(stage)
-        self.state, self.adam, self.stats, loss, _psnr, self._last_lost = stage0_step(
-            self.state, self.adam, self.stats, self.bundle, vi, it, bg,
-            self.spatial_lr_scale, self.rcfg, self.cfg.opt)
+        if stage == "0":
+            self.state, self.adam, self.stats, loss, _psnr, self._last_lost = stage0_step(
+                self.state, self.adam, self.stats, self.bundle, vi, it, bg,
+                self.spatial_lr_scale, self.rcfg, o)
+        elif stage == "1":
+            self.state, self.adam, loss, self._last_lost = stage1_step(
+                self.state, self.adam, self.bundle, vi, it, bg, self._rescale_factor(it),
+                self.rcfg, o, self.any_alpha)
+        else:
+            self.state, self.adam, loss, self._last_lost = stage21_step(
+                self.state, self.adam, self.kms, self.bundle, vi, it, bg,
+                self._rescale_factor(it), self.pseudo.feat[vi], self.rcfg, o,
+                self.any_alpha)
         return loss
 
     # -- evaluation / artifacts --
@@ -336,6 +464,13 @@ class Trainer:
         return dict(psnr=float(np.mean(psnrs)), l1=float(np.mean(l1s)), views=n)
 
     def save(self):
+        """The PLY and, past start_root_cb_iter, the root codebook (centers and
+        one id per alive splat) under point_cloud/iteration_<it>/."""
         pc_dir = os.path.join(self.out_dir, f"point_cloud/iteration_{self.iteration}")
         os.makedirs(pc_dir, exist_ok=True)
         save_gaussian_ply(os.path.join(pc_dir, "point_cloud.ply"), self.state)
+        if self.iteration > self.cfg.opt.start_root_cb_iter:
+            alive = self.state.alive.cpu().numpy()
+            cb.save_codebook(os.path.join(pc_dir, "root_code_book"),
+                             self.kms.centers.cpu().numpy(),
+                             self.kms.cls_ids.cpu().numpy()[alive])

@@ -21,7 +21,7 @@ from opengaussian_tpu.ops import projection as jproj
 from opengaussian_tpu_torch import cameras as tcam
 from opengaussian_tpu_torch.ops import binning as tbin
 from opengaussian_tpu_torch.ops import projection as tproj
-from opengaussian_tpu_torch.ops.rasterize import stream_rows
+from opengaussian_tpu_torch.ops.rasterize import gather_rows
 from tests.test_rasterize import make_cam, random_scene
 
 torch.set_num_threads(1)
@@ -82,7 +82,7 @@ def test_truncated_runs_match_jax():
 
 def test_carry_rides_the_sort():
     """The blend's rows reach the stream through one gather by sorted_gauss
-    (rasterize.stream_rows): every slot carries its own splat's row."""
+    (rasterize.gather_rows): every slot carries its own splat's row."""
     carry = torch.arange(100, dtype=torch.float32)[:, None] * torch.ones(1, 3)
     means, scales, quats, op = separated_scene(100, 2)
     cam = tcam.Camera.from_fov(np.eye(3), np.zeros(3), 0.9, 0.7, W, H)
@@ -90,7 +90,7 @@ def test_carry_rides_the_sort():
                        tproj.build_cov3d(torch.as_tensor(scales), torch.as_tensor(quats)),
                        cam, opacities=torch.as_tensor(op))
     bc = tbin.bin_gaussians(pt, GX, GY, 1024)
-    rows = stream_rows(pt.mean2d, pt.conic, torch.as_tensor(op), carry, bc.sorted_gauss)
+    rows = gather_rows(pt.mean2d, pt.conic, torch.as_tensor(op), carry, bc.sorted_gauss)
     assert rows.shape == (bc.sorted_gauss.shape[0], 6 + 3)
     assert torch.equal(rows[:, 6].long(), bc.sorted_gauss.long())
     assert torch.equal(rows[:, :2], pt.mean2d[bc.sorted_gauss.long()])
