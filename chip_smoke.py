@@ -9,39 +9,48 @@ Phases, in order; any failure exits non-zero:
   3. kernels: each kernel against its plain PyTorch version on the card, on
      the streams of a full-width frame (1296x968, 200k splats, SH degree 3,
      6-D instance features): the forward blend K1 at C = 4 (RGB + depth) and
-     C = 7 (features + depth); the backward replay K2 and the per-splat
-     reduce K3 on the C = 4 stream, with the cotangents of an L1 + SSIM loss
-     against the view's image. The dense layout's forward K5, its backward
-     K6 and K3 over its rows on the same frame's C = 7 dense block, with the
+     C = 7 (features + depth); the backward replay K2, the compact backward
+     K4 and the per-splat reduce K3 on the C = 4 stream, with the cotangents
+     of an L1 + SSIM loss against the view's image, K4 again on the same
+     stream made of flat opaque splats (every tile stops after one chunk),
+     and K4 + K3 against K2 + K3 per splat. The dense layout's forward K5, its backward K6 and
+     K3 over its rows on the same frame's C = 7 dense block, with the
      cotangents of the stage-1 loss (separation + cohesion on the view's SAM
-     masks). Then the rasterizer on the card against the naive oracle on
-     the CPU, and at 160x120 one stage-0 step, and one stage-1 and one
-     stage-2.1 step in each input layout, on the card against the same
-     steps on the CPU.
+     masks). A partition render of one root's 5 leaves against the same
+     leaves rendered one by one. Then the rasterizer on the card against the
+     naive oracle on the CPU, and at 160x120 one stage-0 step, one stage-1
+     and one stage-2.1 step in each input layout, one stage-2.2 step in the
+     stream, dense and compact configurations, one sweep-2 view, one stage-3
+     view and assign_leaf, on the card against the same on the CPU.
   4. render path: `opengaussian_tpu_torch.cli.render.main` renders a
      synthetic trained model (written as a PLY) of a 3-view COLMAP scene;
      checks the outputs and that K1 ran on this path. One view rendered
      with pallas_input="dense" equals the stream render.
-  5. training path: `opengaussian_tpu_torch.cli.train.main` trains 60
+  5. training path: `opengaussian_tpu_torch.cli.train.main` trains 80
      iterations on the same 3-view scene, whose points3D.bin holds the 200k
-     points: 40 stage-0 steps with densify events after steps 20, 30 and 40
-     (the first grows the capacity) and an opacity reset after step 30, 10
-     stage-1 steps, sweep 1 over the 3 views and the root k-means (k1 = 64),
-     10 stage-2.1 steps. Checks that every loss is finite and the stage-0
-     loss falls, that the geometry is bit for bit the same in the PLYs saved
-     at iterations 40 and 60 while ins_feat moved, that the root codebook is
-     saved at iteration 60, that K1 launched 63 times (60 steps + 3 sweep
-     views) and K2 and K3 60, and that `cli.render` renders the saved PLY.
-     Then the same schedule with RasterizeConfig(pallas_input="dense"): K5
-     63, K6 and K3 60, K1 and K2 0, and its first loss equals the stream
-     run's.
+     points and whose sidecars hold 16 level-3 SAM masks and a CLIP table
+     per view: 40 stage-0 steps with densify events after steps 20, 30 and
+     40 (the first grows the capacity) and an opacity reset after step 30, 10
+     stage-1 steps, sweep 1 and the root k-means (k1 = 64) at 51, 10
+     stage-2.1 steps, sweeps 1 and 2 and the leaf k-means of root 0 at 61,
+     20 stage-2.2 steps over roots 0-4 (the next every 5 iterations), then
+     stage 3 over every root and view, and a checkpoint at 80. Checks the
+     launches each kernel must make on that schedule, that every loss is
+     finite and the stage-0 loss falls, that the geometry is bit for bit the
+     same in the PLYs saved at iterations 40 and 80 while ins_feat moved,
+     the root and leaf codebooks and cluster_lang.npz, that the checkpoint
+     reloads bit for bit, and that `cli.render` renders the saved PLY. The
+     same schedule runs with RasterizeConfig(pallas_input="dense") (K5, K6,
+     K3) and with bwd_layout="compact" (K1, K4, K3); their first losses
+     equal the stream run's.
   6. timings (CUDA events after warm-up), each line with the card's name:
      each kernel against its plain version and its bound, K3's index_add_
-     yardstick, the dense block's zero fill, the render, the stage-0 step
-     and its phases, the stage-1 and stage-2.1 steps in both layouts, sweep
-     1 per view, the root k-means, and torch.profiler's device time by
-     kernel over one render of each view and over one step of each stage,
-     which give the card's idle share in each.
+     yardstick, K2 + K3 against K4 + K3, the dense block's zero fill, the
+     render, the stage-0 step and its phases, the stage-1 and stage-2.1
+     steps in both layouts, the stage-2.2 step of each training run, sweeps
+     1 and 2 and stage 3 per view, the root and leaf k-means, and
+     torch.profiler's device time by kernel over one render of each view and
+     over one step of each stage, which give the card's idle share in each.
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}.
 """
@@ -63,9 +72,11 @@ import torch
 WIDTH, HEIGHT = 1296, 968
 N_SPLATS = 200_000
 N_VIEWS = 3
-TRAIN_ITERS = 60
-# the iteration each stage ends at: 0 (3DGS), 1 (SAM features), 2.1 (roots)
+TRAIN_ITERS = 80
+# the iteration each stage ends at: 0 (3DGS), 1 (SAM features), 2.1 (roots);
+# stage 2.2 (leaves) runs to TRAIN_ITERS, then stage 3
 STAGE_ENDS = dict(start_ins_feat_iter=40, start_root_cb_iter=50, start_leaf_cb_iter=60)
+LEAF_UPDATE_FR = 5  # stage 2.2 moves to the next root every 5 iterations
 TOL = dict(atol=3e-5, rtol=1e-4)
 # K2 and K3 sum many terms (over a tile's pixels; over a splat's slots, in
 # atomic order for K3), so their tolerance is relative to each field's
@@ -172,6 +183,9 @@ def write_model_and_scene(root: str, seed: int = 0) -> tuple[str, str]:
         sam = np.zeros((4, HEIGHT, WIDTH), np.int16)
         sam[3] = (xx * 4 // WIDTH + 4 * (yy * 4 // HEIGHT)).astype(np.int16)  # 4x4 masks
         np.save(os.path.join(scene, "language_features", f"view_{i:03d}_s.npy"), sam)
+        # the CLIP table of the level-3 masks (ids 1-15 after the level offset)
+        np.save(os.path.join(scene, "language_features", f"view_{i:03d}_f.npy"),
+                rng.normal(0, 1, (16, 512)).astype(np.float32))
     colmap.write_cameras_binary(cams, os.path.join(scene, "sparse/0/cameras.bin"))
     colmap.write_images_binary(imgs, os.path.join(scene, "sparse/0/images.bin"))
     colmap.write_points3d_binary(pts.astype(np.float64), (cols * 255).astype(np.uint8),
@@ -264,7 +278,7 @@ def loss_cotangents(camera, grids, stream, chunk, gt):
     a = accum.clone().requires_grad_(True)
     t = t_final.clone().requires_grad_(True)
     image, _, _ = _images(camera, grids, a, t, torch.zeros(3, device=a.device))
-    g_accum, g_t = torch.autograd.grad(rgb_loss(image, gt), (a, t))
+    g_accum, g_t = torch.autograd.grad(rgb_loss(image[0], gt), (a, t))
     return accum, t_final, g_accum.contiguous(), g_t.contiguous()
 
 
@@ -417,7 +431,8 @@ def stage1_cotangents(camera, grids, accum, t_final, sam_ids, max_masks: int,
 
     a = accum.clone().requires_grad_(True)
     t = t_final.clone().requires_grad_(True)
-    feat, sil, _ = _images(camera, grids, a, t, torch.zeros(6, device=a.device))
+    feat, sil, _ = (x[0] for x in _images(camera, grids, a, t,
+                                          torch.zeros(6, device=a.device)))
     masks, valid = masku.masks_onehot(sam_ids, max_masks)
     means = masku.mask_feature_mean(feat, masks, image_mask=(sil > 0.7).to(torch.float32))
     loss = (losses.separation_loss(means, valid, STAGE_ENDS["start_ins_feat_iter"] + 1)
@@ -464,6 +479,96 @@ def check_dense_kernels(block, camera, grids, sam_ids, max_masks: int, chunk: in
                  GRAD_TOL["rtol"])
     return dict(k5_err=k5, k6_err=k6, k3_err=k3, work_fwd=work_f, work_bwd=work_b,
                 cot=cot, ids=ids)
+
+
+def poison_allocator(rows: int, F: int, dev) -> None:
+    """Leave NaN-filled blocks the size of K4's two outputs in PyTorch's
+    caching allocator, which the wrapper's torch.empty then reuses: a row
+    or an id the kernel fails to write shows as NaN or as a wrong id."""
+    blocks = [torch.full((rows, F), float("nan"), device=dev),
+              torch.full((rows,), float("nan"), device=dev)]
+    del blocks
+
+
+def check_compact_kernel(stream, cot, chunk: int, n: int, d_rows_k2) -> dict:
+    """blend_stream_bwd_compact (K4) against its plain version on the card,
+    bit for bit, on one frame's stream and loss cotangents, and on the same
+    stream with near-opaque splats, where the tiles stop early and K4 must
+    zero the live rows past the stop itself; then K4 + K3 against K2 + K3
+    per splat. -> {"k4_err", "k43_err", "d", "ids"}."""
+    from opengaussian_tpu_torch.ops import rasterize_kernels as rk
+
+    rows, counts, tstart, toff, gx, bins, _ = stream
+    nc_rows = rk.compact_offsets(counts, chunk)[1] * chunk
+    args = (rows, counts, tstart, toff, bins.sorted_gauss, *cot, gx, chunk, n)
+    poison_allocator(nc_rows, rows.shape[1], rows.device)
+    d, ids = rk.blend_stream_bwd_compact(*args)
+    torch.cuda.synchronize()
+    d_p, ids_p = rk.blend_stream_bwd_compact_plain(*args)
+    k4 = compare("blend_stream_bwd_compact C=4 d_rows", d, d_p, 0.0, 0.0)
+    if not torch.equal(ids, ids_p):
+        raise AssertionError("K4: the ids differ from the plain version's")
+    # flat splats (conic 0) of opacity 0.98 cover every pixel of their tile
+    # at alpha 0.98, so every pixel stops at its third slot and every tile's
+    # walk at the end of its first chunk
+    flat = rows.clone()
+    flat[:, 2:5] = 0.0
+    flat[:, 5] = 0.98
+    acc_o, t_o = rk.blend_stream_fwd(flat, counts, tstart, toff, gx, chunk)
+    args_o = (flat, counts, tstart, toff, bins.sorted_gauss, acc_o, t_o, *cot[2:], gx,
+              chunk, n)
+    poison_allocator(nc_rows, rows.shape[1], rows.device)
+    d_o, ids_o = rk.blend_stream_bwd_compact(*args_o)
+    torch.cuda.synchronize()
+    d_op, ids_op = rk.blend_stream_bwd_compact_plain(*args_o)
+    k4 = max(k4, compare("blend_stream_bwd_compact C=4 d_rows, flat opaque splats", d_o,
+                         d_op, 0.0, 0.0))
+    if not torch.equal(ids_o, ids_op):
+        raise AssertionError("K4, flat opaque splats: the ids differ from the plain "
+                             "version's")
+    past = int(torch.clamp(counts - chunk, min=0).sum())
+    log(f"K4, flat opaque splats: every tile stops after its first chunk, {past} of "
+        f"{int(counts.sum())} live rows past the stop, zero-written by K4")
+    if past == 0:
+        raise AssertionError("K4: no tile of the frame is deeper than one chunk")
+    per4 = rk.segment_reduce(d, ids, n)
+    per2 = rk.segment_reduce(d_rows_k2, bins.sorted_gauss, n)
+    torch.cuda.synchronize()
+    k43 = compare("K4 + K3 against K2 + K3 per splat", per4, per2, grad_atol(per2),
+                  GRAD_TOL["rtol"])
+    log(f"K4: {d.shape[0]} compacted rows for {int(counts.sum())} live slots, "
+        f"{int((ids == n).sum())} tail rows with id n")
+    return dict(k4_err=k4, k43_err=k43, d=d, ids=ids)
+
+
+def check_partition_against_scan(camera, state, dev) -> float:
+    """At full width, one root's 5 leaves (splats given seeded roots of 64
+    and leaves of 5) rendered in one partition pass (rasterize_partition)
+    and one by one (rasterize_scan_groups): images and silhouettes within
+    TOL, the same occur and valid flags. -> the largest error."""
+    from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig
+    from opengaussian_tpu_torch.render import render_clusters, render_clusters_partition
+
+    rng = np.random.default_rng(21)
+    cap = state.capacity
+    leaf = torch.as_tensor(rng.integers(0, 64, cap) * 5 + rng.integers(0, 5, cap),
+                           dtype=torch.int32, device=dev)
+    groups = torch.arange(5, device=dev)  # root 0's leaves
+    kw = dict(origin_feat=True, min_points=10)
+    with torch.no_grad():
+        part = render_clusters_partition(camera, state, torch.zeros(3, device=dev), leaf,
+                                         groups, RasterizeConfig(), **kw)
+        scan = render_clusters(camera, state, torch.zeros(3, device=dev), leaf, groups,
+                               RasterizeConfig(), **kw)
+    err = max(compare(f"partition against scan, {k}", getattr(part, k), getattr(scan, k),
+                      TOL["atol"], TOL["rtol"])
+              for k in ("cluster_imgs", "cluster_silhouettes"))
+    for k in ("cluster_occur", "cluster_valid"):
+        if not torch.equal(getattr(part, k), getattr(scan, k)):
+            raise AssertionError(f"partition against scan: {k} differ")
+    log(f"partition render of root 0's 5 leaves ({int((leaf < 5).sum())} splats) equals "
+        f"the scan render, max abs err {err:.3e}; valid {part.cluster_valid.tolist()}")
+    return err
 
 
 def to_device(x, dev):
@@ -561,6 +666,142 @@ def check_feature_steps_against_cpu(dev):
                 f"{worst:.2e}, geometry unchanged")
 
 
+def blob_scene(W: int, H: int, n: int = 600, cap: int = 1024):
+    """Two opaque blobs of n / 2 splats, each one root cluster, under two
+    SAM masks that their rendered silhouette aligns (left, right), so sweep
+    2 and stage 3 match them. -> (state on the CPU, root ids [cap] int32,
+    camera, SAM ids [H, W] int32)."""
+    from opengaussian_tpu_torch.cameras import Camera
+    from opengaussian_tpu_torch.models import gaussians as G
+    from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig
+    from opengaussian_tpu_torch.render import render
+
+    rng = np.random.default_rng(13)
+    h = n // 2
+    pts = np.concatenate([rng.normal(0, 0.08, (h, 3)) + [-0.5, 0, 3.0],
+                          rng.normal(0, 0.08, (h, 3)) + [0.5, 0, 3.0]]).astype(np.float32)
+    st = G.create_from_pcd(pts, rng.uniform(0.2, 0.8, (n, 3)).astype(np.float32),
+                           capacity=cap, device="cpu")
+    feat = np.zeros((cap, 6), np.float32)
+    feat[:h] = [0.9, -0.9, 0.9, -0.9, 0.9, -0.9]
+    feat[h:n] = [-0.9, 0.9, -0.9, 0.9, -0.9, 0.9]
+    feat[:n] += rng.normal(0, 0.05, (n, 6))
+    st = dataclasses.replace(
+        st, log_scales=torch.full_like(st.log_scales, math.log(0.05)),
+        logit_opacity=torch.where(st.alive, 4.0, -10.0), ins_feat=torch.as_tensor(feat))
+    cam = Camera.from_fov(np.eye(3), np.zeros(3), 1.0, 0.8, W, H)
+    with torch.no_grad():
+        sil = render(cam, st, torch.zeros(3), 3, RasterizeConfig(), render_color=False,
+                     render_feat_map=True, origin_feat=True).silhouette.numpy()
+    sam = np.where(np.arange(W)[None, :] < W // 2, 1, 2)
+    roots = np.zeros(cap, np.int32)
+    roots[h:n] = 1
+    return st, torch.as_tensor(roots), cam, np.where(sil > 0.5, sam, 0).astype(np.int32)
+
+
+def normalised_err(got, want) -> float:
+    return float((got.cpu() - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+
+
+def check_stage22_against_cpu(dev):
+    """At 160x120, on the card against the CPU: assign_leaf of both roots
+    from the same seeds, one sweep-2 view, one stage-2.2 step in the stream,
+    dense and compact configurations (each through its own kernels), and
+    one stage-3 view (_associate_view, a partition render per root)."""
+    from opengaussian_tpu_torch.config import OptimizationConfig
+    from opengaussian_tpu_torch.models import optimizer as opt_mod
+    from opengaussian_tpu_torch.ops import kmeans as km
+    from opengaussian_tpu_torch.ops import rasterize_kernels as rk
+    from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig
+    from opengaussian_tpu_torch.train import lang, loop
+    from opengaussian_tpu_torch.train import pseudo as pseudo_mod
+
+    W, H, k1, k2 = 160, 120, 2, 3
+    base, roots, cam, sam = blob_scene(W, H)
+    cfgs = {"stream": RasterizeConfig(), "dense": RasterizeConfig(pallas_input="dense"),
+            "compact": RasterizeConfig(bwd_layout="compact")}
+    kernels = {"stream": (rk.blend_stream_fwd, rk.blend_stream_bwd),
+               "dense": (rk.blend_tiles_fwd, rk.blend_tiles_bwd),
+               "compact": (rk.blend_stream_fwd, rk.blend_stream_bwd_compact)}
+    res = []
+    for on_card, d in ((False, torch.device("cpu")), (True, dev)):
+        st = to_device(base, d)
+        sam_d = torch.as_tensor(sam, device=d)
+        kms = dataclasses.replace(km.KMeansState.create(st.capacity, k1, k2, d),
+                                  cls_ids=roots.to(d))
+        pl = pseudo_mod.construct_pseudo_labels(st, [cam], sam_d[None], torch.zeros(3, device=d),
+                                                8, cfgs["stream"])
+        s2 = pseudo_mod._sweep2_view(st, cam, pl.feat[0], pl.mask_ids[0], kms.cls_ids,
+                                     torch.zeros(3, device=d), 8, k1, cfgs["stream"])
+        kms = dataclasses.replace(kms, leaf_sub_num=torch.clamp(
+            torch.maximum(torch.ones_like(s2[0]), s2[0]) + 1, max=k2))
+        for r in range(k1):
+            member = ((roots == r) & base.alive).to(d)
+            kms = km.assign_leaf(kms, st.ins_feat, st.alive, r, k2, init=True,
+                                 init_centers=st.ins_feat[member][:k2])
+        t = lambda x: torch.as_tensor(x, device=d)  # noqa: E731
+        bundle = loop.ViewBundle(
+            R=t(cam.R_w2c)[None], t=t(cam.t_w2c)[None], fx=t(cam.fx)[None],
+            fy=t(cam.fy)[None], cx=t(cam.cx)[None], cy=t(cam.cy)[None],
+            gt_images=torch.zeros((1, H, W, 3), device=d),
+            alpha_masks=torch.ones((1, H, W), device=d),
+            has_alpha=torch.zeros(1, dtype=torch.bool, device=d), sam_ids=sam_d[None],
+            width=W, height=H, max_masks=8)
+        steps = {}
+        for name, rcfg in cfgs.items():
+            fwd, bwd = kernels[name]
+            before = (fwd.launches, bwd.launches)
+            steps[name] = loop.stage22_step(
+                st, opt_mod.init(st.params()), kms, bundle, 0,
+                STAGE_ENDS["start_leaf_cb_iter"] + 1, torch.zeros(3, device=d), 0.8,
+                pl.feat[0], 1, True, rcfg, OptimizationConfig())
+            torch.cuda.synchronize()
+            launched = (fwd.launches - before[0], bwd.launches - before[1])
+            if on_card and launched != (1, 1):
+                raise AssertionError(f"stage-2.2 step ({name}): launches of {fwd.__name__}, "
+                                     f"{bwd.__name__} {launched}, expected (1, 1)")
+        before = rk.blend_stream_fwd.launches
+        view = lang._associate_view(st, kms.leaf_cls_ids, cam, pl.feat[0], pl.mask_ids[0],
+                                    s2[1], torch.zeros(3, device=d), k1, k2, 8, cfgs["stream"])
+        if on_card and rk.blend_stream_fwd.launches - before != k1:
+            raise AssertionError("stage-3 view: expected one K1 launch per root")
+        res.append((st, kms, s2, steps, view))
+    (_, kc, s2c, stc, vc), (st_g, kg, s2g, stg, vg) = res
+    e_leaf = normalised_err(kg.leaf_centers, kc.leaf_centers)
+    agree = float((kg.leaf_cls_ids.cpu() == kc.leaf_cls_ids).float().mean())
+    if e_leaf > 1e-4 or agree < 0.999:
+        raise AssertionError(f"assign_leaf: centers {e_leaf:.2e}, ids agree {agree:.4f}")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(s2g, s2c)) or not bool(s2c[1].all()):
+        raise AssertionError(f"sweep 2: card {s2g}, cpu {s2c} (both roots must match)")
+    worst = 0.0
+    for name in cfgs:
+        (s_c, a_c, l_c, ok_c, _), (s_g, a_g, l_g, ok_g, lost) = stc[name], stg[name]
+        if not (bool(ok_g) and bool(ok_c)) or int(lost) != 0 or not math.isclose(
+                float(l_g), float(l_c), rel_tol=1e-4) or not float(l_c) > 0:
+            raise AssertionError(f"stage-2.2 step ({name}): loss card {float(l_g)} cpu "
+                                 f"{float(l_c)}, ok {bool(ok_g)}/{bool(ok_c)}, lost {int(lost)}")
+        for what, got, want in (("ins_feat", s_g.ins_feat, s_c.ins_feat),
+                                ("mu", a_g.mu["ins_feat"], a_c.mu["ins_feat"]),
+                                ("nu", a_g.nu["ins_feat"], a_c.nu["ins_feat"])):
+            e = normalised_err(got, want)
+            worst = max(worst, e)
+            if not bool(torch.isfinite(got).all()) or e > 1e-3:
+                raise AssertionError(f"stage-2.2 step ({name}): {what} normalised error {e:.3e}")
+        for k in ("means", "sh_dc", "sh_rest", "log_scales", "quats", "logit_opacity"):
+            if not torch.equal(getattr(s_g, k), getattr(st_g, k)):
+                raise AssertionError(f"stage-2.2 step ({name}): the step changed {k}")
+    if not (torch.equal(vg[0].cpu(), vc[0]) and torch.equal(vg[2].cpu(), vc[2])) or \
+            float((vg[1].cpu() - vc[1]).abs().max()) > 1e-4 or not bool(vc[2].any()):
+        raise AssertionError(f"stage-3 view: card {vg}, cpu {vc}")
+    log(f"stage 2.2 at {W}x{H}, {int(base.num_alive)} splats: assign_leaf centers agree to "
+        f"{e_leaf:.2e} (ids {agree:.4f}); sweep 2 counts {s2c[0].tolist()}, occur "
+        f"{s2c[1].tolist()}; steps (stream, dense, compact) loss "
+        + ", ".join(f"{float(stg[k][2]):.6f}" for k in cfgs)
+        + " (cpu " + ", ".join(f"{float(stc[k][2]):.6f}" for k in cfgs)
+        + f"), ins_feat and moments to a normalised {worst:.2e}, geometry unchanged; "
+        f"stage-3 view: {int(vc[2].sum())} of {k1 * k2} leaves matched on both")
+
+
 def profile(fn, n: int, what: str) -> tuple[float, float]:
     """torch.profiler over n calls of fn: device time by kernel.
     -> (device busy ms per call, the union of the kernels' intervals; host
@@ -590,6 +831,26 @@ def profile(fn, n: int, what: str) -> tuple[float, float]:
     for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         log(f"profile {what}:   {us / 1e3 / n:8.4f} ms  {k[:90]}")
     return busy_ms, wall_ms
+
+
+def device_ms(fn, n: int, kernel: str) -> float:
+    """Device time per call of the kernels whose name holds `kernel`, by
+    torch.profiler over n calls: the kernel alone, without the host work of
+    its wrapper."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if not us:
+        raise AssertionError(f"the profiler recorded no {kernel}")
+    if len(us) != n:  # per kernel the profiler recorded, not per call
+        log(f"profile: {len(us)} {kernel} launches recorded of {n} calls")
+    return sum(us) / 1e3 / len(us)
 
 
 def fwd_bound(name, live: int, F: int, T: int, n_index: int, work, peak_flops,
@@ -636,22 +897,41 @@ def launch_counts() -> dict:
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 
     return {w: getattr(rk, w) for w in ("blend_stream_fwd", "blend_stream_bwd",
-                                        "segment_reduce", "blend_tiles_fwd",
-                                        "blend_tiles_bwd")}
+                                        "blend_stream_bwd_compact", "segment_reduce",
+                                        "blend_tiles_fwd", "blend_tiles_bwd")}
 
 
-def train_path(scene_dir: str, root: str, dev, rcfg=None) -> tuple:
+def expected_launches(tr, rcfg) -> dict:
+    """Each kernel's launches on the training path, from the schedule: one
+    forward and one backward per step; sweep 1 (one render per view) at the
+    entries to stages 2.1 and 2.2; sweep 2 at stage-2.2 entry, one render per
+    root and view; stage 3, per view one partition render per root (stream)
+    or one render per leaf (dense)."""
+    o, V = tr.cfg.opt, tr.bundle.num_views
+    k1, k2 = o.root_node_num, o.leaf_node_num
+    dense = rcfg.pallas_input == "dense"
+    fwd = "blend_tiles_fwd" if dense else "blend_stream_fwd"
+    bwd = ("blend_tiles_bwd" if dense else
+           "blend_stream_bwd_compact" if rcfg.bwd_layout == "compact" else "blend_stream_bwd")
+    want = dict.fromkeys(launch_counts(), 0)
+    want[fwd] = TRAIN_ITERS + 2 * V + k1 * V + (k1 * k2 if dense else k1) * V
+    want[bwd] = want["segment_reduce"] = TRAIN_ITERS
+    return want
+
+
+def train_path(scene_dir: str, root: str, dev, name: str, rcfg) -> tuple:
     """The training main path: cli.train.main for TRAIN_ITERS iterations
-    through stages 0, 1 and 2.1 (rcfg: the rasterizer's settings, None for
-    the default stream layout), every kernel's launches counted around it.
-    Checks the launches, the losses, the geometry across the feature stages
-    and the root codebook. -> (trainer, {kernel: launches}, output dir)."""
+    through stages 0, 1, 2.1 and 2.2, then stage 3 (rcfg: the rasterizer's
+    settings), every kernel's launches counted around it. Checks the
+    launches, the losses, the geometry across the feature stages, the
+    codebooks, cluster_lang.npz and the checkpoint.
+    -> (trainer, {kernel: launches}, output dir, seconds)."""
     from opengaussian_tpu_torch.cli import train as cli_train
     from opengaussian_tpu_torch.data.ply import load_gaussian_ply
+    from opengaussian_tpu_torch.train import checkpoint
     from opengaussian_tpu_torch.utils.codebook import load_codebook
 
-    layout = rcfg.pallas_input if rcfg is not None else "stream"
-    out = os.path.join(root, f"trained_{layout}")
+    out = os.path.join(root, f"trained_{name}")
     wrappers = launch_counts()
     for w in wrappers.values():
         w.launches = 0
@@ -660,17 +940,15 @@ def train_path(scene_dir: str, root: str, dev, rcfg=None) -> tuple:
     tr = cli_train.main(
         ["-s", scene_dir, "-m", out, "--iterations", str(TRAIN_ITERS), *flags,
          "--densify_from_iter", "10", "--densification_interval", "10",
-         "--opacity_reset_interval", "30"], device=dev, rcfg=rcfg)
+         "--opacity_reset_interval", "30", "--leaf_update_fr", str(LEAF_UPDATE_FR),
+         "--checkpoint_iterations", str(TRAIN_ITERS)], device=dev, rcfg=rcfg)
     torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
-    what = f"training path ({layout})"
-    log(f"{what}: {TRAIN_ITERS} iterations in {time.perf_counter() - t0:.2f} s "
-        f"(scene load, setup, sweep 1 and saves included), launches {launches}")
-    fwd, bwd = (("blend_tiles_fwd", "blend_tiles_bwd") if layout == "dense"
-                else ("blend_stream_fwd", "blend_stream_bwd"))
-    want = dict.fromkeys(wrappers, 0)
-    want[fwd] = TRAIN_ITERS + tr.bundle.num_views  # every step, and sweep 1's views
-    want[bwd] = want["segment_reduce"] = TRAIN_ITERS
+    what = f"training path ({name})"
+    log(f"{what}: {TRAIN_ITERS} iterations and stage 3 in {seconds:.2f} s (scene load, "
+        f"setup, sweeps, stage 3, saves and the checkpoint included), launches {launches}")
+    want = expected_launches(tr, rcfg)
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
     losses = torch.stack(tr.losses).cpu().numpy()
@@ -683,14 +961,19 @@ def train_path(scene_dir: str, root: str, dev, rcfg=None) -> tuple:
     if not m[2] < m[0]:
         raise AssertionError(f"{what}: loss did not fall: mean of steps 1-10 {m[0]}, "
                              f"of steps 21-30 {m[2]}")
-    log(f"{what}: mean loss of steps 1-10, ..., 51-60: "
+    o = tr.cfg.opt
+    log(f"{what}: mean loss of steps 1-10, ..., {TRAIN_ITERS - 9}-{TRAIN_ITERS}: "
         + ", ".join(f"{x:.5f}" for x in m)
         + f"; capacity {tr.state.capacity}, alive {int(tr.state.num_alive)}, "
         f"max_per_tile {tr.rcfg.max_per_tile}, slots lost in the last step "
-        f"{int(tr._last_lost)}")
+        f"{int(tr._last_lost)}, last root {tr.root_id}, leaf_sub_num "
+        f"{tr.kms.leaf_sub_num.tolist()}, roots occurring per view "
+        f"{tr.pseudo.cluster_occur.sum(dim=1).tolist()}")
     if tr.state.capacity <= N_SPLATS + 4096:
         raise AssertionError(f"{what}: the capacity did not grow")
-    # past stage 0 only ins_feat learns: the PLYs of iterations 40 and 60
+    if tr.root_id != (TRAIN_ITERS - STAGE_ENDS["start_leaf_cb_iter"]) // LEAF_UPDATE_FR:
+        raise AssertionError(f"{what}: stage 2.2 ended at root {tr.root_id}")
+    # past stage 0 only ins_feat learns: the PLYs of iterations 40 and 80
     pc = os.path.join(out, "point_cloud")
     ply = {it: load_gaussian_ply(os.path.join(pc, f"iteration_{it}", "point_cloud.ply"))
            for it in (STAGE_ENDS["start_ins_feat_iter"], TRAIN_ITERS)}
@@ -701,17 +984,40 @@ def train_path(scene_dir: str, root: str, dev, rcfg=None) -> tuple:
     moved = float(np.abs(a["ins_feat"] - b["ins_feat"]).max())
     if not moved > 0:
         raise AssertionError(f"{what}: ins_feat did not move in the feature stages")
-    centers, ids = load_codebook(os.path.join(pc, f"iteration_{TRAIN_ITERS}",
-                                              "root_code_book"))
     n_alive = int(tr.state.num_alive)
-    if centers.shape != (tr.cfg.opt.root_node_num, 9) or len(ids) != n_alive:
-        raise AssertionError(f"{what}: root codebook {centers.shape}, {len(ids)} ids "
-                             f"for {n_alive} splats")
+    last = os.path.join(pc, f"iteration_{TRAIN_ITERS}")
+    for book, shape in (("root_code_book", (o.root_node_num, 9)),
+                        ("leaf_code_book", (o.root_node_num * o.leaf_node_num + 1, 6))):
+        centers, ids = load_codebook(os.path.join(last, book))
+        if centers.shape != shape or len(ids) != n_alive:
+            raise AssertionError(f"{what}: {book} {centers.shape}, {len(ids)} ids for "
+                                 f"{n_alive} splats")
+    z = np.load(os.path.join(out, "cluster_lang.npz"))
+    k = o.root_node_num * o.leaf_node_num
+    if z["leaf_feat"].shape != (k, 512) or z["leaf_score"].shape != (k,) or \
+            z["occu_count"].shape != (k,) or len(z["leaf_ind"]) != n_alive or \
+            not all(np.isfinite(z[f]).all() for f in z.files):
+        raise AssertionError(f"{what}: cluster_lang.npz " + str({f: z[f].shape for f in z.files}))
+    # the checkpoint of the last iteration reloads bit for bit
+    st, adam, stats, kms, it = checkpoint.load(os.path.join(out, f"chkpnt{TRAIN_ITERS}.npz"), dev)
+    pairs = ([(f"state {f.name}", getattr(st, f.name), getattr(tr.state, f.name))
+              for f in dataclasses.fields(st)]
+             + [(f"kmeans {f.name}", getattr(kms, f.name), getattr(tr.kms, f.name))
+                for f in dataclasses.fields(kms)]
+             + [(f"stats {f.name}", getattr(stats, f.name), getattr(tr.stats, f.name))
+                for f in dataclasses.fields(stats)]
+             + [(f"adam {k}", adam.mu[k], tr.adam.mu[k]) for k in adam.mu]
+             + [(f"adam {k}", adam.nu[k], tr.adam.nu[k]) for k in adam.nu])
+    bad = [nm for nm, x, y in pairs if not torch.equal(x, y)]
+    if it != TRAIN_ITERS or adam.count != tr.adam.count or bad:
+        raise AssertionError(f"{what}: the checkpoint does not reload bit for bit: {bad}")
     log(f"{what}: geometry bit for bit equal at iterations "
         f"{STAGE_ENDS['start_ins_feat_iter']} and {TRAIN_ITERS} ({len(a['means'])} "
-        f"splats), ins_feat moved up to {moved:.4f}; root codebook {centers.shape[0]} "
-        f"centers, {len(np.unique(ids))} of them used, one id per alive splat")
-    return tr, launches, out
+        f"splats), ins_feat moved up to {moved:.4f}; root and leaf codebooks with one id "
+        f"per alive splat; cluster_lang.npz: {int((z['occu_count'] > 0).sum())} of {k} "
+        f"leaves matched in some view (the synthetic scene need not clear stage 3's "
+        f"gates); chkpnt{TRAIN_ITERS}.npz reloads bit for bit")
+    return tr, launches, out, seconds
 
 
 def check_trained_render(out: str, scene_dir: str, dev) -> int:
@@ -832,6 +1138,81 @@ def time_feature_stages(tr, card: str) -> None:
             f": {ms:.3f} ms [{card}]")
 
 
+def time_stage22(tr, card: str, name: str, profiled: bool = False, rcfg=None) -> float:
+    """The stage-2.2 step of a trained run (10 steps between two CUDA
+    events, each from the same state, over roots 0-4 and the views) with
+    the run's rasterizer settings or rcfg; with profiled, torch.profiler
+    over one step gives the idle share. -> ms per step."""
+    from opengaussian_tpu_torch.train import loop
+
+    o, V = tr.cfg.opt, tr.bundle.num_views
+    rcfg = rcfg or tr.rcfg
+
+    def step(i):
+        loop.stage22_step(tr.state, tr.adam, tr.kms, tr.bundle, i % V,
+                          o.start_leaf_cb_iter + 1, tr.bg, 1.0, tr.pseudo.feat[i % V], i % 5,
+                          tr.pseudo.cluster_occur[i % V, i % 5], rcfg, o, tr.any_alpha)
+
+    i = iter(range(1000))
+    ms = cuda_ms(lambda: step(next(i)), iters=10)
+    log(f"timing: stage-2.2 step, {name} run: {ms:.3f} ms (capacity {tr.state.capacity}, "
+        f"{int(tr.state.num_alive)} alive, max_per_tile {tr.rcfg.max_per_tile}, roots 0-4) "
+        f"[{card}]")
+    if profiled:
+        busy, wall = profile(lambda: step(0), 1, f"stage-2.2 step ({name})")
+        log(f"timing: device idle share during the profiled stage-2.2 step ({name}) "
+            f"{1.0 - busy / wall:.3f} (busy {busy:.3f} of {wall:.3f} ms) [{card}]")
+    return ms
+
+
+def time_leaf_events(tr, card: str, name: str) -> dict:
+    """Sweep 2 and stage 3 per view, and, once, assign_leaf per call (fresh
+    seeds, and from the cached centers)."""
+    from opengaussian_tpu_torch.ops import kmeans as km
+    from opengaussian_tpu_torch.train import lang
+    from opengaussian_tpu_torch.train import pseudo as pseudo_mod
+
+    o, V, b = tr.cfg.opt, tr.bundle.num_views, tr.bundle
+    k1, k2 = o.root_node_num, o.leaf_node_num
+    i = iter(range(1000))
+    s2 = cuda_ms(lambda: pseudo_mod._sweep2_view(
+        tr.state, b.camera(next(i) % V), tr.pseudo.feat[0], tr.pseudo.mask_ids[0],
+        tr.kms.cls_ids, tr.bg, b.max_masks, k1, tr.rcfg), iters=2)
+    s3 = cuda_ms(lambda: lang._associate_view(
+        tr.state, tr.kms.leaf_cls_ids, b.camera(next(i) % V), tr.pseudo.feat[0],
+        tr.pseudo.mask_ids[0], tr.pseudo.cluster_occur[0], tr.bg, k1, k2, b.max_masks,
+        tr.rcfg), iters=2)
+    log(f"timing: sweep 2, {name} run: {s2:.3f} ms per view ({k1} single-root renders); "
+        f"stage 3: {s3:.3f} ms per view ({k1} roots x {k2} leaves, "
+        f"{'one render per leaf' if tr.rcfg.pallas_input == 'dense' else 'one partition render per root'}"
+        f") [{card}]")
+    out = dict(sweep2=s2, stage3=s3)
+    if name == "stream":
+        gen = torch.Generator(device=tr.device).manual_seed(1)
+        for init in (True, False):
+            ms = cuda_ms(lambda: km.assign_leaf(tr.kms, tr.state.ins_feat, tr.state.alive, 0,
+                                                k2, gen, init=init), iters=5)
+            log(f"timing: assign_leaf, root 0 of {k1}, k2 = {k2}, {tr.state.capacity} slots, "
+                f"{'fresh k-means++ seeds' if init else 'from the cached centers'}: "
+                f"{ms:.3f} ms [{card}]")
+            out[f"assign_leaf_{init}"] = ms
+    return out
+
+
+def compact_bound(live: int, nc_rows: int, F: int, T: int, work, peak_flops,
+                  peak_bytes) -> tuple[float, str]:
+    """K4: the live rows and their splat ids read once, every owned row and
+    its id written once (NC * chunk of each), the [T] counts, tstart, toff
+    and cstart tables, accum/g_accum/t_final/g_t read once; the replay's
+    operations from its pair counts, as K2's."""
+    C = F - 6
+    moved = (live * (F + 1) * 4 + nc_rows * (F + 1) * 4 + 4 * T * 4
+             + 2 * T * 256 * (C + 1) * 4)
+    ops = (work["evaluated"] * OPS_EVALUATED + work["tested"] * OPS_TESTED
+           + work["blended"] * ops_grad(C) + T * 256 * (2 * C + 1))
+    return bound_of("blend_stream_bwd_compact", moved, ops, peak_flops, peak_bytes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -882,6 +1263,7 @@ def main() -> int:
         gt0 = torch.as_tensor(views[0].gt_image, device=dev)
         cot = loss_cotangents(cam0, grids, streams[4], chunk, gt0)
         grad = check_grad_kernels(streams[4], cot, chunk, state.capacity)
+        compact = check_compact_kernel(streams[4], cot, chunk, state.capacity, grad["d_rows"])
         # the dense layout on the same frame's feature pass, K fitted to it
         # as the trainer fits max_per_tile
         k_dense = fitted_max_per_tile(int(streams[7][5].deepest), chunk)
@@ -898,6 +1280,8 @@ def main() -> int:
         check_against_oracle(dev)
         check_step_against_cpu(dev)
         check_feature_steps_against_cpu(dev)
+        partition_err = check_partition_against_scan(cam0, state, dev)
+        check_stage22_against_cpu(dev)
 
         # 4. render path, through the CLI a user runs
         for w in launch_counts().values():
@@ -951,15 +1335,33 @@ def main() -> int:
                 f"max abs err {dense_render_err:.3e}")
 
         # 5. training path, through the CLI a user runs, in each input layout
-        tr, train_launches, out = train_path(scene_dir, root, dev)
-        check_trained_render(out, scene_dir, dev)
-        tr_d, dense_launches, _ = train_path(scene_dir, root, dev,
-                                             RasterizeConfig(pallas_input="dense"))
-        l_s, l_d = float(tr.losses[0]), float(tr_d.losses[0])
-        if not math.isclose(l_d, l_s, rel_tol=1e-5):
-            raise AssertionError(f"first loss: dense layout {l_d!r}, stream {l_s!r}")
-        log(f"training path: first loss {l_d:.7f} (dense) and {l_s:.7f} (stream)")
-        del tr_d
+        # and with the compact backward; each run's stage-2.2 step and leaf
+        # events are timed from its own trained state
+        runs = {"stream": RasterizeConfig(), "dense": RasterizeConfig(pallas_input="dense"),
+                "compact": RasterizeConfig(bwd_layout="compact")}
+        train_launches, s22_ms, leaf_ms = {}, {}, {}
+        for run, rcfg in runs.items():
+            tr_r, train_launches[run], out_r, _ = train_path(scene_dir, root, dev, run, rcfg)
+            if run == "stream":
+                tr, out = tr_r, out_r
+                check_trained_render(out, scene_dir, dev)
+            else:
+                l_s, l_r = float(tr.losses[0]), float(tr_r.losses[0])
+                if not math.isclose(l_r, l_s, rel_tol=1e-5):
+                    raise AssertionError(f"first loss: {run} run {l_r!r}, stream {l_s!r}")
+                log(f"training path: first loss {l_r:.7f} ({run}) and {l_s:.7f} (stream)")
+            s22_ms[run] = time_stage22(tr_r, card, run, profiled=run != "dense")
+            if run == "compact":  # the two stream backwards from one state, in turns
+                k2_cfg = dataclasses.replace(rcfg, bwd_layout="auto")
+                turns = [time_stage22(tr_r, card, f"compact run, {lay}", rcfg=c)
+                         for lay, c in (("K2", k2_cfg), ("K4", rcfg), ("K4", rcfg),
+                                        ("K2", k2_cfg))]
+                log("timing: stage-2.2 step from the compact run's state, in turns K2, K4, "
+                    "K4, K2: " + ", ".join(f"{x:.3f}" for x in turns) + f" ms [{card}]")
+            if run != "compact":
+                leaf_ms[run] = time_leaf_events(tr_r, card, run)
+            if run != "stream":
+                del tr_r
 
         # 6. timings
         k_ms, p_ms = {}, {}
@@ -985,6 +1387,27 @@ def main() -> int:
                 f"({k2_cold:.4f} with L2 flushed), plain {k2_plain:.3f} ms/launch, "
                 f"composited pairs {grad['work']['blended']} [{card}]")
             d_rows, ids, n = grad["d_rows"], bins.sorted_gauss, state.capacity
+            # K4 on the same frame and cotangents, and each backward with its reduce
+            cargs = (rows, counts, tstart, toff, ids, *cot, gx, chunk, n)
+            k4_ms = cuda_ms(lambda: rk.blend_stream_bwd_compact(*cargs), iters=20, warmup=3)
+            k4_cold = cuda_ms(lambda: (flush.zero_(), rk.blend_stream_bwd_compact(*cargs)),
+                              iters=10) - f_ms
+            k4_plain = cuda_ms(lambda: rk.blend_stream_bwd_compact_plain(*cargs), iters=2)
+            log(f"timing: blend_stream_bwd_compact C=4: kernel {k4_ms:.4f} ms/launch "
+                f"({k4_cold:.4f} with L2 flushed), plain {k4_plain:.3f} ms/launch, "
+                f"{compact['d'].shape[0]} compacted rows [{card}]")
+            k2_dev, k4_dev = (device_ms(f, 10, k) for f, k in (
+                (lambda: rk.blend_stream_bwd(*bargs), "blend_stream_bwd_kernel"),
+                (lambda: rk.blend_stream_bwd_compact(*cargs), "blend_stream_bwd_compact_kernel")))
+            log(f"timing: device time by torch.profiler, C=4 frame: K2 kernel {k2_dev:.4f} ms, "
+                f"K4 kernel {k4_dev:.4f} ms per launch (the calls above add the wrappers' "
+                f"host work: K4's computes the chunk offsets with one host sync) [{card}]")
+            k2k3 = lambda: rk.segment_reduce(rk.blend_stream_bwd(*bargs), ids, n)  # noqa: E731
+            k4k3 = lambda: rk.segment_reduce(*rk.blend_stream_bwd_compact(*cargs), n)  # noqa: E731
+            pair = [cuda_ms(f, iters=20, warmup=3) for f in (k2k3, k4k3, k4k3, k2k3)]
+            log(f"timing: backward + reduce, C=4 frame, in turns K2+K3, K4+K3, K4+K3, K2+K3: "
+                + ", ".join(f"{x:.4f}" for x in pair) + " ms (K2's wrapper zero-fills d_rows, "
+                f"K4's computes the chunk offsets with one host sync) [{card}]")
             k3_ms = cuda_ms(lambda: rk.segment_reduce(d_rows, ids, n), iters=20, warmup=3)
             k3_plain = cuda_ms(lambda: rk.segment_reduce_plain(d_rows, ids, n), iters=5)
             ids64 = ids.to(torch.int64)
@@ -1032,7 +1455,7 @@ def main() -> int:
                                          origin_feat=True) for v in views]
             r_ms = cuda_ms(render_all, iters=3) / len(views)
             log(f"timing: render {r_ms:.3f} ms/view (color + feature pass) [{card}]")
-            log("timing: library_ms null for K1, K2, K5 and K6: no single PyTorch call "
+            log("timing: library_ms null for K1, K2, K4, K5 and K6: no single PyTorch call "
                 "computes a depth-ordered alpha blend with early stop, or its replay")
             busy, wall = profile(lambda: render(views[0].camera, state, bg, 3,
                                                 RasterizeConfig(), render_color=True,
@@ -1054,6 +1477,11 @@ def main() -> int:
                                 counts.shape[0], 3, grad["work"], peak_flops, peak_bytes)
         log(f"bound: blend_stream_bwd C=4: {k2_b:.4f} ms/launch ({k2_by}), kernel at "
             f"{k2_b / k2_ms:.3f} of it [{card}]")
+        k4_b, k4_by = compact_bound(int(counts.sum()), compact["d"].shape[0], rows.shape[1],
+                                    counts.shape[0], grad["work"], peak_flops, peak_bytes)
+        log(f"bound: blend_stream_bwd_compact C=4: {k4_b:.4f} ms/launch ({k4_by}), kernel "
+            f"(device time) at {k4_b / k4_dev:.3f} of it, the call at {k4_b / k4_ms:.3f} "
+            f"[{card}]")
         k3_b, k3_by = reduce_bound(d_rows, n, peak_flops, peak_bytes)
         log(f"bound: segment_reduce: {k3_b:.4f} ms/launch ({k3_by}), kernel at "
             f"{k3_b / k3_ms:.3f} of it [{card}]")
@@ -1076,17 +1504,22 @@ def main() -> int:
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
-    main_paths = (render_launches, train_launches, dense_launches)
+    main_paths = (render_launches, *train_launches.values())
     total = {k: sum(p[k] for p in main_paths) for k in render_launches}
-    log(f"launches on the main paths: render {render_launches}, training (stream) "
-        f"{train_launches}, training (dense) {dense_launches}")
+    log(f"launches on the main paths: render {render_launches}, "
+        + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()))
+    log(f"summary: stage-2.2 step ms {s22_ms}; sweep 2 / stage 3 ms per view {leaf_ms}; "
+        f"partition against scan max abs err {partition_err:.3e} [{card}]")
     kernels = [
         row("blend_stream_fwd", total["blend_stream_fwd"], k1_err,
             sum(k_ms.values()) / len(k_ms), sum(p_ms.values()) / len(p_ms),
             sum(k1_b) / len(k1_b), max(k1_bound.values())[1], line=562),
         row("blend_stream_bwd", total["blend_stream_bwd"], grad["k2_err"], k2_ms, k2_plain,
             k2_b, k2_by, line=670),
-        row("segment_reduce", total["segment_reduce"], max(grad["k3_err"], dense["k3_err"]),
+        row("blend_stream_bwd_compact", total["blend_stream_bwd_compact"], compact["k4_err"],
+            k4_dev, k4_plain, k4_b, k4_by, line=841),
+        row("segment_reduce", total["segment_reduce"],
+            max(grad["k3_err"], dense["k3_err"], compact["k43_err"]),
             k3_ms, k3_plain, k3_b, k3_by, lib=lib_ms, line=1196),
         row("blend_tiles_fwd", total["blend_tiles_fwd"], dense["k5_err"], k5_ms, k5_plain,
             k5_b, k5_by, line=322),

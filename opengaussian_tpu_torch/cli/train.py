@@ -1,14 +1,18 @@
-"""Training CLI, stages 0 to 2.1 (port of opengaussian_tpu/cli/train.py;
-reference train.py:1029-1064), with the same flags.
+"""Training CLI (port of opengaussian_tpu/cli/train.py; reference
+train.py:1029-1064), with the same flags.
 
     python -m opengaussian_tpu_torch.cli.train -s <scene> -m <out> --iterations N
 
-Runs on the GPU. The port trains stage 0 (3DGS pretraining), stage 1 (SAM
-instance features) and stage 2.1 (the root codebook), so --iterations must
-not pass start_leaf_cb_iter. It saves point_cloud/iteration_N/point_cloud.ply
-at the save milestones, which `opengaussian_tpu_torch.cli.render` renders,
-and past start_root_cb_iter the root codebook beside it. A flag whose feature
-the port does not have yet raises NotImplementedError.
+Runs on the GPU through the whole schedule: stage 0 (3DGS pretraining),
+stage 1 (SAM instance features), stage 2.1 (the root codebook), stage 2.2
+(the leaf codebook) and, when --iterations passes start_leaf_cb_iter, stage
+3 after the last iteration, which writes cluster_lang.npz into the output
+directory. It saves point_cloud/iteration_N/point_cloud.ply at the save
+milestones, which `opengaussian_tpu_torch.cli.render` renders, with the root
+and leaf codebooks beside it once their stages have begun. It writes
+chkpnt<N>.npz at each of --checkpoint_iterations and resumes from
+--start_checkpoint (an .npz of either package or a reference .pth). A flag
+whose feature the port does not have yet raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from opengaussian_tpu_torch.config import PRESETS, Config, ModelConfig
 from opengaussian_tpu_torch.data.dataset import load_scene
 from opengaussian_tpu_torch.device import resolve_device
 from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig
-from opengaussian_tpu_torch.train.loop import LATER_STAGES, Trainer
+from opengaussian_tpu_torch.train.loop import Trainer
 
 OPT_FLAGS = (
     "iterations", "start_ins_feat_iter", "start_root_cb_iter",
@@ -38,7 +42,7 @@ OPT_FLAGS = (
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Train OpenGaussian (PyTorch port, stages 0-2.1)")
+    p = argparse.ArgumentParser(description="Train OpenGaussian (PyTorch port)")
     p.add_argument("--source_path", "-s", required=True)
     p.add_argument("--model_path", "-m", default="")
     p.add_argument("--images", default="images")
@@ -99,8 +103,6 @@ def _refuse_left_out(args, cfg: Config) -> None:
         "--mesh": (bool(args.mesh), "multi-GPU training"),
         "--save_memory": (bool(cfg.opt.save_memory), "host-resident view bundles"),
         "--lazy_load": (args.lazy_load, "lazily decoded views"),
-        "--start_checkpoint": (args.start_checkpoint is not None, "checkpoints"),
-        "--checkpoint_iterations": (bool(args.checkpoint_iterations), "checkpoints"),
         "--port": (bool(args.port), "the remote viewer"),
         "--enable_multiview_sam_refinement": (
             bool(cfg.opt.enable_multiview_sam_refinement), "the SAM mask refiner"),
@@ -109,11 +111,6 @@ def _refuse_left_out(args, cfg: Config) -> None:
         if given:
             raise NotImplementedError(
                 f"{flag}: {what} is not in the PyTorch port yet (see ROADMAP.md)")
-    if cfg.opt.iterations > cfg.opt.start_leaf_cb_iter:
-        raise NotImplementedError(
-            f"--iterations {cfg.opt.iterations} is past start_leaf_cb_iter="
-            f"{cfg.opt.start_leaf_cb_iter}: the port trains stages 0 to 2.1; "
-            + LATER_STAGES)
 
 
 def main(argv=None, device="cuda", rcfg: RasterizeConfig | None = None) -> Trainer:
@@ -141,11 +138,15 @@ def main(argv=None, device="cuda", rcfg: RasterizeConfig | None = None) -> Train
           f"{len(scene.points)} init points, extent {scene.cameras_extent:.2f}",
           flush=True)
     tr = Trainer(scene, cfg, out_dir, rcfg=rcfg, seed=args.seed, device=dev)
+    if args.start_checkpoint:
+        tr.restore_checkpoint(args.start_checkpoint)
+        print(f"Resumed from {args.start_checkpoint} at iteration {tr.iteration}")
 
     o = cfg.opt
     save_iters = args.save_iterations or [o.start_ins_feat_iter, o.start_root_cb_iter,
                                           o.start_leaf_cb_iter, o.iterations]
-    milestones = sorted(set(args.test_iterations) | set(save_iters) | {o.iterations})
+    milestones = sorted(set(args.test_iterations) | set(save_iters)
+                        | set(args.checkpoint_iterations) | {o.iterations})
     for ms in milestones:
         if ms <= tr.iteration:
             continue
@@ -156,8 +157,14 @@ def main(argv=None, device="cuda", rcfg: RasterizeConfig | None = None) -> Train
         if ms in save_iters:
             print(f"[ITER {tr.iteration}] saving gaussians")
             tr.save()
+        if ms in args.checkpoint_iterations:
+            tr.save_checkpoint()
         if tr.iteration >= o.iterations:
             break
+
+    if o.iterations > o.start_leaf_cb_iter:
+        print("[Stage 3] language feature association ...", flush=True)
+        tr.run_stage3()
     print("Training complete.")
     return tr
 

@@ -1,6 +1,7 @@
 // One tile's depth-ordered blend and its backward replay, shared by the
-// stream kernels (blend_stream_fwd.cu K1, blend_stream_bwd.cu K2) and the
-// dense-block kernels (blend_tiles_fwd.cu K5, blend_tiles_bwd.cu K6).
+// stream kernels (blend_stream_fwd.cu K1, blend_stream_bwd.cu K2,
+// blend_stream_bwd_compact.cu K4) and the dense-block kernels
+// (blend_tiles_fwd.cu K5, blend_tiles_bwd.cu K6).
 //
 // A tile's run is `cnt` consecutive rows of n_fields floats: mean2d x/y,
 // conic a/b/c, opacity, payload (C = n_fields - 6). In the stream layout it
@@ -110,9 +111,11 @@ __device__ __forceinline__ void blend_run_fwd(
 // w * g_accum. Row k of d_run gets the sum of the 256 pixels' terms for slot
 // k: a warp shuffle tree, then the 8 warps' partials in warp order through
 // shared memory, so the rows repeat bit for bit. Rows the walk does not
-// reach (after every pixel stopped) are left as the caller zeroed them.
+// reach (after every pixel stopped) are not written. Returns the number of
+// rows written, the same in every thread: rows [0, return) of d_run hold
+// the walk's rows, rows [return, cnt) are the caller's to fill.
 // accum/g_accum: this tile's [C, 256] blocks; t_final/g_t: its [256] rows.
-__device__ __forceinline__ void blend_run_bwd(
+__device__ __forceinline__ int blend_run_bwd(
     const float* __restrict__ run, int n_fields, int cnt, int tile,
     int grid_x, int chunk, const float* __restrict__ accum,
     const float* __restrict__ t_final, const float* __restrict__ g_accum,
@@ -144,7 +147,8 @@ __device__ __forceinline__ void blend_run_bwd(
   float T = 1.0f;
   float bacc = 0.0f;
   int done = 0;
-  for (int base = 0; base < cnt; base += chunk) {
+  int base = 0;
+  for (; base < cnt; base += chunk) {
     // Every pixel stopped: the rest of the run gets no gradient. This is
     // also the barrier that keeps the staging below from overwriting rows
     // and partials the previous chunk is still reading.
@@ -228,6 +232,7 @@ __device__ __forceinline__ void blend_run_bwd(
       dst[i] = s;
     }
   }
+  return min(base, cnt);
 }
 
 // Dynamic shared memory of blend_run_bwd, in bytes.

@@ -7,7 +7,10 @@ global depth rank) makes every tile's slots a contiguous front-to-back run of
 the stream: `tile_start[t]` and `counts[t]` address it. The dense layout
 also lays each run out as row t of a [T, K] splat-index matrix `gauss_idx`
 (K = max_per_tile): its first counts[t] entries are the run, front to back,
-and the rest hold 0, as the JAX package's scatter leaves them.
+and the rest hold 0, as the JAX package's scatter leaves them. Partition
+binning (`group_of`, `num_groups` = G, stream layout) puts each slot in the
+virtual tile group_of * T + tile, so G disjoint groups bin in one sort and
+counts / tile_start span G * T virtual tiles.
 
 Unlike the JAX package, the slot buffer is sized from this frame's exact
 intersection total (as the reference CUDA rasterizer sizes its key buffer
@@ -28,7 +31,8 @@ from opengaussian_tpu_torch.ops.projection import TILE, Projected
 
 @dataclasses.dataclass(frozen=True)
 class TileBins:
-    counts: torch.Tensor  # [T] int32 slots each tile blends (<= max_per_tile)
+    counts: torch.Tensor  # [T] int32 slots each tile blends (<= max_per_tile);
+    # [G * T] under partition binning
     tile_start: torch.Tensor  # [T] int32 offset of each tile's run
     sorted_gauss: torch.Tensor  # [P] int32 splat index per sorted slot
     total: torch.Tensor  # [] int32 intersections (rect slots before the cull)
@@ -48,10 +52,21 @@ def depth_rank(depth: torch.Tensor) -> torch.Tensor:
 
 def bin_gaussians(
     proj: Projected, grid_x: int, grid_y: int, max_per_tile: int, dense: bool = False,
+    rank: torch.Tensor | None = None, group_of: torch.Tensor | None = None,
+    num_groups: int = 1,
 ) -> TileBins:
     """Sort the frame's (splat, tile) slots by (tile, depth rank); with
-    dense, also build the [T, max_per_tile] splat-index matrix."""
+    dense, also build the [T, max_per_tile] splat-index matrix.
+
+    rank [N]: depth_rank(proj.depth), when the caller computed it already
+    (group renders share one across their groups). group_of [N] int: each
+    splat's group, 0..num_groups-1 (partition binning, stream only); splats
+    in no group must have num_tiles 0. Counts and tile starts then span
+    num_groups * T virtual tiles."""
+    if group_of is not None and dense:
+        raise ValueError("partition binning is stream-only")
     num_tiles = grid_x * grid_y
+    vt_total = num_tiles * num_groups
     dev = proj.depth.device
     nt = proj.num_tiles.to(torch.int64)
     n = nt.shape[0]
@@ -79,16 +94,20 @@ def bin_gaussians(
     ddx = cx - nx
     ddy = cy - ny
     hits = ddx * ddx + ddy * ddy <= rad * rad
-    tile_id = torch.where(hits, ty * grid_x + tx, num_tiles)
+    tid = ty * grid_x + tx
+    if group_of is not None:
+        tid = tid + torch.clamp(group_of.to(torch.int64), 0, num_groups - 1)[g] * num_tiles
+    tile_id = torch.where(hits, tid, vt_total)
 
     # one int64 key: tile major, depth rank minor (unique for live slots)
-    rank = depth_rank(proj.depth.detach())
-    key = tile_id * (n + 1) + rank[g]
+    if rank is None:
+        rank = depth_rank(proj.depth.detach())
+    key = tile_id * (n + 1) + rank.to(torch.int64)[g]
     key_s, order = torch.sort(key, stable=True)
     g_sorted = g[order]
     tile_s = key_s // (n + 1)
     edges = torch.searchsorted(
-        tile_s, torch.arange(num_tiles + 1, device=dev), side="left")
+        tile_s, torch.arange(vt_total + 1, device=dev), side="left")
     tstart = edges[:-1]
     full_counts = edges[1:] - tstart
     counts = torch.clamp(full_counts, max=max_per_tile)

@@ -5,13 +5,15 @@ The coarse (root) level clusters cat(ins_feat, xyz * pos_weight) [N, 9]
 into k1 centers; Lloyd iterations recompute centers from one-hot sums, with
 dead (padding) splats at weight 0; quantization uses the straight-through
 estimator q = feat - feat.detach() + centers[ids]. The leaf level
-(`assign_leaf`) comes with stage 2.2.
+(`assign_leaf`) clusters the 6-D features of one root's splats into that
+root's k2 slots, of which only the first leaf_sub_num[root] take part; every
+splat starts in the "unassigned" bucket k1 * k2.
 
 Distances are |x|^2 - 2 x c^T + |c|^2 with a float32 matrix product at
 PyTorch's default precision (no TF32). The k-means++ draws come from a
 torch.Generator, which cannot reproduce the JAX package's PRNG: tests hand
-both packages the same initial centers instead (`assign_root(...,
-init_centers=...)`).
+both packages the same initial centers instead (`assign_root` and
+`assign_leaf` take `init_centers=...`).
 """
 
 from __future__ import annotations
@@ -171,6 +173,45 @@ def assign_root(state: KMeansState, ins_feat: torch.Tensor, xyz: torch.Tensor,
         centers = torch.where(better, c1, c2)
         ids = torch.where(better, i1, i2)
     return dataclasses.replace(state, centers=centers, cls_ids=ids)
+
+
+@torch.no_grad()
+def assign_leaf(state: KMeansState, ins_feat: torch.Tensor, alive: torch.Tensor,
+                selected_root: int, k2: int, generator: torch.Generator | None = None,
+                iters: int = 5, init: bool = False,
+                init_centers: torch.Tensor | None = None) -> KMeansState:
+    """Re-cluster the 6-D features of one root's splats into its k2 leaf
+    slots (reference scene/kmeans_quantize.py:195-206, 232-241). Slots at or
+    past the root's leaf_sub_num are masked out of the argmin and keep
+    their centers. init: Lloyd from k-means++ seeds drawn over the root's
+    splats (every other splat at weight 1e-9, as in the JAX package);
+    otherwise from the root's cached leaf centers. init_centers [k2, 6]: the
+    seeds to use instead of drawing them from `generator`."""
+    feat = torch.where(alive[:, None], ins_feat, 0.0)  # see assign_root
+    member = (state.cls_ids == selected_root) & alive
+    w = member.to(torch.float32)
+    start = selected_root * k2
+    n_sub = state.leaf_sub_num[selected_root]
+    local = state.leaf_centers[start:start + k2]
+    if init:
+        local = (init_centers if init_centers is not None else
+                 init_centers_from_points(feat, w + 1e-9, k2, generator))
+    ar = torch.arange(k2, device=feat.device)
+    slot_ok = ar < n_sub
+
+    def nearest(c):
+        return torch.argmin(torch.where(slot_ok[None, :], _dist2(feat, c), torch.inf),
+                            dim=-1)
+
+    for _ in range(iters):
+        onehot = (nearest(local)[:, None] == ar[None, :]).to(torch.float32) * w[:, None]
+        new_c = (onehot.T @ feat) / (onehot.sum(dim=0) + 1e-6)[:, None]
+        local = torch.where(slot_ok[:, None], new_c, local)
+    ids = nearest(local).to(torch.int32)
+    leaf_centers = state.leaf_centers.clone()
+    leaf_centers[start:start + k2] = local
+    leaf_ids = torch.where(member, ids + start, state.leaf_cls_ids)
+    return dataclasses.replace(state, leaf_centers=leaf_centers, leaf_cls_ids=leaf_ids)
 
 
 def quantize(state: KMeansState, ins_feat: torch.Tensor, mode: str) -> torch.Tensor:

@@ -7,6 +7,9 @@
   * `blend_stream_bwd` (csrc/blend_stream_bwd.cu) is the counterpart of
     `blend_stream_pallas_bwd`: the front-to-back replay that gives every slot
     of the stream its gradient row.
+  * `blend_stream_bwd_compact` (csrc/blend_stream_bwd_compact.cu) is the
+    counterpart of `blend_stream_pallas_bwd_compact`: the same replay, its
+    rows written at chunk-compacted offsets beside their splat ids.
   * `segment_reduce` (csrc/segment_reduce.cu) is the counterpart of
     `sorted_segment_reduce`: the per-splat sum of those rows.
   * `blend_tiles_fwd` (csrc/blend_tiles_fwd.cu) and `blend_tiles_bwd`
@@ -60,6 +63,9 @@ _ENTRIES = {
     "og_blend_stream_fwd": ("blend_stream_fwd", [_p, _i, _p, _p, _p, _i, _i, _i, _p, _p, _p]),
     "og_blend_stream_bwd": ("blend_stream_bwd", [_p, _i, _p, _p, _p, _i, _i, _i,
                                                  _p, _p, _p, _p, _p, _p]),
+    "og_blend_stream_bwd_compact": ("blend_stream_bwd_compact",
+                                    [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i,
+                                     _p, _p, _p, _p, _p, _p, _p]),
     "og_segment_reduce": ("segment_reduce", [_p, _p, _ll, _i, _i, _p, _p]),
     "og_blend_tiles_fwd": ("blend_tiles_fwd", [_p, _i, _i, _i, _p, _i, _i, _i, _p, _p,
                                                _p]),
@@ -405,6 +411,102 @@ def blend_stream_bwd(rows, counts, tstart, toff, accum, t_final, g_accum, g_t,
 
 
 blend_stream_bwd.launches = 0
+
+
+def compact_offsets(counts, chunk: int) -> tuple[torch.Tensor, int]:
+    """Each tile's first chunk in the compacted layout: cstart [T] int32, the
+    exclusive cumsum of ceil(counts / chunk), and NC, the number of chunks
+    (a host sync)."""
+    nchunks = (counts.to(torch.int64) + chunk - 1) // chunk
+    ends = torch.cumsum(nchunks, 0)
+    nc = int(ends[-1]) if counts.numel() else 0
+    return (ends - nchunks).to(torch.int32), nc
+
+
+def _check_ids(sorted_gauss, rows, n: int) -> None:
+    if sorted_gauss.dtype != torch.int32 or tuple(sorted_gauss.shape) != (rows.shape[0],):
+        raise ValueError(f"sorted_gauss must be int32 [{rows.shape[0]}], got "
+                         f"{sorted_gauss.dtype} {tuple(sorted_gauss.shape)}")
+    if sorted_gauss.device != rows.device or not sorted_gauss.is_contiguous():
+        raise ValueError("sorted_gauss must be contiguous, on the rows' device")
+    if not 0 <= n < 2**31:
+        raise ValueError(f"n must be in [0, 2^31), got {n}")
+
+
+def blend_stream_bwd_compact_plain(rows, counts, tstart, toff, sorted_gauss, accum,
+                                   t_final, g_accum, g_t, grid_x: int, chunk: int,
+                                   n: int):
+    """Plain PyTorch version of the compact backward kernel: the stream
+    backward's plain version (K2's walk), its rows placed at the compacted
+    offsets, the ids beside them and the tails of the last chunks written.
+    Arguments and outputs as for `blend_stream_bwd_compact`."""
+    _check_ids(sorted_gauss, rows, n)
+    d = blend_stream_bwd_plain(rows, counts, tstart, toff, accum, t_final, g_accum,
+                               g_t, grid_x, chunk)
+    cstart, nc = compact_offsets(counts, chunk)
+    dev = rows.device
+    cnt = counts.to(torch.int64)
+    tile = torch.repeat_interleave(torch.arange(cnt.shape[0], device=dev), cnt)
+    k = torch.arange(tile.shape[0], device=dev) - (torch.cumsum(cnt, 0) - cnt)[tile]
+    src = tstart.to(torch.int64)[tile] + k
+    dst = cstart.to(torch.int64)[tile] * chunk + k
+    d_rows = torch.zeros((nc * chunk, rows.shape[1]), dtype=torch.float32, device=dev)
+    d_rows[dst] = d[src]
+    ids = torch.full((nc * chunk,), n, dtype=torch.int32, device=dev)
+    ids[dst] = sorted_gauss[src]
+    return d_rows, ids
+
+
+def blend_stream_bwd_compact(rows, counts, tstart, toff, sorted_gauss, accum, t_final,
+                             g_accum, g_t, grid_x: int, chunk: int, n: int):
+    """Per-slot gradient rows of the stream blend, compacted by chunk, with
+    each row's splat id.
+
+    rows, counts, tstart, toff, grid_x, chunk: the forward's inputs (see
+    `blend_stream_fwd`); sorted_gauss [P] int32: the splat of every stream
+    slot; accum, t_final: the forward's outputs; g_accum, g_t: their
+    cotangents; n: the splat count. Tile t owns NC_t = ceil(counts[t] /
+    chunk) chunks of the output, from chunk cstart[t] on (`compact_offsets`).
+    -> (d_rows [NC * chunk, 6 + C] f32, ids [NC * chunk] int32), NC =
+    sum of NC_t: row k of tile t's range is the gradient row of its slot
+    tstart[t] + k (zero after the tile's pixels all stopped) with that
+    slot's splat as id; rows k >= counts[t] are zero with id n, which
+    `segment_reduce` drops. The per-splat sums equal those of
+    `blend_stream_bwd`'s rows by sorted_gauss.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    `blend_stream_bwd_compact.launches` counts kernel launches."""
+    if rows.device.type == "cpu":
+        return blend_stream_bwd_compact_plain(rows, counts, tstart, toff, sorted_gauss,
+                                              accum, t_final, g_accum, g_t, grid_x,
+                                              chunk, n)
+    if rows.device.type != "cuda":
+        raise ValueError(f"blend_stream_bwd_compact runs on cpu or cuda, not "
+                         f"{rows.device}")
+    _check_stream(rows, counts, tstart, toff, chunk)
+    _check_bwd(rows.shape[1], rows.device, counts, accum, t_final, g_accum, g_t)
+    _check_ids(sorted_gauss, rows, n)
+    T, F = counts.shape[0], rows.shape[1]
+    if F - N_GEOM > MAX_C:
+        raise ValueError(f"the kernel takes at most {MAX_C} channels, got {F - N_GEOM}")
+    if (1 + NPIX // WARP) * chunk * F * 4 > 227 * 1024:
+        raise ValueError(f"chunk {chunk} x {F} fields exceeds the shared memory "
+                         "of a block")
+    cstart, nc = compact_offsets(counts, chunk)
+    d_rows = torch.empty((nc * chunk, F), dtype=torch.float32, device=rows.device)
+    ids = torch.empty((nc * chunk,), dtype=torch.int32, device=rows.device)
+    if T == 0:
+        return d_rows, ids
+    _launch("og_blend_stream_bwd_compact", rows.device, rows.data_ptr(), F,
+            counts.data_ptr(), tstart.data_ptr(), toff.data_ptr(), cstart.data_ptr(),
+            sorted_gauss.data_ptr(), T, grid_x, chunk, n, accum.data_ptr(),
+            t_final.data_ptr(), g_accum.data_ptr(), g_t.data_ptr(), d_rows.data_ptr(),
+            ids.data_ptr())
+    blend_stream_bwd_compact.launches += 1
+    return d_rows, ids
+
+
+blend_stream_bwd_compact.launches = 0
 
 
 def _check_reduce(rows, ids, n: int) -> None:

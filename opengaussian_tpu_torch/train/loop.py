@@ -1,7 +1,6 @@
-"""Training loop, stages 0, 1 and 2.1.
+"""Training loop, stages 0 to 3.
 
-Port of opengaussian_tpu/train/loop.py (reference train.py:157-635) through
-the coarse codebook:
+Port of opengaussian_tpu/train/loop.py (reference train.py:157-635):
   * stage 0 (3DGS pretraining): one step renders the color pass with the
     screen tap, takes the L1 + SSIM loss, differentiates it, applies Adam and
     accumulates the densification statistics; densification and the opacity
@@ -10,21 +9,32 @@ the coarse codebook:
     against the view's SAM masks, with the cohesion and separation losses;
   * stage 2.1 (coarse codebook): pseudo labels from sweep 1 at entry, the
     root k-means every 200 iterations, and an L1 loss of the quantized
-    feature render against the view's pseudo features.
+    feature render against the view's pseudo features;
+  * stage 2.2 (leaf codebook): sweeps 1 and 2 at entry (sweep 2 sets each
+    root's active leaf count and its per-view visibility), the leaf k-means
+    of the current root at entry and every 50 iterations, the roots in
+    round robin (the next every leaf_update_fr iterations), and an L2 loss
+    of the current root's leaf-quantized cluster render against the pseudo
+    features, skipped where the root does not occur in the view;
+  * stage 3 (`Trainer.run_stage3`, after the last iteration): the language
+    association of train/lang.py, which writes cluster_lang.npz.
 Past stage 0 only ins_feat has a gradient; the geometry's learning rates are
 zero, so it stays as it was, bit for bit. The blend's backward is K2 + K3
-(ops/rasterize.py:StreamBlend) or, with RasterizeConfig(pallas_input=
-"dense"), K6 + K3 (DenseBlend). Every view's ground truth and camera sits on
-the device in stacked tensors (`ViewBundle`).
+(ops/rasterize.py:StreamBlend), K4 + K3 with RasterizeConfig(bwd_layout=
+"compact"), or, with RasterizeConfig(pallas_input="dense"), K6 + K3
+(DenseBlend). Every view's ground truth and camera sits on the device in
+stacked tensors (`ViewBundle`). Checkpoints (`save_checkpoint`,
+`restore_checkpoint`) use train/checkpoint.py.
 
 The port runs eagerly: a step is one Python function, with no jit and no
 scanned blocks of steps. Its binning sizes the slot buffer per frame, so of
 the JAX trainer's budget probe only the per-tile cap is left: the trainer
 raises max_per_tile past the deepest tile it finds, as the JAX trainer's
-probe does, so that no slot is truncated. What the port leaves out so far
-raises NotImplementedError: stage 2.2 and later (iterations past
-start_leaf_cb_iter), save_memory and lazy view bundles, the device mesh,
-frozen binning plans, training dumps and TensorBoard.
+probe does, so that no slot is truncated; group renders use the same cap
+(the JAX package's per-group budgets are not ported). What the port leaves
+out so far raises NotImplementedError: save_memory and lazy view bundles,
+the device mesh, the SAM mask refiner, frozen binning plans, training dumps
+and TensorBoard.
 """
 
 from __future__ import annotations
@@ -46,13 +56,13 @@ from opengaussian_tpu_torch.models import optimizer as opt_mod
 from opengaussian_tpu_torch.ops import kmeans as km
 from opengaussian_tpu_torch.ops.projection import build_cov3d
 from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, deepest_tile
-from opengaussian_tpu_torch.render import render
-from opengaussian_tpu_torch.train import losses
+from opengaussian_tpu_torch.render import render, render_clusters
+from opengaussian_tpu_torch.train import checkpoint as ckpt
+from opengaussian_tpu_torch.train import lang, losses
 from opengaussian_tpu_torch.train import pseudo as pseudo_mod
 from opengaussian_tpu_torch.utils import codebook as cb
 from opengaussian_tpu_torch.utils import masks as masku
 
-LATER_STAGES = "stage 2.2 and stage 3 arrive with later slices of the port"
 HEADROOM = 1.3  # scenes evolve between probes (the JAX package's ops/budget.py)
 
 
@@ -176,10 +186,14 @@ def _alpha_mask_loss(out_alpha, bundle: ViewBundle, view_idx: int):
 
 
 def _feature_update(state: G.GaussianState, adam: opt_mod.AdamState, params: dict, loss,
-                    iteration: int, ocfg: OptimizationConfig):
+                    iteration: int, ocfg: OptimizationConfig, keep=None):
     """Adam on every leaf with the gradient by ins_feat alone (the frozen
-    leaves get zeros and learning rate 0, so they stay as they were)."""
+    leaves get zeros and learning rate 0, so they stay as they were). keep
+    (a 0-d bool tensor): where False, the gradient is zero, but Adam still
+    steps."""
     (g,) = torch.autograd.grad(loss, [params["ins_feat"]])
+    if keep is not None:
+        g = torch.where(keep, g, 0.0)
     grads = {k: g if k == "ins_feat" else torch.zeros_like(v) for k, v in params.items()}
     lrs = opt_mod.learning_rates(ocfg, iteration, 1.0)
     new_p, adam = opt_mod.apply(state.params(), grads, adam, lrs)
@@ -231,6 +245,37 @@ def stage21_step(state: G.GaussianState, adam: opt_mod.AdamState, kms: km.KMeans
     return state, adam, loss.detach(), out.n_lost
 
 
+def stage22_step(state: G.GaussianState, adam: opt_mod.AdamState, kms: km.KMeansState,
+                 bundle: ViewBundle, view_idx: int, iteration: int, bg: torch.Tensor,
+                 rescale_factor: float, pseudo_feat: torch.Tensor, root_id: int,
+                 root_visible, rcfg: RasterizeConfig, ocfg: OptimizationConfig,
+                 with_alpha_loss: bool = False):
+    """One stage-2.2 step (the JAX package's _stage22_body; reference
+    train.py:475-497): render the root cluster root_id alone with
+    leaf-quantized features, L2 against the view's pseudo features inside
+    the cluster's silhouette. Where the root does not occur in the render
+    or root_visible (sweep 2's verdict for this view, a 0-d bool tensor or
+    bool) is false, the loss and the gradient are zero, but Adam still
+    steps. -> (state, adam, loss, ok, n_lost), the last three 0-d tensors."""
+    params = _freeze_geometry(state.params())
+    q = km.quantize(kms, params["ins_feat"], "leaf")
+    gs = state.with_params(params)
+    cam = bundle.camera(view_idx)
+    out = render_clusters(cam, gs, bg, kms.cls_ids, [root_id], rcfg, quantized_feat=q,
+                          rescale_factor=rescale_factor, min_points=1)
+    sil = (out.cluster_silhouettes[0] > 0.7).to(torch.float32)[..., None]
+    ok = out.cluster_occur[0] & torch.as_tensor(root_visible, device=state.device)
+    loss = losses.l2_loss(out.cluster_imgs[0], pseudo_feat, sil)
+    n_lost = out.n_lost
+    if with_alpha_loss:
+        color = render(cam, gs, bg, 3, rcfg)
+        loss = loss + _alpha_mask_loss(color.alpha, bundle, view_idx)
+        n_lost = torch.maximum(n_lost, color.n_lost)
+    loss = torch.where(ok, loss, 0.0)
+    state, adam = _feature_update(state, adam, params, loss, iteration, ocfg, keep=ok)
+    return state, adam, loss.detach(), ok, n_lost
+
+
 @torch.no_grad()
 def eval_view(state: G.GaussianState, bundle: ViewBundle, view_idx: int, bg,
               rcfg: RasterizeConfig):
@@ -242,13 +287,13 @@ def eval_view(state: G.GaussianState, bundle: ViewBundle, view_idx: int, bg,
 
 
 class Trainer:
-    """Host-side trainer through stage 2.1 (the JAX package's Trainer).
+    """Host-side trainer of every stage (the JAX package's Trainer).
 
-    View order, the random background and the stage-2.1 rescale factor come
-    from np.random.default_rng(seed), drawn in the JAX package's order, so
-    both trainers visit the same views; the split noise of densification and
-    the k-means++ seeds come from a torch.Generator seeded with `seed` on
-    the training device."""
+    View order, the random background and the rescale factor of stages 1 to
+    2.2 come from np.random.default_rng(seed), drawn in the JAX package's
+    order, so both trainers visit the same views; the split noise of
+    densification and the k-means++ seeds come from a torch.Generator
+    seeded with `seed` on the training device."""
 
     def __init__(self, scene: Scene, cfg: Config, out_dir: str,
                  rcfg: RasterizeConfig | None = None, seed: int = 0,
@@ -293,6 +338,7 @@ class Trainer:
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.iteration = 0
+        self.root_id = 0  # the root stage 2.2 trains, in round robin
         self._budgets_tuned = False
         self._view_queue: list[int] = []
         self._last_lost: torch.Tensor | None = None
@@ -314,9 +360,7 @@ class Trainer:
             return "1"
         if it <= o.start_leaf_cb_iter:
             return "2.1"
-        raise NotImplementedError(
-            f"iteration {it} is past start_leaf_cb_iter={o.start_leaf_cb_iter}: "
-            + LATER_STAGES)
+        return "2.2"
 
     def _bg_for(self, stage: str) -> torch.Tensor:
         if self.cfg.opt.random_background and stage == "0":
@@ -366,22 +410,33 @@ class Trainer:
         return 1.0
 
     def _ensure_pseudo(self, mode: str):
+        o = self.cfg.opt
         cams = [self.bundle.camera(i) for i in range(self.bundle.num_views)]
         self.pseudo = pseudo_mod.construct_pseudo_labels(
             self.state, cams, self.bundle.sam_ids, self.bg, self.bundle.max_masks,
-            self.rcfg, mode=mode)
+            self.rcfg, mode=mode, cls_ids=self.kms.cls_ids, k1=o.root_node_num,
+            k2=o.leaf_node_num)
+        if mode == "leaf":
+            self.kms = dataclasses.replace(self.kms, leaf_sub_num=self.pseudo.leaf_sub_num)
 
     def _pre_events(self, it: int, stage: str):
-        """Events BEFORE step `it` (reference train.py:265-355): sweep 1 at
-        stage-2.1 entry, and the root k-means there and every 200
-        iterations."""
+        """Events BEFORE step `it` (reference train.py:265-355, 393-426):
+        sweep 1 at stage-2.1 entry, and the root k-means there and every 200
+        iterations; sweeps 1 and 2 at stage-2.2 entry, and the leaf k-means
+        of the current root there and every 50 iterations."""
         o = self.cfg.opt
         if it == o.start_root_cb_iter + 1:
             self._ensure_pseudo("root")
+        if it == o.start_leaf_cb_iter + 1:
+            self._ensure_pseudo("leaf")
         if stage == "2.1" and (it % 200 == 1 or it == o.start_root_cb_iter + 1):
             self.kms = km.assign_root(
                 self.kms, self.state.ins_feat, self.state.means, self.state.alive,
                 o.pos_weight, self.generator, init=(it == o.start_root_cb_iter + 1))
+        elif stage == "2.2" and (it % 50 == 1 or it == o.start_leaf_cb_iter + 1):
+            self.kms = km.assign_leaf(
+                self.kms, self.state.ins_feat, self.state.alive, self.root_id,
+                o.leaf_node_num, self.generator, init=(it == o.start_leaf_cb_iter + 1))
 
     def _post_events(self, it: int, stage: str):
         """Densification / opacity reset AFTER step `it` (reference
@@ -405,14 +460,16 @@ class Trainer:
     # -- main loop --
 
     def train(self, until: int | None = None, log_every: int = 200):
-        until = until or self.cfg.opt.iterations
-        self._stage(until)  # raises before any step if stage 0 does not cover it
+        o = self.cfg.opt
+        until = until or o.iterations
         t_start = time.time()
         while self.iteration < until:
             if not self._budgets_tuned:
                 self._fit_max_per_tile()
             it = self.iteration + 1
             stage = self._stage(it)
+            if stage == "2.2" and (it - o.start_leaf_cb_iter) % o.leaf_update_fr == 0:
+                self.root_id = (self.root_id + 1) % o.root_node_num
             self._pre_events(it, stage)
             loss = self._run_single(it, stage)
             self.losses.append(loss)
@@ -428,6 +485,8 @@ class Trainer:
                 rec = dict(iteration=it, stage=stage, loss=float(loss),
                            num_alive=int(self.state.num_alive),
                            elapsed=time.time() - t_start)
+                if stage == "2.2":  # one root per step: the loss reads per root
+                    rec["root_id"] = self.root_id
                 self.history.append(rec)
                 print(f"[it {it}] stage {stage} loss {rec['loss']:.5f} "
                       f"pts {rec['num_alive']} ({rec['elapsed']:.0f}s)", flush=True)
@@ -444,12 +503,32 @@ class Trainer:
             self.state, self.adam, loss, self._last_lost = stage1_step(
                 self.state, self.adam, self.bundle, vi, it, bg, self._rescale_factor(it),
                 self.rcfg, o, self.any_alpha)
-        else:
+        elif stage == "2.1":
             self.state, self.adam, loss, self._last_lost = stage21_step(
                 self.state, self.adam, self.kms, self.bundle, vi, it, bg,
                 self._rescale_factor(it), self.pseudo.feat[vi], self.rcfg, o,
                 self.any_alpha)
+        else:
+            occur = self.pseudo.cluster_occur if self.pseudo is not None else None
+            root_vis = occur[vi, self.root_id] if occur is not None else True
+            self.state, self.adam, loss, _ok, self._last_lost = stage22_step(
+                self.state, self.adam, self.kms, self.bundle, vi, it, bg,
+                self._rescale_factor(it), self.pseudo.feat[vi], self.root_id, root_vis,
+                self.rcfg, o, self.any_alpha)
         return loss
+
+    def run_stage3(self) -> dict:
+        """The language association (reference train.py:622-631) with the
+        leaf codebook; writes cluster_lang.npz into the output directory.
+        -> its arrays."""
+        o = self.cfg.opt
+        if self.pseudo is None or self.pseudo.cluster_occur is None:
+            self._ensure_pseudo("leaf")
+        tables = lang.clip_tables_from_views(self.train_views, o.sam_level)
+        return lang.associate_language(
+            self.state, self.kms, self.bundle, self.pseudo, tables, self.bg,
+            o.root_node_num, o.leaf_node_num, self.rcfg,
+            out_path=os.path.join(self.out_dir, "cluster_lang.npz"))
 
     # -- evaluation / artifacts --
 
@@ -465,12 +544,41 @@ class Trainer:
 
     def save(self):
         """The PLY and, past start_root_cb_iter, the root codebook (centers and
-        one id per alive splat) under point_cloud/iteration_<it>/."""
+        one id per alive splat), past start_leaf_cb_iter the leaf codebook,
+        under point_cloud/iteration_<it>/."""
+        o = self.cfg.opt
         pc_dir = os.path.join(self.out_dir, f"point_cloud/iteration_{self.iteration}")
         os.makedirs(pc_dir, exist_ok=True)
         save_gaussian_ply(os.path.join(pc_dir, "point_cloud.ply"), self.state)
-        if self.iteration > self.cfg.opt.start_root_cb_iter:
-            alive = self.state.alive.cpu().numpy()
+        alive = self.state.alive.cpu().numpy()
+        if self.iteration > o.start_root_cb_iter:
             cb.save_codebook(os.path.join(pc_dir, "root_code_book"),
                              self.kms.centers.cpu().numpy(),
                              self.kms.cls_ids.cpu().numpy()[alive])
+        if self.iteration > o.start_leaf_cb_iter:
+            cb.save_codebook(os.path.join(pc_dir, "leaf_code_book"),
+                             self.kms.leaf_centers.cpu().numpy(),
+                             self.kms.leaf_cls_ids.cpu().numpy()[alive])
+
+    def save_checkpoint(self):
+        """chkpnt<iteration>.npz in the output directory (train/checkpoint.py)."""
+        ckpt.save(os.path.join(self.out_dir, f"chkpnt{self.iteration}.npz"), self.state,
+                  self.adam, self.stats, self.kms, self.iteration)
+
+    def restore_checkpoint(self, path: str):
+        """Resume from a checkpoint of either package (.npz) or a reference
+        chkpnt*.pth (scripts/train_scannet.sh:46-48)."""
+        if path.endswith(".pth"):
+            (self.state, self.adam, self.stats, self.iteration,
+             self.spatial_lr_scale) = ckpt.load_torch(path, device=self.device)
+        else:
+            self.state, self.adam, self.stats, kms, self.iteration = ckpt.load(
+                path, self.device)
+            if kms is not None:
+                self.kms = kms
+        self.state = ckpt.ensure_ins_feat(self.state)
+        if self.state.capacity != self.kms.cls_ids.shape[0]:
+            o = self.cfg.opt
+            self.kms = km.KMeansState.create(self.state.capacity, o.root_node_num,
+                                             o.leaf_node_num, self.device)
+        self._budgets_tuned = False

@@ -26,6 +26,14 @@ def decode_sam_level(packed: np.ndarray, level: int) -> np.ndarray:
     return mask_id
 
 
+def clip_feat_slice(packed: np.ndarray, level: int) -> tuple[int, int]:
+    """Range [min, max) into the per-image CLIP feature table for `level`
+    (reference utils/opengs_utlis.py:173-180)."""
+    max_ind = int(packed[level].max()) + 1
+    min_ind = int(packed[level - 1].max()) + 1 if level > 0 else 0
+    return min_ind, max_ind
+
+
 def masks_onehot(mask_id: torch.Tensor, max_masks: int) -> tuple[torch.Tensor, torch.Tensor]:
     """mask ids [H, W] (0 invalid) -> bool [M, H, W] for ids 1..M plus a
     validity vector [M] (True where the mask has any pixel)."""
@@ -52,6 +60,14 @@ def mask_feature_mean(feat_map: torch.Tensor, masks: torch.Tensor,
         return mean
     sq = (m @ (f * f)) / counts[:, None]
     return mean, (sq - mean * mean).mean(dim=1), counts
+
+
+def pair_mask_feature_mean(feat_maps: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Per-pair mean: feat_maps [M, H, W, C], masks [M, H, W] -> [M, C]
+    (reference utils/opengs_utlis.py:184-201)."""
+    m = masks.to(torch.float32)
+    counts = m.sum(dim=(1, 2)) + 1e-6
+    return torch.einsum("mhwc,mhw->mc", feat_maps, m) / counts[:, None]
 
 
 def calculate_iou(mask1: torch.Tensor, mask2: torch.Tensor, base: str = "union"):

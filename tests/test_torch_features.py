@@ -269,6 +269,6 @@ def test_construct_pseudo_labels_matches_jax():
                                    rtol=1e-4)
         np.testing.assert_array_equal(got.mask_ids.numpy(), np.asarray(want.mask_ids))
     assert float(np.abs(np.asarray(want.feat)).max()) > 0
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="cls_ids"):  # leaf mode needs the roots
         tpseudo.construct_pseudo_labels(t_state, tcams, torch.as_tensor(ids),
                                         torch.zeros(3), 16, TRaster(), mode="leaf")

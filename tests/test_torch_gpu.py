@@ -20,6 +20,8 @@ from opengaussian_tpu_torch.ops.projection import build_cov3d
 from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
 from opengaussian_tpu_torch.ops.rasterize_kernels import (
     blend_stream_bwd,
+    blend_stream_bwd_compact,
+    blend_stream_bwd_compact_plain,
     blend_stream_bwd_plain,
     blend_stream_fwd,
     blend_stream_fwd_plain,
@@ -27,6 +29,7 @@ from opengaussian_tpu_torch.ops.rasterize_kernels import (
     blend_tiles_bwd_plain,
     blend_tiles_fwd,
     blend_tiles_fwd_plain,
+    compact_offsets,
     segment_reduce,
     segment_reduce_plain,
 )
@@ -138,6 +141,34 @@ def test_bwd_kernel_matches_plain(cuda, C):
     torch.cuda.synchronize()
     assert blend_stream_bwd.launches == before + 1
     torch.testing.assert_close(d, blend_stream_bwd_plain(*args, GRID_X, CHUNK), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [4, 7])
+def test_compact_bwd_kernel_matches_plain(cuda, C):
+    """K4 against its plain version (rows and ids), and K4 + K3 against
+    K2 + K3 per splat. The buffers come from torch.empty, and NaN-filled
+    blocks of their sizes wait in the caching allocator, so a row or an id
+    the kernel failed to write would show."""
+    stream = make_bwd_stream(C=C)
+    args = [torch.as_tensor(x, device=cuda) for x in stream]
+    n = 57
+    gauss = torch.as_tensor(np.random.default_rng(0).integers(0, n, stream[0].shape[0]),
+                            dtype=torch.int32, device=cuda)
+    rows = compact_offsets(args[1], CHUNK)[1] * CHUNK
+    poison = [torch.full((rows, C + 6), float("nan"), device=cuda),
+              torch.full((rows,), float("nan"), device=cuda)]
+    del poison
+    before = blend_stream_bwd_compact.launches
+    d, ids = blend_stream_bwd_compact(*args[:4], gauss, *args[4:], GRID_X, CHUNK, n)
+    torch.cuda.synchronize()
+    assert blend_stream_bwd_compact.launches == before + 1
+    d_p, ids_p = blend_stream_bwd_compact_plain(*args[:4], gauss, *args[4:], GRID_X, CHUNK, n)
+    torch.testing.assert_close(d, d_p, **TOL)
+    assert torch.equal(ids, ids_p)
+    per = segment_reduce(d, ids, n)
+    per2 = segment_reduce(blend_stream_bwd(*args, GRID_X, CHUNK), gauss, n)
+    torch.testing.assert_close(per, per2, atol=1e-5 * float(per2.abs().max()), rtol=1e-4)
 
 
 @pytest.mark.gpu

@@ -22,7 +22,7 @@ def test_port_imports_no_jax():
         print(len(names), bad)
         assert not bad, bad
         for m in ("cli.render", "cli.train", "train.loop", "train.losses", "ops.ssim",
-                  "models.optimizer", "config"):
+                  "models.optimizer", "config", "train.lang", "train.checkpoint"):
             assert "opengaussian_tpu_torch." + m in names, m
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -162,28 +162,13 @@ def test_cli_train_writes_a_ply_that_cli_render_renders(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--iterations", "50001"], ["--mesh", "2"], ["--save_memory"], ["--lazy_load"],
-    ["--start_checkpoint", "x.npz"], ["--checkpoint_iterations", "5"], ["--port", "6009"],
+    ["--mesh", "2"], ["--save_memory"], ["--lazy_load"], ["--port", "6009"],
     ["--enable_multiview_sam_refinement"],
 ])
 def test_cli_train_refuses_what_the_port_lacks(tmp_path, flags):
     with pytest.raises(NotImplementedError):
         tcli_train.main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), *flags],
                         device="cpu")
-
-
-def test_trainer_refuses_later_stages(tmp_path):
-    """Stage 2.2 (past start_leaf_cb_iter) is not in the port yet: the
-    trainer raises before its first step."""
-    root = str(tmp_path / "scene")
-    make_colmap_scene(root, n_views=2, with_sidecars=False)
-    tr = tloop.Trainer(tdataset.load_scene(root),
-                       TConfig(opt=TOpt(iterations=5, start_ins_feat_iter=1,
-                                        start_root_cb_iter=1, start_leaf_cb_iter=2)),
-                       str(tmp_path / "out"), rcfg=TCFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="start_leaf_cb_iter"):
-        tr.train(until=3)
-    assert tr.iteration == 0
 
 
 def test_trainer_never_truncates_a_tile(tmp_path):
