@@ -10,11 +10,12 @@ Phases, in order; any failure exits non-zero:
      the streams of a full-width frame (1296x968, 200k splats, SH degree 3,
      6-D instance features): the forward blend K1 at C = 4 (RGB + depth) and
      C = 7 (features + depth); the backward replay K2, the compact backward
-     K4 and the per-splat reduce K3 on the C = 4 stream, with the cotangents
-     of an L1 + SSIM loss against the view's image, K4 again on the same
-     stream made of flat opaque splats (every tile stops after one chunk),
-     and K4 + K3 against K2 + K3 per splat. The dense layout's forward K5, its backward K6 and
-     K3 over its rows on the same frame's C = 7 dense block, with the
+     K4 (both bit for bit) and the per-splat reduce K3 on the C = 4 stream,
+     with the cotangents of an L1 + SSIM loss against the view's image, K4
+     again on the same stream made of flat opaque splats (every tile stops
+     after one chunk), and K4 + K3 against K2 + K3 per splat. The dense
+     layout's forward K5, its backward K6 (bit for bit) and K3 over its rows
+     on the same frame's C = 7 dense block, with the
      cotangents of the stage-1 loss (separation + cohesion on the view's SAM
      masks). A partition render of one root's 5 leaves against the same
      leaves rendered one by one. Then the rasterizer on the card against the
@@ -44,8 +45,11 @@ Phases, in order; any failure exits non-zero:
      K3) and with bwd_layout="compact" (K1, K4, K3); their first losses
      equal the stream run's.
   6. timings (CUDA events after warm-up), each line with the card's name:
-     each kernel against its plain version and its bound, K3's index_add_
-     yardstick, K2 + K3 against K4 + K3, the dense block's zero fill, the
+     each kernel against its plain version and its bound, K3's call and
+     device time in turns with its index_add_ yardstick, K2 + K3 against
+     K4 + K3, K2 on the training frame (the stage-1 step's feature pass from
+     the trained state, held bit for bit against its plain version, with
+     its bound) and its deepest tile alone, the dense block's zero fill, the
      render, the stage-0 step and its phases, the stage-1 and stage-2.1
      steps in both layouts, the stage-2.2 step of each training run, sweeps
      1 and 2 and stage 3 per view, the root and leaf k-means, and
@@ -78,16 +82,24 @@ TRAIN_ITERS = 80
 STAGE_ENDS = dict(start_ins_feat_iter=40, start_root_cb_iter=50, start_leaf_cb_iter=60)
 LEAF_UPDATE_FR = 5  # stage 2.2 moves to the next root every 5 iterations
 TOL = dict(atol=3e-5, rtol=1e-4)
-# K2 and K3 sum many terms (over a tile's pixels; over a splat's slots, in
-# atomic order for K3), so their tolerance is relative to each field's
-# largest magnitude: |kernel - plain| <= 1e-5 * max|plain field| + 1e-4 * |plain|
+# K3 sums a splat's slots in atomic order, so its tolerance is relative to
+# each field's largest magnitude: |kernel - plain| <= 1e-5 * max|plain field|
+# + 1e-4 * |plain|. K2, K4 and K6 sum in a fixed order and match bit for bit.
 GRAD_TOL = dict(norm_atol=1e-5, rtol=1e-4)
 # fp32 operations per (slot, pixel) pair of the blend, by what the pair needs:
-# every evaluated pair: dx, dy and the conic's quadratic form (11), the clamp
-# of power (1), expf (~8: range reduction, ex2 and scaling without fast
-# math), the power test, o * gauss, the 0.99 clamp and the 1/255 test (4)
+# every pair that must be evaluated (its warp's pixels meet the slot's cull
+# box; outside it alpha stays below 1/255, which one test per warp shows):
+# dx, dy and the conic's quadratic form (11), the clamp of power (1), expf
+# (~8: range reduction, ex2 and scaling without fast math), the power test,
+# o * gauss, the 0.99 clamp and the 1/255 test (4)
 OPS_EVALUATED = 24
 OPS_TESTED = 3  # alpha >= 1/255: 1 - alpha, T * (1 - alpha), the 1e-4 test
+OPS_CULL = 4  # per slot and warp: the warp's rectangle against the box
+# per staged slot, its cull box (blend_tile.cuh:slot_box): det (3), the
+# conditioning bound (7), the tests (5), the level with its log (13), the
+# half-extents (8), their margins (12), the edges (4), finiteness (4), the
+# opacity test (1)
+OPS_BOX = 57
 
 
 def ops_blended(C: int) -> int:
@@ -193,9 +205,10 @@ def write_model_and_scene(root: str, seed: int = 0) -> tuple[str, str]:
     return model, scene
 
 
-def frame_streams(camera, state):
+def frame_streams(camera, state, rcfg=None):
     """The blend inputs of one view's two render passes, built by the
-    render path's own _prepare and gather_rows:
+    render path's own _prepare and gather_rows (rcfg: the rasterizer's
+    settings, RasterizeConfig() by default):
     {C: (rows, counts, tstart, toff, grid_x, bins, proj)}."""
     from opengaussian_tpu_torch.ops.projection import build_cov3d
     from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, _prepare, gather_rows
@@ -209,7 +222,7 @@ def frame_streams(camera, state):
     out = {}
     for payload in (rgb, feat):
         proj, bins, (gx, _) = _prepare(camera, state.means, cov3d, state.opacity,
-                                       RasterizeConfig())
+                                       rcfg or RasterizeConfig())
         opac = torch.where(proj.valid, state.opacity, 0.0)
         rows = gather_rows(proj.mean2d, proj.conic, opac,
                            torch.cat([payload, proj.depth[:, None]], dim=-1),
@@ -294,7 +307,7 @@ def check_grad_kernels(stream, cot, chunk: int, n: int) -> dict:
     torch.cuda.synchronize()
     d_p, work = rk.blend_stream_bwd_plain(*args, count_work=True)
     log("work K2: " + ", ".join(f"{k} {v}" for k, v in work.items()))
-    k2 = compare("blend_stream_bwd C=4 d_rows", d, d_p, grad_atol(d_p), GRAD_TOL["rtol"])
+    k2 = compare("blend_stream_bwd C=4 d_rows", d, d_p, 0.0, 0.0)
     if float(d_p.abs().max()) == 0.0:
         raise AssertionError("K2: the loss gave no gradient")
     per = rk.segment_reduce(d_p, bins.sorted_gauss, n)
@@ -466,8 +479,7 @@ def check_dense_kernels(block, camera, grids, sam_ids, max_masks: int, chunk: in
     d_p, work_b = rk.blend_tiles_bwd_plain(*args, count_work=True)
     log("work K6: " + ", ".join(f"{k} {v}" for k, v in work_b.items()))
     rows, rows_p = d.view(T * K, F), d_p.view(T * K, F)
-    k6 = compare(f"blend_tiles_bwd C={F - 6} d_slot", rows, rows_p, grad_atol(rows_p),
-                 GRAD_TOL["rtol"])
+    k6 = compare(f"blend_tiles_bwd C={F - 6} d_slot", rows, rows_p, 0.0, 0.0)
     if float(rows_p.abs().max()) == 0.0:
         raise AssertionError("K6: the stage-1 loss gave no gradient")
     live = torch.arange(K, device=counts.device)[None, :] < counts[:, None]
@@ -833,10 +845,12 @@ def profile(fn, n: int, what: str) -> tuple[float, float]:
     return busy_ms, wall_ms
 
 
-def device_ms(fn, n: int, kernel: str) -> float:
-    """Device time per call of the kernels whose name holds `kernel`, by
-    torch.profiler over n calls: the kernel alone, without the host work of
-    its wrapper."""
+def device_ms(fn, n: int, *names: str) -> float:
+    """Device time per call of the kernels whose names hold one of `names`,
+    by torch.profiler over n calls: the kernels alone, without the host work
+    of their wrapper. Each name's time is its mean over the launches the
+    profiler recorded (it can miss one of a window), times its launches per
+    call. With no names, every device event of the window, per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -844,13 +858,28 @@ def device_ms(fn, n: int, kernel: str) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if not us:
-        raise AssertionError(f"the profiler recorded no {kernel}")
-    if len(us) != n:  # per kernel the profiler recorded, not per call
-        log(f"profile: {len(us)} {kernel} launches recorded of {n} calls")
-    return sum(us) / 1e3 / len(us)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not names:
+        return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / n
+    total = 0.0
+    for name in names:
+        us = [e.time_range.end - e.time_range.start for e in events if name in e.name]
+        if not us:
+            raise AssertionError(f"the profiler recorded no {name}")
+        per_call = max(1, round(len(us) / n))
+        if len(us) != per_call * n:
+            log(f"profile: {len(us)} {name} launches recorded of {n} calls")
+        total += sum(us) / len(us) * per_call / 1e3
+    return total
+
+
+def walk_ops(work) -> int:
+    """The operations a tile walk needs before any compositing, from the
+    plain version's work counts: a cull box per staged slot, a box test per
+    slot and warp, the evaluation of each pair in a box, the transmittance
+    test of each pair past 1/255."""
+    return (work["boxes"] * OPS_BOX + work["box_tests"] * OPS_CULL
+            + work["in_box"] * OPS_EVALUATED + work["tested"] * OPS_TESTED)
 
 
 def fwd_bound(name, live: int, F: int, T: int, n_index: int, work, peak_flops,
@@ -862,8 +891,7 @@ def fwd_bound(name, live: int, F: int, T: int, n_index: int, work, peak_flops,
     counts) over the fp32 rate."""
     C = F - 6
     moved = live * F * 4 + n_index * T * 4 + T * 256 * C * 4 + T * 256 * 4
-    ops = (work["evaluated"] * OPS_EVALUATED + work["tested"] * OPS_TESTED
-           + work["blended"] * ops_blended(C))
+    ops = walk_ops(work) + work["blended"] * ops_blended(C)
     return bound_of(name, moved, ops, peak_flops, peak_bytes)
 
 
@@ -880,8 +908,7 @@ def bwd_bound(name, live: int, F: int, T: int, n_index: int, work, peak_flops,
     read once; the replay's operations from its own pair counts."""
     C = F - 6
     moved = 2 * live * F * 4 + n_index * T * 4 + 2 * T * 256 * (C + 1) * 4
-    ops = (work["evaluated"] * OPS_EVALUATED + work["tested"] * OPS_TESTED
-           + work["blended"] * ops_grad(C) + T * 256 * (2 * C + 1))
+    ops = walk_ops(work) + work["blended"] * ops_grad(C) + T * 256 * (2 * C + 1)
     return bound_of(name, moved, ops, peak_flops, peak_bytes)
 
 
@@ -1199,6 +1226,59 @@ def time_leaf_events(tr, card: str, name: str) -> dict:
     return out
 
 
+def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes) -> dict:
+    """K2 on the training frame: the feature pass (C = 7) of view 0 of the
+    profiled stage-1 step, from the trained state at the trainer's fitted
+    max_per_tile, with the stage-1 loss's cotangents. Holds K2 against its
+    plain version bit for bit, counts the frame's pairs, and times K2 (call
+    and device time) beside its bound and the deepest tile alone (every
+    other tile's count set to 0), which sets the launch's least time.
+    -> {"err", "ms", "dev", "deep_ms", "deep_dev", "bound", "by"}."""
+    from opengaussian_tpu_torch.ops import rasterize_kernels as rk
+
+    cam = tr.bundle.camera(0)
+    with torch.no_grad():
+        rows, counts, tstart, toff, gx, bins, _ = frame_streams(cam, tr.state, tr.rcfg)[7]
+        acc, t_final = rk.blend_stream_fwd(rows, counts, tstart, toff, gx, chunk)
+    cot = stage1_cotangents(cam, (gx, (HEIGHT + 15) // 16), acc, t_final,
+                            tr.bundle.sam_ids[0], tr.bundle.max_masks,
+                            tr.cfg.opt.loss_weight)
+    args = (rows, counts, tstart, toff, acc, t_final, *cot, gx, chunk)
+    d = rk.blend_stream_bwd(*args)
+    torch.cuda.synchronize()
+    d_p, work = rk.blend_stream_bwd_plain(*args, count_work=True)
+    err = compare("blend_stream_bwd C=7 training frame d_rows", d, d_p, 0.0, 0.0)
+    if float(d_p.abs().max()) == 0.0:
+        raise AssertionError("K2, training frame: the stage-1 loss gave no gradient")
+    deep = int(torch.argmax(counts))
+    depth = int(counts[deep])
+    only = torch.where(torch.arange(counts.shape[0], device=counts.device) == deep, counts, 0)
+    d_only = rk.blend_stream_bwd(rows, only, *args[2:])
+    run = slice(int(tstart[deep]), int(tstart[deep]) + depth)
+    if not torch.equal(d_only[run], d[run]) or bool(d_only[:run.start].any()) or \
+            bool(d_only[run.stop:].any()):
+        raise AssertionError("K2: the deepest tile alone differs from its rows in the frame")
+    log(f"K2, training frame (stage-1 feature pass, view 0, C=7): {int(counts.sum())} slots "
+        f"in {counts.shape[0]} tiles, deepest tile {depth} slots ({-(-depth // chunk)} "
+        f"chunks), max_per_tile {tr.rcfg.max_per_tile}; "
+        "work " + ", ".join(f"{k} {v}" for k, v in work.items())
+        + "; the deepest tile alone gives its rows in the frame bit for bit")
+    bound, by = bwd_bound("blend_stream_bwd C=7 training frame", int(counts.sum()),
+                          rows.shape[1], counts.shape[0], 3, work, peak_flops, peak_bytes)
+    full = lambda: rk.blend_stream_bwd(*args)  # noqa: E731
+    alone = lambda: rk.blend_stream_bwd(rows, only, *args[2:])  # noqa: E731
+    out = dict(ms=cuda_ms(full, iters=10, warmup=2),
+               dev=device_ms(full, 10, "blend_stream_bwd_kernel"),
+               deep_ms=cuda_ms(alone, iters=20, warmup=2),
+               deep_dev=device_ms(alone, 20, "blend_stream_bwd_kernel"))
+    log(f"timing: blend_stream_bwd C=7 training frame: call {out['ms']:.4f} ms, kernel "
+        f"{out['dev']:.4f} ms; the deepest tile alone: call {out['deep_ms']:.4f} ms, "
+        f"kernel {out['deep_dev']:.4f} ms [{card}]")
+    log(f"bound: blend_stream_bwd C=7 training frame: {bound:.4f} ms/launch ({by}), kernel "
+        f"(device time) at {bound / out['dev']:.3f} of it [{card}]")
+    return dict(err=err, bound=bound, by=by, **out)
+
+
 def compact_bound(live: int, nc_rows: int, F: int, T: int, work, peak_flops,
                   peak_bytes) -> tuple[float, str]:
     """K4: the live rows and their splat ids read once, every owned row and
@@ -1208,8 +1288,7 @@ def compact_bound(live: int, nc_rows: int, F: int, T: int, work, peak_flops,
     C = F - 6
     moved = (live * (F + 1) * 4 + nc_rows * (F + 1) * 4 + 4 * T * 4
              + 2 * T * 256 * (C + 1) * 4)
-    ops = (work["evaluated"] * OPS_EVALUATED + work["tested"] * OPS_TESTED
-           + work["blended"] * ops_grad(C) + T * 256 * (2 * C + 1))
+    ops = walk_ops(work) + work["blended"] * ops_grad(C) + T * 256 * (2 * C + 1)
     return bound_of("blend_stream_bwd_compact", moved, ops, peak_flops, peak_bytes)
 
 
@@ -1241,7 +1320,8 @@ def main() -> int:
     libs, build_log = rk.build()
     log(f"build: {', '.join(sorted(libs))} in {time.perf_counter() - t0:.3f} s")
     for line in build_log.splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+        if (line.startswith("==") or "registers" in line or "spill" in line
+                or "entry function" in line):
             log(f"build: {line.strip()}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
@@ -1396,27 +1476,47 @@ def main() -> int:
             log(f"timing: blend_stream_bwd_compact C=4: kernel {k4_ms:.4f} ms/launch "
                 f"({k4_cold:.4f} with L2 flushed), plain {k4_plain:.3f} ms/launch, "
                 f"{compact['d'].shape[0]} compacted rows [{card}]")
-            k2_dev, k4_dev = (device_ms(f, 10, k) for f, k in (
-                (lambda: rk.blend_stream_bwd(*bargs), "blend_stream_bwd_kernel"),
-                (lambda: rk.blend_stream_bwd_compact(*cargs), "blend_stream_bwd_compact_kernel")))
-            log(f"timing: device time by torch.profiler, C=4 frame: K2 kernel {k2_dev:.4f} ms, "
-                f"K4 kernel {k4_dev:.4f} ms per launch (the calls above add the wrappers' "
-                f"host work: K4's computes the chunk offsets with one host sync) [{card}]")
+            k2f = lambda: rk.blend_stream_bwd(*bargs)  # noqa: E731
+            k2_dev = device_ms(k2f, 10, "blend_stream_bwd_kernel")
+            k4_dev = device_ms(lambda: rk.blend_stream_bwd_compact(*cargs), 10,
+                               "blend_stream_bwd_compact_kernel")
+            log(f"timing: device time by torch.profiler, C=4 frame: K2 kernel {k2_dev:.4f} ms "
+                f"K4 kernel {k4_dev:.4f} ms per launch "
+                f"(the calls above add the wrappers' host work: K2's zero fill of d_rows, "
+                f"K4's chunk offsets with one host sync) [{card}]")
             k2k3 = lambda: rk.segment_reduce(rk.blend_stream_bwd(*bargs), ids, n)  # noqa: E731
             k4k3 = lambda: rk.segment_reduce(*rk.blend_stream_bwd_compact(*cargs), n)  # noqa: E731
             pair = [cuda_ms(f, iters=20, warmup=3) for f in (k2k3, k4k3, k4k3, k2k3)]
             log(f"timing: backward + reduce, C=4 frame, in turns K2+K3, K4+K3, K4+K3, K2+K3: "
                 + ", ".join(f"{x:.4f}" for x in pair) + " ms (K2's wrapper zero-fills d_rows, "
                 f"K4's computes the chunk offsets with one host sync) [{card}]")
-            k3_ms = cuda_ms(lambda: rk.segment_reduce(d_rows, ids, n), iters=20, warmup=3)
+            k3 = lambda: rk.segment_reduce(d_rows, ids, n)  # noqa: E731
             k3_plain = cuda_ms(lambda: rk.segment_reduce_plain(d_rows, ids, n), iters=5)
             ids64 = ids.to(torch.int64)
-            lib_ms = cuda_ms(lambda: torch.zeros((n, d_rows.shape[1]), device=dev)
-                             .index_add_(0, ids64, d_rows), iters=20, warmup=3)
-            log(f"timing: segment_reduce: kernel {k3_ms:.4f} ms/launch, plain "
-                f"{k3_plain:.4f} ms, library (zeros + index_add_) {lib_ms:.4f} ms, "
-                f"{d_rows.shape[0]} rows x {d_rows.shape[1]} fields into {n} splats "
-                f"[{card}]")
+            lib = lambda: torch.zeros((n, d_rows.shape[1]), device=dev).index_add_(  # noqa: E731
+                0, ids64, d_rows)
+            turns = [cuda_ms(f, iters=100, warmup=10) for f in (k3, lib, lib, k3)]
+            k3_ms = (turns[0] + turns[3]) / 2
+            k3_dev = device_ms(k3, 10, "segment_reduce_vec", "Memset")
+            k3_kernel = device_ms(k3, 10, "segment_reduce_vec")
+            lib_dev = device_ms(lib, 10)
+            # what holds K3: the same launch with every row zero (reads, no
+            # atomics) and with every id dropped (the id reads alone)
+            zero_rows, dropped = torch.zeros_like(d_rows), torch.full_like(ids, n)
+            k3_reads = device_ms(lambda: rk.segment_reduce(zero_rows, ids, n), 10,
+                                 "segment_reduce_vec")
+            k3_ids = device_ms(lambda: rk.segment_reduce(d_rows, dropped, n), 10,
+                               "segment_reduce_vec")
+            live_rows = int((d_rows != 0).any(dim=1).sum())
+            log(f"timing: segment_reduce kernel {k3_kernel:.4f} ms with {live_rows} of "
+                f"{d_rows.shape[0]} rows non-zero; the same rows all zero (reads, no "
+                f"atomics) {k3_reads:.4f} ms; every id dropped (id reads only) "
+                f"{k3_ids:.4f} ms [{card}]")
+            log(f"timing: segment_reduce, {d_rows.shape[0]} rows x {d_rows.shape[1]} fields "
+                f"into {n} splats, in turns K3 call, library (zeros + index_add_), library, "
+                f"K3 call: " + ", ".join(f"{x:.4f}" for x in turns) + f" ms; device time by "
+                f"torch.profiler: K3 {k3_dev:.4f} ms (kernel {k3_kernel:.4f}, the rest its "
+                f"zero fill), library {lib_dev:.4f} ms; plain {k3_plain:.4f} ms [{card}]")
             # K5 and K6 on the dense block of phase 3
             gdata, dcounts, gauss_idx, gx, _ = block
             T, K, F = gdata.shape
@@ -1466,6 +1566,7 @@ def main() -> int:
                 f"both from that run) [{card}]")
         time_feature_stages(tr, card)
         time_step(tr, card)
+        train_k2 = time_train_frame(tr, chunk, card, peak_flops, peak_bytes)
         k1_bound = {C: fwd_bound(f"blend_stream_fwd C={C}", int(counts.sum()), rows.shape[1],
                                  counts.shape[0], 3, work[C], peak_flops, peak_bytes)
                     for C, (rows, counts, *_r) in streams.items()}
@@ -1483,8 +1584,9 @@ def main() -> int:
             f"(device time) at {k4_b / k4_dev:.3f} of it, the call at {k4_b / k4_ms:.3f} "
             f"[{card}]")
         k3_b, k3_by = reduce_bound(d_rows, n, peak_flops, peak_bytes)
-        log(f"bound: segment_reduce: {k3_b:.4f} ms/launch ({k3_by}), kernel at "
-            f"{k3_b / k3_ms:.3f} of it [{card}]")
+        log(f"bound: segment_reduce: {k3_b:.4f} ms/launch ({k3_by}), kernel (device time, "
+            f"its zero fill included) at {k3_b / k3_dev:.3f} of it, the call at "
+            f"{k3_b / k3_ms:.3f} [{card}]")
         live = int(dcounts.sum())
         k5_b, k5_by = fwd_bound(f"blend_tiles_fwd C={F - 6}", live, F, T, 1,
                                 dense["work_fwd"], peak_flops, peak_bytes)
@@ -1508,19 +1610,23 @@ def main() -> int:
     total = {k: sum(p[k] for p in main_paths) for k in render_launches}
     log(f"launches on the main paths: render {render_launches}, "
         + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()))
+    log(f"summary: K2 on the training frame: kernel {train_k2['dev']:.4f} ms against a "
+        f"{train_k2['bound']:.4f} ms bound ({train_k2['by']}), the deepest tile alone "
+        f"{train_k2['deep_dev']:.4f} ms; on the render frame {k2_dev:.4f} ms [{card}]")
     log(f"summary: stage-2.2 step ms {s22_ms}; sweep 2 / stage 3 ms per view {leaf_ms}; "
         f"partition against scan max abs err {partition_err:.3e} [{card}]")
     kernels = [
         row("blend_stream_fwd", total["blend_stream_fwd"], k1_err,
             sum(k_ms.values()) / len(k_ms), sum(p_ms.values()) / len(p_ms),
             sum(k1_b) / len(k1_b), max(k1_bound.values())[1], line=562),
-        row("blend_stream_bwd", total["blend_stream_bwd"], grad["k2_err"], k2_ms, k2_plain,
+        row("blend_stream_bwd", total["blend_stream_bwd"],
+            max(grad["k2_err"], train_k2["err"]), k2_ms, k2_plain,
             k2_b, k2_by, line=670),
         row("blend_stream_bwd_compact", total["blend_stream_bwd_compact"], compact["k4_err"],
             k4_dev, k4_plain, k4_b, k4_by, line=841),
         row("segment_reduce", total["segment_reduce"],
             max(grad["k3_err"], dense["k3_err"], compact["k43_err"]),
-            k3_ms, k3_plain, k3_b, k3_by, lib=lib_ms, line=1196),
+            k3_dev, k3_plain, k3_b, k3_by, lib=lib_dev, line=1196),
         row("blend_tiles_fwd", total["blend_tiles_fwd"], dense["k5_err"], k5_ms, k5_plain,
             k5_b, k5_by, line=322),
         row("blend_tiles_bwd", total["blend_tiles_bwd"], dense["k6_err"], k6_ms, k6_plain,

@@ -19,21 +19,24 @@
 // rows of tiles that are past the last tile or truncated: no budget tail,
 // no f32 id column, no 2^24 limit.
 //
-// Bound on an H100: operations, as for K2 (~24 fp32 operations per
-// evaluated (slot, pixel) pair, +3 past 1/255 and ~4C + 36 per pair that
+// Bound on an H100: as for K2 (~24 fp32 operations per (slot, pixel) pair
+// in the slot's cull box, +3 past 1/255 and ~4C + 36 per pair that
 // composites; chip_smoke.py:ops_grad), against one live row read and one
 // row and one id written per owned slot. What the design does about that
 // bound: one CTA per tile, one thread per pixel, each chunk staged once in
-// shared memory; per slot a warp shuffle tree, then the 8 warps' partials
-// in fixed order (no atomics, rows repeat bit for bit); a warp in which no
-// pixel composites a slot skips its shuffles; the CTA stops when every
-// pixel has. The id and zero writes are coalesced strided loops over the
-// tile's own range: the ids and the last chunk's tail before the walk, the
-// rows past the early stop after it. The TPU kernel's double-buffered write
-// DMAs and lane padding are not carried over: the walk's epilogue writes
-// each chunk's rows straight to their compacted place.
-// Left for later work: what K2 leaves (packed per-slot shuffles, splitting
-// deep tiles across CTAs), and the reduce fused into the epilogue.
+// shared memory with a cull box per slot, so a warp whose pixels all lie
+// outside a slot's box skips it; per slot a reduce-scatter butterfly over
+// its fields, then the 8 warps' partials in fixed order (no atomics, rows
+// repeat bit for bit); a warp in which no pixel composites a slot skips the
+// butterfly; the CTA stops when every pixel has (the walk K2 shares,
+// blend_tile.cuh:blend_run_bwd). The id and zero writes are coalesced
+// strided loops over the tile's own range: the ids and the last chunk's
+// tail before the walk, the rows past the early stop after it. The TPU
+// kernel's double-buffered write DMAs and lane padding are not carried
+// over: the walk's epilogue writes each chunk's rows straight to their
+// compacted place.
+// Left for later work: NC without the wrapper's host sync, and the reduce
+// fused into the epilogue.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // (no --use_fast_math and no fused multiply-adds: the replay must take the
@@ -51,7 +54,8 @@ using og_blend::kPix;
 // counts/tstart/toff/cstart: [T] int32; sorted_gauss: [P] int32.
 // accum/g_accum: [T, C, 256]; t_final/g_t: [T, 256].
 // d_rows: [NC * chunk, n_fields]; ids: [NC * chunk], NC = sum of the chunks.
-__global__ void __launch_bounds__(kPix)
+template <int NV>
+__global__ void __launch_bounds__(kPix, og_blend::bwd_min_blocks(NV))
 blend_stream_bwd_compact_kernel(const float* __restrict__ rows, int n_fields,
                                 const int* __restrict__ counts,
                                 const int* __restrict__ tstart,
@@ -80,13 +84,33 @@ blend_stream_bwd_compact_kernel(const float* __restrict__ rows, int n_fields,
     for (int i = cnt * n_fields + threadIdx.x; i < owned * n_fields; i += kPix)
       out[i] = 0.0f;
   }
-  const int walked = og_blend::blend_run_bwd(
+  const int walked = og_blend::blend_run_bwd<NV>(
       rows + static_cast<long long>(tstart[t]) * n_fields, n_fields, cnt, toff[t],
       grid_x, chunk, accum + t * C * kPix, t_final + t * kPix,
       g_accum + t * C * kPix, g_t + t * kPix, out);
   // the live rows after every pixel stopped: their gradient is zero
   for (int i = walked * n_fields + threadIdx.x; i < cnt * n_fields; i += kPix)
     out[i] = 0.0f;
+}
+
+template <int NV>
+cudaError_t launch(const float* rows, int n_fields, const int* counts,
+                   const int* tstart, const int* toff, const int* cstart,
+                   const int* sorted_gauss, int n_tiles, int grid_x, int chunk,
+                   int n_splats, const float* accum, const float* t_final,
+                   const float* g_accum, const float* g_t, float* d_rows,
+                   int* ids, cudaStream_t stream) {
+  const size_t smem = og_blend::bwd_smem_bytes(chunk, n_fields);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blend_stream_bwd_compact_kernel<NV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  blend_stream_bwd_compact_kernel<NV><<<n_tiles, kPix, smem, stream>>>(
+      rows, n_fields, counts, tstart, toff, cstart, sorted_gauss, grid_x,
+      chunk, n_splats, accum, t_final, g_accum, g_t, d_rows, ids);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -103,17 +127,16 @@ int og_blend_stream_bwd_compact(const float* rows, int n_fields,
                                 const float* g_accum, const float* g_t,
                                 float* d_rows, int* ids, void* stream) {
   if (n_tiles > 0) {
-    const size_t smem = og_blend::bwd_smem_bytes(chunk, n_fields);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          blend_stream_bwd_compact_kernel,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    blend_stream_bwd_compact_kernel<<<n_tiles, kPix, smem,
-                                      static_cast<cudaStream_t>(stream)>>>(
-        rows, n_fields, counts, tstart, toff, cstart, sorted_gauss, grid_x,
-        chunk, n_splats, accum, t_final, g_accum, g_t, d_rows, ids);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        n_fields <= 16
+            ? launch<16>(rows, n_fields, counts, tstart, toff, cstart,
+                         sorted_gauss, n_tiles, grid_x, chunk, n_splats, accum,
+                         t_final, g_accum, g_t, d_rows, ids, s)
+            : launch<32>(rows, n_fields, counts, tstart, toff, cstart,
+                         sorted_gauss, n_tiles, grid_x, chunk, n_splats, accum,
+                         t_final, g_accum, g_t, d_rows, ids, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

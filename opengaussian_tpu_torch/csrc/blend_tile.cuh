@@ -18,7 +18,7 @@
 //
 // Both are called by every thread of a CTA of kPix threads, one per pixel,
 // with dynamic shared memory of chunk * n_fields floats (forward) or
-// (1 + kWarps) * chunk * n_fields floats (backward). Pointer offsets are
+// bwd_smem_bytes (backward). Pointer offsets are
 // 64-bit: a dense block's (t * K + k) * n_fields passes 2^31 at full width.
 
 #pragma once
@@ -31,8 +31,14 @@ constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;  // threads per CTA: one per pixel
 constexpr int kWarps = kPix / 32;
 constexpr int kMaxC = 16;  // payload channels one thread holds (MAX_C)
-constexpr int kMaxF = 6 + kMaxC;
 constexpr unsigned kFull = 0xffffffffu;
+
+// CTAs per SM the backward kernels are compiled for (__launch_bounds__):
+// 4 holds a 16-field walk to 64 registers with a few bytes of spill, which
+// ran faster on the H100 than 3 CTAs at 78 registers (the walk waits on
+// long dependent chains: expf, two divisions, the butterfly); 3 for the
+// 32-field walk, which would spill more.
+constexpr int bwd_min_blocks(int nv) { return nv == 16 ? 4 : 3; }
 
 // opengaussian_tpu/ops/blend.py, rounded to float as the JAX package does
 constexpr float kAlphaMin = static_cast<float>(1.0 / 255.0);
@@ -97,6 +103,83 @@ __device__ __forceinline__ void blend_run_fwd(
   t_final[lane] = T;
 }
 
+// Warp cull of the backward replay. The walk's fp32 quadratic form
+// q = a dx^2 + 2b dx dy + c dy^2 (-2 power, without fused multiply-adds)
+// rounds to within kCullEps * kappa * q of its exact value, kappa =
+// (max(a, c) + |b|)(a + c) / det bounding the absolute terms over q.
+constexpr float kCullEps = 1e-6f;
+
+// The pixel box (x0, x1, y0, y1) of slot g outside of which its alpha stays
+// below 1/255 in the walk's own arithmetic. alpha >= 1/255 needs o >= 1/255
+// (o * gauss rounds to at most o) and q <= 2 ln(255 o), an ellipse whose
+// half-extents are sqrt(2 L c / det) in x and sqrt(2 L a / det) in y. L is
+// widened for expf's and the products' rounding and for q's (1 / (1 - r),
+// r = kCullEps * kappa), the extents for their own rounding and that of the
+// box's edges. Empty (x0 > x1) when o < 1/255; unbounded (-inf, inf) where
+// the conic is not positive definite, kappa passes 5e5, or any value is not
+// finite, so such a slot is never culled. Its plain copy,
+// rasterize_kernels.py:slot_box_plain, is held against the walk's alpha by
+// tests/test_torch_replay.py.
+__device__ __forceinline__ float4 slot_box(const float* g) {
+  const float inf = __int_as_float(0x7f800000);
+  const float mx = g[0], my = g[1], ca = g[2], cb = g[3], cc = g[4], o = g[5];
+  if (o < kAlphaMin) return make_float4(inf, -inf, inf, -inf);
+  const float4 all = make_float4(-inf, inf, -inf, inf);
+  const float det = static_cast<float>(static_cast<double>(ca) * cc -
+                                       static_cast<double>(cb) * cb);
+  const float r = kCullEps * ((fmaxf(ca, cc) + fabsf(cb)) * (ca + cc) / det);
+  if (!(ca > 0.0f && cc > 0.0f && det > 0.0f && r <= 0.5f)) return all;
+  const float lvl = (logf(o / kAlphaMin) + 1e-5f) / (1.0f - r) * 1.0001f;
+  const float ex = sqrtf(2.0f * lvl * cc / det);
+  const float ey = sqrtf(2.0f * lvl * ca / det);
+  const float hx = ex + (ex * 1e-4f + fabsf(mx) * 2.4e-7f + 0.015625f);
+  const float hy = ey + (ey * 1e-4f + fabsf(my) * 2.4e-7f + 0.015625f);
+  const float4 b = make_float4(mx - hx, mx + hx, my - hy, my + hy);
+  if (!(isfinite(b.x) && isfinite(b.y) && isfinite(b.z) && isfinite(b.w)))
+    return all;
+  return b;
+}
+
+// Reduce-scatter of N values per lane over the 32 lanes of a warp (call with
+// OFF = 16): at each xor offset a lane keeps half of what it holds and adds
+// its partner's copy of that half, then, once it holds one value, adds its
+// partner's whole. The xor partners are the pairs the shuffle-down tree
+// (offsets 16, 8, 4, 2, 1) adds, and float addition commutes, so each sum is
+// bit for bit the tree's. Afterwards lane l holds the warp's sum of value
+// l >> 1 (N = 16, lanes 2i and 2i + 1 alike) or of value l (N = 32), in
+// v[0]: 16 shuffles for 16 values, where the tree takes 5 per value.
+template <int N, int OFF>
+__device__ __forceinline__ void reduce_scatter(float* v, int wl) {
+  if constexpr (OFF > 0) {
+    if constexpr (N > 1) {
+      constexpr int H = N / 2;
+      const bool up = (wl & OFF) != 0;
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const float send = up ? v[j] : v[j + H];
+        const float keep = up ? v[j + H] : v[j];
+        v[j] = keep + __shfl_xor_sync(kFull, send, OFF);
+      }
+      reduce_scatter<H, OFF / 2>(v, wl);
+    } else {
+      v[0] = v[0] + __shfl_xor_sync(kFull, v[0], OFF);
+      reduce_scatter<1, OFF / 2>(v, wl);
+    }
+  }
+}
+
+// Stages rows [base, base + n) of the run and their cull boxes, slot i's by
+// thread i % kPix (read from device memory beside the staging loads of the
+// same lines, so one barrier covers both; a chunk may exceed kPix slots).
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ run,
+                                            int n_fields, int base, int n,
+                                            float* srow, float4* sbox) {
+  const float* src = run + static_cast<long long>(base) * n_fields;
+  for (int i = threadIdx.x; i < n * n_fields; i += kPix) srow[i] = src[i];
+  for (int i = threadIdx.x; i < n; i += kPix)
+    sbox[i] = slot_box(src + static_cast<long long>(i) * n_fields);
+}
+
 // Backward replay of one run: the forward's walk again, with the suffix form
 // of the blend's derivative, which needs no back-to-front pass and no stored
 // per-slot state:
@@ -109,32 +192,52 @@ __device__ __forceinline__ void blend_run_fwd(
 // stopped. From it: d_power = a * d_alpha, the conic and mean2d gradients of
 // the quadratic form, d_opacity = d_alpha * exp(power), d_payload =
 // w * g_accum. Row k of d_run gets the sum of the 256 pixels' terms for slot
-// k: a warp shuffle tree, then the 8 warps' partials in warp order through
-// shared memory, so the rows repeat bit for bit. Rows the walk does not
-// reach (after every pixel stopped) are not written. Returns the number of
-// rows written, the same in every thread: rows [0, return) of d_run hold
-// the walk's rows, rows [return, cnt) are the caller's to fill.
+// k: each warp's sum by reduce_scatter (or, where one pixel of the warp
+// composites, that pixel's value + 0, which is what the sum gives), then
+// the 8 warps' partials in warp order through shared memory, so the rows
+// repeat bit for bit.
+//
+// A warp whose 16x2 pixel rectangle misses a slot's box (slot_box) skips the
+// slot: none of its pixels could pass 1/255, so none would composite or
+// stop, and its partial is zero, as the full evaluation would give.
+//
+// Rows the walk does not reach (after every pixel stopped) are not
+// written. Returns where the walk ended, the same in every thread: rows
+// [0, return) of d_run hold the walk's rows, rows [return, cnt) are the
+// caller's to fill. NV: 16 for n_fields <= 16, else 32.
 // accum/g_accum: this tile's [C, 256] blocks; t_final/g_t: its [256] rows.
+template <int NV>
 __device__ __forceinline__ int blend_run_bwd(
     const float* __restrict__ run, int n_fields, int cnt, int tile,
     int grid_x, int chunk, const float* __restrict__ accum,
     const float* __restrict__ t_final, const float* __restrict__ g_accum,
     const float* __restrict__ g_t, float* __restrict__ d_run) {
-  extern __shared__ float smem[];
-  float* srow = smem;                     // [chunk, n_fields]
-  float* part = smem + chunk * n_fields;  // [kWarps, chunk, n_fields]
+  static_assert(NV == 16 || NV == 32, "NV is 16 or 32");
+  extern __shared__ __align__(16) float smem[];
+  float4* sbox = reinterpret_cast<float4*>(smem);  // [chunk]
+  float* srow = smem + 4 * chunk;                  // [chunk, n_fields]
+  float* part = srow + chunk * n_fields;           // [kWarps, chunk, n_fields]
   const int lane = threadIdx.x;
   const int warp = lane / 32;
   const int wl = lane % 32;
   const int C = n_fields - 6;
+  const int tx = (tile % grid_x) * kTile;
+  const int ty = (tile / grid_x) * kTile;
   // integer pixel coordinates (rasterize_pallas.py:_pixels), not +0.5
-  const float px = static_cast<float>((tile % grid_x) * kTile + lane % kTile);
-  const float py = static_cast<float>((tile / grid_x) * kTile + lane / kTile);
+  const float px = static_cast<float>(tx + lane % kTile);
+  const float py = static_cast<float>(ty + lane / kTile);
+  // this warp's pixels: rows 2 * warp and 2 * warp + 1 of the tile
+  const float rx0 = static_cast<float>(tx);
+  const float rx1 = static_cast<float>(tx + kTile - 1);
+  const float ry0 = static_cast<float>(ty + 2 * warp);
+  const float ry1 = ry0 + 1.0f;
 
-  float gacc[kMaxC];
+  // the payload channels this walk holds: C <= NV - 6 (and <= kMaxC)
+  constexpr int kC = NV - 6 < kMaxC ? NV - 6 : kMaxC;
+  float gacc[kC];
   float ga_total = 0.0f;
 #pragma unroll
-  for (int c = 0; c < kMaxC; ++c) {
+  for (int c = 0; c < kC; ++c) {
     gacc[c] = 0.0f;
     if (c < C) {
       gacc[c] = g_accum[c * kPix + lane];
@@ -150,18 +253,24 @@ __device__ __forceinline__ int blend_run_bwd(
   int base = 0;
   for (; base < cnt; base += chunk) {
     // Every pixel stopped: the rest of the run gets no gradient. This is
-    // also the barrier that keeps the staging below from overwriting rows
-    // and partials the previous chunk is still reading.
+    // also the barrier that keeps the staging below from overwriting rows,
+    // boxes and partials the previous chunk is still reading.
     if (__syncthreads_and(done)) break;
     const int n = min(chunk, cnt - base);
-    const float* src = run + static_cast<long long>(base) * n_fields;
-    for (int i = lane; i < n * n_fields; i += kPix) srow[i] = src[i];
+    stage_chunk(run, n_fields, base, n, srow, sbox);
     __syncthreads();
     for (int k = 0; k < n; ++k) {
       const float* g = srow + k * n_fields;
-      float v[kMaxF];
+      float* out = part + (warp * chunk + k) * n_fields;
+      const float4 b = sbox[k];
+      if (rx1 < b.x || rx0 > b.y || ry1 < b.z || ry0 > b.w) {
+        // culled, for the whole warp: a zero partial
+        if (wl < n_fields) out[wl] = 0.0f;
+        continue;
+      }
+      float v[NV];
 #pragma unroll
-      for (int f = 0; f < kMaxF; ++f) v[f] = 0.0f;
+      for (int f = 0; f < NV; ++f) v[f] = 0.0f;
       bool contrib = false;
       if (!done) {
         const float dx = g[0] - px;
@@ -180,7 +289,7 @@ __device__ __forceinline__ int blend_run_bwd(
             const float w = a * T;
             float gc = 0.0f;
 #pragma unroll
-            for (int c = 0; c < kMaxC; ++c) {
+            for (int c = 0; c < kC; ++c) {
               if (c < C) {
                 const float term = g[6 + c] * gacc[c];
                 gc = c == 0 ? term : gc + term;
@@ -201,26 +310,27 @@ __device__ __forceinline__ int blend_run_bwd(
             v[4] = d_power * (-0.5f * dy * dy);
             v[5] = d_alpha * gauss;
 #pragma unroll
-            for (int c = 0; c < kMaxC; ++c)
+            for (int c = 0; c < kC; ++c)
               if (c < C) v[6 + c] = w * gacc[c];
             T = t_next;
           }
         }
       }
-      float* out = part + (warp * chunk + k) * n_fields;
-      if (__any_sync(kFull, contrib)) {
+      const unsigned who = __ballot_sync(kFull, contrib);
+      if (who == 0) {
+        if (wl < n_fields) out[wl] = 0.0f;
+      } else if ((who & (who - 1)) == 0) {
+        // one pixel composites: the warp's sum of each field is its value
+        // plus the other lanes' zeros, which only turns -0 into +0
+        if (contrib) {
 #pragma unroll
-        for (int f = 0; f < kMaxF; ++f) {
-          if (f < n_fields) {
-            float x = v[f];
-#pragma unroll
-            for (int off = 16; off > 0; off /= 2)
-              x = x + __shfl_down_sync(kFull, x, off);
-            if (wl == 0) out[f] = x;
-          }
+          for (int f = 0; f < NV; ++f)
+            if (f < n_fields) out[f] = v[f] + 0.0f;
         }
-      } else if (wl == 0) {
-        for (int f = 0; f < n_fields; ++f) out[f] = 0.0f;
+      } else {
+        reduce_scatter<NV, 16>(v, wl);
+        const int f = NV == 16 ? wl >> 1 : wl;
+        if ((NV == 32 || (wl & 1) == 0) && f < n_fields) out[f] = v[0];
       }
     }
     __syncthreads();
@@ -235,9 +345,11 @@ __device__ __forceinline__ int blend_run_bwd(
   return min(base, cnt);
 }
 
-// Dynamic shared memory of blend_run_bwd, in bytes.
+// Dynamic shared memory of blend_run_bwd, in bytes: the boxes, the rows and
+// the 8 warps' partials of one chunk.
 inline size_t bwd_smem_bytes(int chunk, int n_fields) {
-  return static_cast<size_t>(1 + kWarps) * chunk * n_fields * sizeof(float);
+  return static_cast<size_t>(chunk) * sizeof(float4) +
+         static_cast<size_t>(1 + kWarps) * chunk * n_fields * sizeof(float);
 }
 
 }  // namespace og_blend

@@ -57,7 +57,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 MAX_C = 16  # payload channels one thread holds: kMaxC in the blend sources
 
-_p, _i, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_p, _i = ctypes.c_void_p, ctypes.c_int
 # C entry point -> (source stem, argument types); each returns a cudaError_t
 _ENTRIES = {
     "og_blend_stream_fwd": ("blend_stream_fwd", [_p, _i, _p, _p, _p, _i, _i, _i, _p, _p, _p]),
@@ -66,7 +66,7 @@ _ENTRIES = {
     "og_blend_stream_bwd_compact": ("blend_stream_bwd_compact",
                                     [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i,
                                      _p, _p, _p, _p, _p, _p, _p]),
-    "og_segment_reduce": ("segment_reduce", [_p, _p, _ll, _i, _i, _p, _p]),
+    "og_segment_reduce": ("segment_reduce", [_p, _p, _i, _i, _i, _p, _p]),
     "og_blend_tiles_fwd": ("blend_tiles_fwd", [_p, _i, _i, _i, _p, _i, _i, _i, _p, _p,
                                                _p]),
     "og_blend_tiles_bwd": ("blend_tiles_bwd", [_p, _i, _i, _i, _p, _i, _i, _i,
@@ -129,8 +129,17 @@ def _fn(name: str):
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        err = _fn(name)(*args, torch.cuda.current_stream().cuda_stream)
+    """Call the C entry `name` on the current stream of `device`, which the
+    CUDA runtime must also take as its current device: switch to it only
+    when it is not."""
+    fn = _fns.get(name) or _fn(name)
+    # torch.cuda.current_stream(device).cuda_stream, without building a Stream
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch._C._cuda_getDevice():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
@@ -182,6 +191,58 @@ def _chunk_alpha(rows, counts, start, base: int, chunk: int, px, py):
     return kmask, idx, g, dx, dy, gauss, araw, a
 
 
+def slot_box_plain(g: torch.Tensor) -> torch.Tensor:
+    """Plain version of the backward walk's cull box (blend_tile.cuh:slot_box),
+    in the kernel's fp32 arithmetic (det in float64, as the kernel takes it).
+    g [..., >= 6] f32 rows. -> [..., 4] f32 boxes (x0, x1, y0, y1): outside
+    the box the slot's alpha stays below 1/255; empty (x0 > x1) when its
+    opacity is below 1/255, unbounded where the kernel never culls."""
+    mx, my, ca, cb, cc, o = g[..., :6].to(torch.float32).unbind(-1)
+    det = (ca.double() * cc.double() - cb.double() * cb.double()).float()
+    r = 1e-6 * ((torch.maximum(ca, cc) + cb.abs()) * (ca + cc) / det)
+    lvl = (torch.log(o / blend.ALPHA_MIN) + 1e-5) / (1.0 - r) * 1.0001
+    ex = torch.sqrt(2.0 * lvl * cc / det)
+    ey = torch.sqrt(2.0 * lvl * ca / det)
+    hx = ex + (ex * 1e-4 + mx.abs() * 2.4e-7 + 0.015625)
+    hy = ey + (ey * 1e-4 + my.abs() * 2.4e-7 + 0.015625)
+    box = torch.stack([mx - hx, mx + hx, my - hy, my + hy], -1)
+    ok = ((ca > 0) & (cc > 0) & (det > 0) & (r <= 0.5)
+          & torch.isfinite(box).all(-1))
+    inf = float("inf")
+    box = torch.where(ok[..., None], box, box.new_tensor([-inf, inf, -inf, inf]))
+    return torch.where((o < blend.ALPHA_MIN)[..., None],
+                       box.new_tensor([inf, -inf, inf, -inf]), box)
+
+
+def _new_work(T: int, dev) -> dict:
+    """count_work's counters: per (tile, pixel) for the pair counts, one
+    each for the per-slot ones."""
+    work = {k: torch.zeros((T, NPIX), dtype=torch.int64, device=dev)
+            for k in ("evaluated", "in_box", "tested", "blended")}
+    work.update({k: torch.zeros((), dtype=torch.int64, device=dev)
+                 for k in ("boxes", "box_tests")})
+    return work
+
+
+def _count_boxes(work: dict, g, kmask, done, toff, grid_x: int) -> torch.Tensor:
+    """count_work's cull terms of one chunk: the slots of the tiles whose
+    pixels have not all stopped ("boxes": one slot_box each, "box_tests":
+    one test per slot and warp). -> [T, chunk, NPIX] bool: the pixel's warp
+    rectangle (16 x 2 pixels) meets the slot's box, so a walk that culls
+    still evaluates the pair."""
+    staged = int((kmask & ~done.all(dim=1, keepdim=True)).sum())
+    work["boxes"] += staged
+    work["box_tests"] += staged * (NPIX // WARP)
+    box = slot_box_plain(g)
+    toff = toff.to(torch.int64)
+    rx0 = ((toff % grid_x) * TILE).to(torch.float32)[:, None, None]
+    ry0 = (((toff // grid_x) * TILE)[:, None]
+           + 2 * torch.arange(NPIX // WARP, device=g.device)).to(torch.float32)[:, None, :]
+    miss = ((rx0 + (TILE - 1) < box[..., 0:1]) | (rx0 > box[..., 1:2])
+            | (ry0 + 1 < box[..., 2:3]) | (ry0 > box[..., 3:4]))
+    return (~miss).repeat_interleave(WARP, dim=-1)
+
+
 def blend_stream_fwd_plain(rows, counts, tstart, toff, grid_x: int, chunk: int,
                            count_work: bool = False):
     """Plain PyTorch version of the kernel: vectorized over tiles and pixels,
@@ -191,9 +252,13 @@ def blend_stream_fwd_plain(rows, counts, tstart, toff, grid_x: int, chunk: int,
 
     With count_work, also returns the work this stream's data needs, as
     (slot, pixel) pair counts: {"evaluated": alpha computed (every slot a
-    pixel walks, up to and including the one that stops it), "tested":
-    alpha >= 1/255, so the transmittance test ran, "blended": the pair
-    composited its payload}."""
+    pixel walks, up to and including the one that stops it), "in_box": the
+    evaluated pairs whose warp's 16 x 2 pixels meet the slot's cull box
+    (`slot_box_plain`), the evaluations a walk that culls still makes,
+    "tested": alpha >= 1/255, so the transmittance test ran, "blended": the
+    pair composited its payload}, and per slot {"boxes": the slots staged
+    by tiles still walking, one cull box each, "box_tests": one test per
+    such slot and warp}."""
     _check_stream(rows, counts, tstart, toff, chunk)
     dev = rows.device
     T = counts.shape[0]
@@ -203,8 +268,7 @@ def blend_stream_fwd_plain(rows, counts, tstart, toff, grid_x: int, chunk: int,
     trans = torch.ones((T, NPIX), dtype=torch.float32, device=dev)
     done = torch.zeros((T, NPIX), dtype=torch.bool, device=dev)
     acc = torch.zeros((T, NPIX, C), dtype=torch.float32, device=dev)
-    work = {k: torch.zeros((T, NPIX), dtype=torch.int64, device=dev)
-            for k in ("evaluated", "tested", "blended")}
+    work = _new_work(T, dev)
     counts = counts.to(torch.int64)
     start = tstart.to(torch.int64)
     max_count = int(counts.max()) if T else 0
@@ -213,6 +277,8 @@ def blend_stream_fwd_plain(rows, counts, tstart, toff, grid_x: int, chunk: int,
             break
         kmask, _, g, _, _, _, _, a = _chunk_alpha(rows, counts, start, base,
                                                   chunk, px, py)
+        if count_work:
+            meets = _count_boxes(work, g, kmask, done, toff, grid_x)
         for j in range(min(chunk, max_count - base)):
             aj = a[:, j]  # [T, NPIX]
             t_next = trans * (1.0 - aj)
@@ -220,6 +286,7 @@ def blend_stream_fwd_plain(rows, counts, tstart, toff, grid_x: int, chunk: int,
             contrib = (aj > 0.0) & ~stop & ~done
             if count_work:
                 work["evaluated"] += kmask[:, j, None] & ~done
+                work["in_box"] += kmask[:, j, None] & ~done & meets[:, j]
                 work["tested"] += (aj > 0.0) & ~done
                 work["blended"] += contrib
             w = torch.where(contrib, aj * trans, 0.0)
@@ -283,6 +350,14 @@ def _check_bwd(n_fields: int, dev, counts, accum, t_final, g_accum, g_t) -> None
             raise ValueError(f"{nm} must be contiguous")
 
 
+def _check_bwd_smem(chunk: int, F: int) -> None:
+    """The backward walk's shared memory (blend_tile.cuh:bwd_smem_bytes): a
+    16-byte cull box per slot, the chunk's rows and the 8 warps' partials."""
+    if chunk * 16 + (1 + NPIX // WARP) * chunk * F * 4 > 227 * 1024:
+        raise ValueError(f"chunk {chunk} x {F} fields exceeds the shared memory "
+                         "of a block")
+
+
 def _lane_tree_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis (NPIX lanes) in the kernel's order: within each
     warp of 32 lanes the shuffle-down tree (offsets 16, 8, 4, 2, 1), then the
@@ -306,9 +381,9 @@ def blend_stream_bwd_plain(rows, counts, tstart, toff, accum, t_final, g_accum,
     operations in the same order as the kernel. Arguments and output as for
     `blend_stream_bwd`.
 
-    With count_work, also returns the pair counts of the replay:
-    {"evaluated": alpha computed again, "tested": alpha >= 1/255,
-    "blended": the pair composited, so it has gradient terms}."""
+    With count_work, also returns the replay's work counts, those of
+    `blend_stream_fwd_plain` ("blended": the pair composited, so it has
+    gradient terms)."""
     _check_stream(rows, counts, tstart, toff, chunk)
     _check_bwd(rows.shape[1], rows.device, counts, accum, t_final, g_accum, g_t)
     dev = rows.device
@@ -324,8 +399,7 @@ def blend_stream_bwd_plain(rows, counts, tstart, toff, accum, t_final, g_accum,
     trans = torch.ones((T, NPIX), dtype=torch.float32, device=dev)
     bacc = torch.zeros((T, NPIX), dtype=torch.float32, device=dev)
     done = torch.zeros((T, NPIX), dtype=torch.bool, device=dev)
-    work = {k: torch.zeros((T, NPIX), dtype=torch.int64, device=dev)
-            for k in ("evaluated", "tested", "blended")}
+    work = _new_work(T, dev)
     counts = counts.to(torch.int64)
     start = tstart.to(torch.int64)
     max_count = int(counts.max()) if T else 0
@@ -335,6 +409,8 @@ def blend_stream_bwd_plain(rows, counts, tstart, toff, accum, t_final, g_accum,
             break
         kmask, idx, g, dx, dy, gauss, araw, a = _chunk_alpha(
             rows, counts, start, base, chunk, px, py)
+        if count_work:
+            meets = _count_boxes(work, g, kmask, done, toff, grid_x)
         for j in range(min(chunk, max_count - base)):
             aj = a[:, j]
             t_next = trans * (1.0 - aj)
@@ -342,6 +418,7 @@ def blend_stream_bwd_plain(rows, counts, tstart, toff, accum, t_final, g_accum,
             contrib = (aj > 0.0) & ~stop & ~done
             if count_work:
                 work["evaluated"] += kmask[:, j, None] & ~done
+                work["in_box"] += kmask[:, j, None] & ~done & meets[:, j]
                 work["tested"] += (aj > 0.0) & ~done
                 work["blended"] += contrib
             w = torch.where(contrib, aj * trans, 0.0)
@@ -382,7 +459,8 @@ def blend_stream_bwd(rows, counts, tstart, toff, accum, t_final, g_accum, g_t,
     g_accum [T, C, 256], g_t [T, 256]: their cotangents. -> d_rows
     [P, 6 + C] f32: for every slot of the stream, the loss gradient by its
     row's fields (mean2d 2, conic 3, opacity 1, payload C), summed over the
-    pixels of its tile; zero for slots no tile walks.
+    pixels of its tile; zero for slots no tile walks. The tiles' runs are
+    disjoint, as the binned stream's are.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     `blend_stream_bwd.launches` counts kernel launches."""
@@ -396,9 +474,7 @@ def blend_stream_bwd(rows, counts, tstart, toff, accum, t_final, g_accum, g_t,
     T, F = counts.shape[0], rows.shape[1]
     if F - N_GEOM > MAX_C:
         raise ValueError(f"the kernel takes at most {MAX_C} channels, got {F - N_GEOM}")
-    if (1 + NPIX // WARP) * chunk * F * 4 > 227 * 1024:
-        raise ValueError(f"chunk {chunk} x {F} fields exceeds the shared memory "
-                         "of a block")
+    _check_bwd_smem(chunk, F)
     d_rows = torch.zeros_like(rows)
     if T == 0:
         return d_rows
@@ -489,9 +565,7 @@ def blend_stream_bwd_compact(rows, counts, tstart, toff, sorted_gauss, accum, t_
     T, F = counts.shape[0], rows.shape[1]
     if F - N_GEOM > MAX_C:
         raise ValueError(f"the kernel takes at most {MAX_C} channels, got {F - N_GEOM}")
-    if (1 + NPIX // WARP) * chunk * F * 4 > 227 * 1024:
-        raise ValueError(f"chunk {chunk} x {F} fields exceeds the shared memory "
-                         "of a block")
+    _check_bwd_smem(chunk, F)
     cstart, nc = compact_offsets(counts, chunk)
     d_rows = torch.empty((nc * chunk, F), dtype=torch.float32, device=rows.device)
     ids = torch.empty((nc * chunk,), dtype=torch.int32, device=rows.device)
@@ -510,6 +584,11 @@ blend_stream_bwd_compact.launches = 0
 
 
 def _check_reduce(rows, ids, n: int) -> None:
+    if (rows.dtype == torch.float32 and rows.dim() == 2 and ids.dtype == torch.int32
+            and ids.dim() == 1 and ids.shape[0] == rows.shape[0] < 2**31
+            and ids.device == rows.device and rows.is_contiguous()
+            and ids.is_contiguous() and 0 <= n < 2**31):
+        return  # one test on the hot path; the messages below say what failed
     if rows.dtype != torch.float32 or rows.dim() != 2:
         raise ValueError(f"rows must be float32 [R, F], got {rows.dtype} "
                          f"{tuple(rows.shape)}")
@@ -520,8 +599,8 @@ def _check_reduce(rows, ids, n: int) -> None:
         raise ValueError(f"ids is on {ids.device}, rows on {rows.device}")
     if not (rows.is_contiguous() and ids.is_contiguous()):
         raise ValueError("rows and ids must be contiguous")
-    if not 0 <= n < 2**31:
-        raise ValueError(f"n must be in [0, 2^31), got {n}")
+    raise ValueError(f"n must be in [0, 2^31) and R below 2^31, got n={n}, "
+                     f"R={rows.shape[0]}")
 
 
 def segment_reduce_plain(rows, ids, n: int):
@@ -540,16 +619,19 @@ def segment_reduce(rows, ids, n: int):
     CPU tensors run the plain version; CUDA tensors launch the kernel, whose
     atomic adds sum in an order that changes from run to run.
     `segment_reduce.launches` counts kernel launches."""
-    if rows.device.type == "cpu":
+    dev = rows.device
+    if dev.type == "cpu":
         return segment_reduce_plain(rows, ids, n)
-    if rows.device.type != "cuda":
-        raise ValueError(f"segment_reduce runs on cpu or cuda, not {rows.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"segment_reduce runs on cpu or cuda, not {dev}")
     _check_reduce(rows, ids, n)
-    out = torch.zeros((n, rows.shape[1]), dtype=torch.float32, device=rows.device)
-    if rows.numel() == 0 or n == 0:
-        return out
-    _launch("og_segment_reduce", rows.device, rows.data_ptr(), ids.data_ptr(),
-            rows.shape[0], rows.shape[1], n, out.data_ptr())
+    R, F = rows.shape
+    # the C entry zero-fills out on the stream before it adds the rows
+    out = torch.empty((n, F), dtype=torch.float32, device=dev)
+    if R == 0 or n * F == 0:
+        return out.zero_()
+    _launch("og_segment_reduce", dev, rows.data_ptr(), ids.data_ptr(), R, F, n,
+            out.data_ptr())
     segment_reduce.launches += 1
     return out
 
@@ -669,9 +751,7 @@ def blend_tiles_bwd(gdata, counts, accum, t_final, g_accum, g_t, grid_x: int,
     _check_bwd(F, gdata.device, counts, accum, t_final, g_accum, g_t)
     if F - N_GEOM > MAX_C:
         raise ValueError(f"the kernel takes at most {MAX_C} channels, got {F - N_GEOM}")
-    if (1 + NPIX // WARP) * chunk * F * 4 > 227 * 1024:
-        raise ValueError(f"chunk {chunk} x {F} fields exceeds the shared memory "
-                         "of a block")
+    _check_bwd_smem(chunk, F)
     d_slot = torch.zeros_like(gdata)
     if T == 0:
         return d_slot

@@ -40,6 +40,7 @@ from opengaussian_tpu_torch.ops.rasterize_kernels import (
     blend_stream_fwd_plain,
     segment_reduce,
     segment_reduce_plain,
+    slot_box_plain,
 )
 from tests.test_torch_gpu import CHUNK, GRID_X, make_bwd_stream, make_stream
 
@@ -88,17 +89,30 @@ def test_plain_blend_chunk_invariant():
         assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
 
 
-def numpy_work(rows, counts, tstart, toff):
+def numpy_work(rows, counts, tstart, toff, chunk=CHUNK):
     """The blend's work counts by a direct per-pixel walk in numpy: each
-    tile's 256 pixels step through its run slot by slot, in float32."""
-    n = dict(evaluated=0, tested=0, blended=0)
+    tile's 256 pixels step through its run slot by slot, in float32. A
+    chunk of slots is staged (one cull box per slot, one box test per slot
+    and warp) while any pixel of the tile is live; a live pixel's pair is
+    in the box when its warp's 16 x 2 rectangle meets the slot's box."""
+    n = dict(evaluated=0, in_box=0, tested=0, blended=0, boxes=0, box_tests=0)
+    boxes = slot_box_plain(torch.as_tensor(rows)).numpy()
     lane = np.arange(256)
     for t in range(len(counts)):
         px = ((toff[t] % GRID_X) * 16 + lane % 16).astype(np.float32)
         py = ((toff[t] // GRID_X) * 16 + lane // 16).astype(np.float32)
+        rx0 = np.float32((toff[t] % GRID_X) * 16)
+        ry0 = ((toff[t] // GRID_X) * 16 + 2 * np.arange(8)).astype(np.float32)
         trans = np.ones(256, np.float32)
         live = np.ones(256, bool)
-        for r in rows[tstart[t]:tstart[t] + counts[t]]:
+        for k, r in enumerate(rows[tstart[t]:tstart[t] + counts[t]]):
+            if k % chunk == 0 and live.any():
+                staged = min(chunk, counts[t] - k)
+                n["boxes"] += staged
+                n["box_tests"] += 8 * staged
+            b = boxes[tstart[t] + k]
+            meets = ~((rx0 + 15 < b[0]) | (rx0 > b[1]) | (ry0 + 1 < b[2]) | (ry0 > b[3]))
+            n["in_box"] += int((live & meets[lane // 32]).sum())
             dx, dy = r[0] - px, r[1] - py
             power = np.float32(-0.5) * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy
             a = np.minimum(np.where(power <= 0, r[5] * np.exp(np.minimum(power, 0)), 0),
@@ -126,6 +140,9 @@ def test_plain_blend_work_counts():
     assert work == numpy_work(*stream)
     rows, counts = stream[:2]
     assert 0 < work["blended"] < work["tested"] < work["evaluated"] < 256 * counts.sum()
+    # the box is conservative and culls: every pair past 1/255 lies in it
+    assert work["tested"] <= work["in_box"] < work["evaluated"]
+    assert 0 < work["boxes"] <= counts.sum() and work["box_tests"] == 8 * work["boxes"]
 
 
 def test_blend_wrapper_validates_inputs():

@@ -6,8 +6,10 @@ This file imports nothing of JAX, so it also runs where JAX is absent:
 
 (--noconftest skips tests/conftest.py, which pins JAX to the CPU). Each
 test skips where torch.cuda.is_available() is false. The stream fixture
-`make_stream` is shared with tests/test_torch_blend.py, the dense one
-`make_dense` with tests/test_torch_dense.py.
+`make_stream` is shared with tests/test_torch_blend.py, the backward ones
+(`make_bwd_stream`, `make_deep_bwd_stream`, `make_flat_bwd_stream`) with
+tests/test_torch_replay.py, the dense one `make_dense` with
+tests/test_torch_dense.py.
 """
 
 import numpy as np
@@ -83,12 +85,51 @@ def make_bwd_stream(seed=0, C=4):
     -> (rows, counts, tstart, toff, accum, t_final, g_accum, g_t)."""
     rows, counts, tstart, toff = make_stream(seed, C)
     rows[tstart[7]:tstart[7] + 5, 5] = 1.0
+    return with_cotangents(rows, counts, tstart, toff, seed)
+
+
+def with_cotangents(rows, counts, tstart, toff, seed):
+    """A stream with its forward outputs (plain version) and cotangents
+    ~ N(0, 0.1^2) seeded from seed + 100."""
     acc, t_final = blend_stream_fwd_plain(
         *map(torch.as_tensor, (rows, counts, tstart, toff)), GRID_X, CHUNK)
     rng = np.random.default_rng(seed + 100)
     g_acc = rng.normal(0, 0.1, size=acc.shape).astype(np.float32)
     g_t = rng.normal(0, 0.1, size=t_final.shape).astype(np.float32)
     return rows, counts, tstart, toff, acc.numpy(), t_final.numpy(), g_acc, g_t
+
+
+def make_deep_bwd_stream(seed=0, C=4, depth=10 * CHUNK + 7):
+    """make_bwd_stream's stream with a run of `depth` slots, over ten chunks
+    and over the 256 threads of a CTA, appended for the empty tile 2: faint splats
+    (opacity 0.003-0.04, some below 1/255), so most of its pixels stay live
+    to the end, and eight small opaque ones a third of the way down, which
+    stop the pixels near their centers. -> as make_bwd_stream."""
+    rows, counts, tstart, toff = make_stream(seed, C)
+    rows[tstart[7]:tstart[7] + 5, 5] = 1.0
+    rng = np.random.default_rng(seed + 200)
+    ox, oy = (toff[2] % GRID_X) * 16, (toff[2] // GRID_X) * 16
+    mean = np.stack([ox + rng.uniform(-4, 20, depth), oy + rng.uniform(-4, 20, depth)], -1)
+    a = rng.uniform(0.005, 0.08, depth)
+    c = rng.uniform(0.005, 0.08, depth)
+    b = rng.uniform(-0.5, 0.5, depth) * np.sqrt(a * c)
+    opac = rng.uniform(0.003, 0.04, depth)
+    stop = depth // 3 + np.arange(8)
+    a[stop], c[stop], b[stop], opac[stop] = 0.5, 0.5, 0.0, 0.99
+    deep = np.concatenate([mean, a[:, None], b[:, None], c[:, None], opac[:, None],
+                           rng.uniform(0, 1, (depth, C))], -1).astype(np.float32)
+    tstart[2], counts[2] = rows.shape[0], depth
+    return with_cotangents(np.concatenate([rows, deep]), counts, tstart, toff, seed)
+
+
+def make_flat_bwd_stream(seed=0, C=4):
+    """make_bwd_stream's stream made of flat opaque splats (conic 0, opacity
+    0.98): every pixel of a tile stops at its third slot, so each tile's
+    walk ends after its first chunk. -> as make_bwd_stream."""
+    rows, counts, tstart, toff = make_stream(seed, C)
+    rows[:, 2:5] = 0.0
+    rows[:, 5] = 0.98
+    return with_cotangents(rows, counts, tstart, toff, seed)
 
 
 def make_dense(seed=0, C=4, tile_offset=0):
@@ -140,7 +181,80 @@ def test_bwd_kernel_matches_plain(cuda, C):
     d = blend_stream_bwd(*args, GRID_X, CHUNK)
     torch.cuda.synchronize()
     assert blend_stream_bwd.launches == before + 1
-    torch.testing.assert_close(d, blend_stream_bwd_plain(*args, GRID_X, CHUNK), **TOL)
+    assert torch.equal(d, blend_stream_bwd_plain(*args, GRID_X, CHUNK))  # bit for bit
+
+
+def dense_of(stream, chunk=CHUNK):
+    """A stream's tile runs as a dense block: row toff[t] of the block is
+    the run of stream tile t, K the deepest run rounded up to chunk.
+    -> (gdata [T, K, F], counts [T])."""
+    rows, counts, tstart, toff = stream[:4]
+    K = -(-int(counts.max()) // chunk) * chunk
+    gdata = np.zeros((len(counts), K, rows.shape[1]), np.float32)
+    dcounts = np.zeros(len(counts), np.int32)
+    for t in range(len(counts)):
+        gdata[toff[t], :counts[t]] = rows[tstart[t]:tstart[t] + counts[t]]
+        dcounts[toff[t]] = counts[t]
+    return gdata, dcounts
+
+
+def check_bwd_kernels_bitwise(stream, dev, chunk=CHUNK):
+    """K2, K4 and K6 on the stream (K6 on its dense block) against their
+    plain versions, bit for bit. -> K2's plain rows."""
+    args = [torch.as_tensor(x, device=dev) for x in stream]
+    d = blend_stream_bwd(*args, GRID_X, chunk)
+    torch.cuda.synchronize()
+    d_p = blend_stream_bwd_plain(*args, GRID_X, chunk)
+    assert torch.equal(d, d_p)
+    n = 57
+    gauss = torch.as_tensor(np.random.default_rng(1).integers(0, n, stream[0].shape[0]),
+                            dtype=torch.int32, device=dev)
+    cargs = (*args[:4], gauss, *args[4:], GRID_X, chunk, n)
+    d4, ids = blend_stream_bwd_compact(*cargs)
+    torch.cuda.synchronize()
+    d4_p, ids_p = blend_stream_bwd_compact_plain(*cargs)
+    assert torch.equal(d4, d4_p) and torch.equal(ids, ids_p)
+    gdata, dcounts = (torch.as_tensor(x, device=dev) for x in dense_of(stream, chunk))
+    acc, t_final = blend_tiles_fwd_plain(gdata, dcounts, GRID_X, chunk)
+    rng = np.random.default_rng(2)
+    cot = [torch.as_tensor(rng.normal(0, 0.1, x.shape).astype(np.float32), device=dev)
+           for x in (acc, t_final)]
+    bargs = (gdata, dcounts, acc, t_final, *cot, GRID_X, chunk)
+    d6 = blend_tiles_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert torch.equal(d6, blend_tiles_bwd_plain(*bargs))
+    return d_p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [make_deep_bwd_stream, make_flat_bwd_stream])
+@pytest.mark.parametrize("C", [4, 7])
+def test_bwd_kernels_bit_equal_on_deep_and_opaque_runs(cuda, make, C):
+    """K2, K4 and K6 against their plain versions, bit for bit, on a run of
+    over ten chunks, most of whose pixels stay live to its end, and on flat
+    opaque splats, where every tile stops after its first chunk and the
+    rest of each run gets no row."""
+    stream = make(C=C)
+    d_p = check_bwd_kernels_bitwise(stream, cuda)
+    rows, counts, tstart = stream[:3]
+    if make is make_deep_bwd_stream:  # the last chunk of the deep run has rows
+        assert counts[2] > 10 * CHUNK and d_p[int(tstart[2]) + 10 * CHUNK:].abs().sum() > 0
+    else:  # rows past the first chunk of each tile stay zero
+        assert d_p.abs().sum() > 0 and counts.max() > CHUNK
+        for t in range(len(counts)):
+            assert not d_p[int(tstart[t]) + CHUNK:int(tstart[t] + counts[t])].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,chunk", [(12, CHUNK), (16, CHUNK), (4, 512)])
+def test_bwd_kernels_bit_equal_wide_rows_and_long_chunks(cuda, C, chunk):
+    """K2, K4 and K6 bit for bit on the deep run at 18 and 22 fields (the
+    walk that holds 32 values per lane) and at a chunk of 512 slots, more
+    than the CTA's 256 threads, so each thread stages two slots' boxes."""
+    stream = make_deep_bwd_stream(C=C)
+    assert stream[1].max() > 256
+    d_p = check_bwd_kernels_bitwise(stream, cuda, chunk)
+    assert d_p[int(stream[2][2]) + 256:].abs().sum() > 0  # rows past slot 256 of the run
 
 
 @pytest.mark.gpu
@@ -164,7 +278,7 @@ def test_compact_bwd_kernel_matches_plain(cuda, C):
     torch.cuda.synchronize()
     assert blend_stream_bwd_compact.launches == before + 1
     d_p, ids_p = blend_stream_bwd_compact_plain(*args[:4], gauss, *args[4:], GRID_X, CHUNK, n)
-    torch.testing.assert_close(d, d_p, **TOL)
+    assert torch.equal(d, d_p)  # bit for bit
     assert torch.equal(ids, ids_p)
     per = segment_reduce(d, ids, n)
     per2 = segment_reduce(blend_stream_bwd(*args, GRID_X, CHUNK), gauss, n)
@@ -172,15 +286,30 @@ def test_compact_bwd_kernel_matches_plain(cuda, C):
 
 
 @pytest.mark.gpu
-def test_reduce_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("F,aligned", [(10, True), (13, True), (10, False)])
+def test_reduce_kernel_matches_plain(cuda, F, aligned):
+    """K3 for the stream's F = 10 (vector atomics) and the dense block's
+    F = 13 (scalar), and F = 10 rows 4 bytes off an 8-byte boundary (scalar):
+    ids below 0 and at or past n dropped, all-zero rows and zero pairs
+    skipped, over an output left NaN by the allocator."""
     rng = np.random.default_rng(5)
-    rows = torch.as_tensor(rng.normal(0, 1, (50_000, 10)).astype(np.float32), device=cuda)
-    ids = torch.as_tensor(rng.integers(0, 3001, 50_000).astype(np.int32), device=cuda)
+    R, n = 50_000, 3000
+    x = rng.normal(0, 1, (R, F)).astype(np.float32)
+    x[rng.uniform(size=R) < 0.6] = 0.0  # most rows all zero, as in the stream
+    x[:, 1::3][rng.uniform(size=x[:, 1::3].shape) < 0.3] = 0.0
+    flat = torch.as_tensor(np.concatenate([np.zeros(1, np.float32), x.ravel()]), device=cuda)
+    rows = flat[1:].view(R, F) if not aligned else flat[1:].clone().view(R, F)
+    assert (rows.data_ptr() % 8 == 0) == aligned
+    ids_np = rng.integers(-5, n + 5, R).astype(np.int32)
+    ids_np[:4] = [-(2**31), 2**31 - 1, n, -1]
+    ids = torch.as_tensor(ids_np, device=cuda)
+    poison = torch.full((n, F), float("nan"), device=cuda)
+    del poison
     before = segment_reduce.launches
-    out = segment_reduce(rows, ids, 3000)
+    out = segment_reduce(rows, ids, n)
     torch.cuda.synchronize()
     assert segment_reduce.launches == before + 1
-    torch.testing.assert_close(out, segment_reduce_plain(rows, ids, 3000),
+    torch.testing.assert_close(out, segment_reduce_plain(rows, ids, n),
                                atol=2e-5, rtol=1e-4)
 
 
@@ -238,7 +367,7 @@ def test_dense_kernels_match_plain(cuda, C, tile_offset):
     torch.cuda.synchronize()
     assert (blend_tiles_fwd.launches, blend_tiles_bwd.launches) == (before[0] + 1,
                                                                     before[1] + 1)
-    torch.testing.assert_close(d, blend_tiles_bwd_plain(*args), **TOL)
+    assert torch.equal(d, blend_tiles_bwd_plain(*args))  # bit for bit
     dead = torch.arange(K, device=cuda)[None, :] >= c[:, None]
     assert not d[dead].any()
 
