@@ -9,15 +9,15 @@ Phases, in order; any failure exits non-zero:
   3. kernels: each kernel against its plain PyTorch version on the card, on
      the streams of a full-width frame (1296x968, 200k splats, SH degree 3,
      6-D instance features): the forward blend K1 at C = 4 (RGB + depth) and
-     C = 7 (features + depth); the backward replay K2, the compact backward
-     K4 (both bit for bit) and the per-splat reduce K3 on the C = 4 stream,
-     with the cotangents of an L1 + SSIM loss against the view's image, K4
-     again on the same stream made of flat opaque splats (every tile stops
-     after one chunk), and K4 + K3 against K2 + K3 per splat. The dense
-     layout's forward K5, its backward K6 (bit for bit) and K3 over its rows
-     on the same frame's C = 7 dense block, with the
-     cotangents of the stage-1 loss (separation + cohesion on the view's SAM
-     masks). A partition render of one root's 5 leaves against the same
+     C = 7 (features + depth), bit for bit; the backward replay K2, the
+     compact backward K4 (both bit for bit) and the per-splat reduce K3 on
+     the C = 4 stream, with the cotangents of an L1 + SSIM loss against the
+     view's image, K4 again on the same stream made of flat opaque splats
+     (every tile stops after one chunk), and K4 + K3 against K2 + K3 per
+     splat. The dense layout's forward K5 and its backward K6 (both bit for
+     bit) and K3 over its rows on the same frame's C = 7 dense block, with
+     the cotangents of the stage-1 loss (separation + cohesion on the view's
+     SAM masks). A partition render of one root's 5 leaves against the same
      leaves rendered one by one. Then the rasterizer on the card against the
      naive oracle on the CPU, and at 160x120 one stage-0 step, one stage-1
      and one stage-2.1 step in each input layout, one stage-2.2 step in the
@@ -47,9 +47,10 @@ Phases, in order; any failure exits non-zero:
   6. timings (CUDA events after warm-up), each line with the card's name:
      each kernel against its plain version and its bound, K3's call and
      device time in turns with its index_add_ yardstick, K2 + K3 against
-     K4 + K3, K2 on the training frame (the stage-1 step's feature pass from
-     the trained state, held bit for bit against its plain version, with
-     its bound) and its deepest tile alone, the dense block's zero fill, the
+     K4 + K3, K1 and K2 on the training frame (the stage-1 step's feature
+     pass from the trained state, each held bit for bit against its plain
+     version, with its bound) and their deepest tile alone, the dense
+     block's zero fill, the
      render, the stage-0 step and its phases, the stage-1 and stage-2.1
      steps in both layouts, the stage-2.2 step of each training run, sweeps
      1 and 2 and stage 3 per view, the root and leaf k-means, and
@@ -273,8 +274,7 @@ def check_kernel_against_plain(streams, chunk: int) -> tuple[float, dict]:
                                                      chunk, count_work=True)
         log(f"work C={C}: " + ", ".join(f"{k} {v}" for k, v in work[C].items()))
         for name, x, y in (("accum", acc, acc_p), ("t_final", t_final, t_p)):
-            worst = max(worst, compare(f"blend_stream_fwd C={C} {name}", x, y,
-                                       TOL["atol"], TOL["rtol"]))
+            worst = max(worst, compare(f"blend_stream_fwd C={C} {name}", x, y, 0.0, 0.0))
     return worst, work
 
 
@@ -469,7 +469,7 @@ def check_dense_kernels(block, camera, grids, sam_ids, max_masks: int, chunk: in
     torch.cuda.synchronize()
     acc_p, t_p, work_f = rk.blend_tiles_fwd_plain(gdata, counts, gx, chunk, count_work=True)
     log("work K5: " + ", ".join(f"{k} {v}" for k, v in work_f.items()))
-    k5 = max(compare(f"blend_tiles_fwd C={F - 6} {nm}", x, y, TOL["atol"], TOL["rtol"])
+    k5 = max(compare(f"blend_tiles_fwd C={F - 6} {nm}", x, y, 0.0, 0.0)
              for nm, x, y in (("accum", acc, acc_p), ("t_final", t_final, t_p)))
     cot = stage1_cotangents(camera, grids, acc_p, t_p, sam_ids, max_masks,
                             OptimizationConfig().loss_weight)
@@ -1226,20 +1226,41 @@ def time_leaf_events(tr, card: str, name: str) -> dict:
     return out
 
 
+def time_on_frame(name: str, kernel: str, full, alone, bound: float, by: str,
+                  card: str) -> dict:
+    """Call and device time of one kernel on the training frame, whole and
+    with only its deepest tile, beside its bound.
+    -> {"ms", "dev", "deep_ms", "deep_dev"}."""
+    out = dict(ms=cuda_ms(full, iters=10, warmup=2), dev=device_ms(full, 10, kernel),
+               deep_ms=cuda_ms(alone, iters=20, warmup=2), deep_dev=device_ms(alone, 20, kernel))
+    log(f"timing: {name} C=7 training frame: call {out['ms']:.4f} ms, kernel "
+        f"{out['dev']:.4f} ms; the deepest tile alone: call {out['deep_ms']:.4f} ms, "
+        f"kernel {out['deep_dev']:.4f} ms [{card}]")
+    log(f"bound: {name} C=7 training frame: {bound:.4f} ms/launch ({by}), kernel "
+        f"(device time) at {bound / out['dev']:.3f} of it [{card}]")
+    return out
+
+
 def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes) -> dict:
-    """K2 on the training frame: the feature pass (C = 7) of view 0 of the
-    profiled stage-1 step, from the trained state at the trainer's fitted
-    max_per_tile, with the stage-1 loss's cotangents. Holds K2 against its
-    plain version bit for bit, counts the frame's pairs, and times K2 (call
-    and device time) beside its bound and the deepest tile alone (every
-    other tile's count set to 0), which sets the launch's least time.
-    -> {"err", "ms", "dev", "deep_ms", "deep_dev", "bound", "by"}."""
+    """K1 and K2 on the training frame: the feature pass (C = 7) of view 0
+    of the profiled stage-1 step, from the trained state at the trainer's
+    fitted max_per_tile, K2 with the stage-1 loss's cotangents. Holds each
+    against its plain version bit for bit, counts the frame's pairs, and
+    times each (call and device time) beside its bound and the deepest tile
+    alone (every other tile's count set to 0), which sets the launch's least
+    time. -> {"k1": {"err", "ms", "dev", "deep_ms", "deep_dev", "bound",
+    "by"}, "k2": the same}."""
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 
     cam = tr.bundle.camera(0)
     with torch.no_grad():
         rows, counts, tstart, toff, gx, bins, _ = frame_streams(cam, tr.state, tr.rcfg)[7]
-        acc, t_final = rk.blend_stream_fwd(rows, counts, tstart, toff, gx, chunk)
+        fwd_args = (rows, counts, tstart, toff, gx, chunk)
+        acc, t_final = rk.blend_stream_fwd(*fwd_args)
+        torch.cuda.synchronize()
+        acc_p, t_p, work_f = rk.blend_stream_fwd_plain(*fwd_args, count_work=True)
+    k1_err = max(compare(f"blend_stream_fwd C=7 training frame {nm}", x, y, 0.0, 0.0)
+                 for nm, x, y in (("accum", acc, acc_p), ("t_final", t_final, t_p)))
     cot = stage1_cotangents(cam, (gx, (HEIGHT + 15) // 16), acc, t_final,
                             tr.bundle.sam_ids[0], tr.bundle.max_masks,
                             tr.cfg.opt.loss_weight)
@@ -1258,25 +1279,30 @@ def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes) -> dict:
     if not torch.equal(d_only[run], d[run]) or bool(d_only[:run.start].any()) or \
             bool(d_only[run.stop:].any()):
         raise AssertionError("K2: the deepest tile alone differs from its rows in the frame")
-    log(f"K2, training frame (stage-1 feature pass, view 0, C=7): {int(counts.sum())} slots "
-        f"in {counts.shape[0]} tiles, deepest tile {depth} slots ({-(-depth // chunk)} "
+    with torch.no_grad():
+        acc_o, t_o = rk.blend_stream_fwd(rows, only, *fwd_args[2:])
+    if not (torch.equal(acc_o[deep], acc[deep]) and torch.equal(t_o[deep], t_final[deep])):
+        raise AssertionError("K1: the deepest tile alone differs from its block in the frame")
+    log(f"K1 and K2, training frame (stage-1 feature pass, view 0, C=7): {int(counts.sum())} "
+        f"slots in {counts.shape[0]} tiles, deepest tile {depth} slots ({-(-depth // chunk)} "
         f"chunks), max_per_tile {tr.rcfg.max_per_tile}; "
-        "work " + ", ".join(f"{k} {v}" for k, v in work.items())
-        + "; the deepest tile alone gives its rows in the frame bit for bit")
-    bound, by = bwd_bound("blend_stream_bwd C=7 training frame", int(counts.sum()),
-                          rows.shape[1], counts.shape[0], 3, work, peak_flops, peak_bytes)
-    full = lambda: rk.blend_stream_bwd(*args)  # noqa: E731
-    alone = lambda: rk.blend_stream_bwd(rows, only, *args[2:])  # noqa: E731
-    out = dict(ms=cuda_ms(full, iters=10, warmup=2),
-               dev=device_ms(full, 10, "blend_stream_bwd_kernel"),
-               deep_ms=cuda_ms(alone, iters=20, warmup=2),
-               deep_dev=device_ms(alone, 20, "blend_stream_bwd_kernel"))
-    log(f"timing: blend_stream_bwd C=7 training frame: call {out['ms']:.4f} ms, kernel "
-        f"{out['dev']:.4f} ms; the deepest tile alone: call {out['deep_ms']:.4f} ms, "
-        f"kernel {out['deep_dev']:.4f} ms [{card}]")
-    log(f"bound: blend_stream_bwd C=7 training frame: {bound:.4f} ms/launch ({by}), kernel "
-        f"(device time) at {bound / out['dev']:.3f} of it [{card}]")
-    return dict(err=err, bound=bound, by=by, **out)
+        "work K1 " + ", ".join(f"{k} {v}" for k, v in work_f.items())
+        + "; work K2 " + ", ".join(f"{k} {v}" for k, v in work.items())
+        + "; the deepest tile alone gives its outputs in the frame bit for bit")
+    live, F, T = int(counts.sum()), rows.shape[1], counts.shape[0]
+    out = {}
+    with torch.no_grad():
+        bound, by = fwd_bound("blend_stream_fwd C=7 training frame", live, F, T, 3, work_f,
+                              peak_flops, peak_bytes)
+        out["k1"] = dict(err=k1_err, bound=bound, by=by, **time_on_frame(
+            "blend_stream_fwd", "blend_stream_fwd_kernel", lambda: rk.blend_stream_fwd(*fwd_args),
+            lambda: rk.blend_stream_fwd(rows, only, *fwd_args[2:]), bound, by, card))
+    bound, by = bwd_bound("blend_stream_bwd C=7 training frame", live, F, T, 3, work,
+                          peak_flops, peak_bytes)
+    out["k2"] = dict(err=err, bound=bound, by=by, **time_on_frame(
+        "blend_stream_bwd", "blend_stream_bwd_kernel", lambda: rk.blend_stream_bwd(*args),
+        lambda: rk.blend_stream_bwd(rows, only, *args[2:]), bound, by, card))
+    return out
 
 
 def compact_bound(live: int, nc_rows: int, F: int, T: int, work, peak_flops,
@@ -1444,7 +1470,7 @@ def main() -> int:
                 del tr_r
 
         # 6. timings
-        k_ms, p_ms = {}, {}
+        k_ms, p_ms, k1_dev = {}, {}, {}
         with torch.no_grad():
             flush = torch.empty(2**26, dtype=torch.float32, device=dev)  # 256 MB > L2
             f_ms = cuda_ms(flush.zero_, iters=10)
@@ -1452,11 +1478,13 @@ def main() -> int:
                 k1 = lambda: rk.blend_stream_fwd(rows, counts, tstart, toff, gx, chunk)  # noqa: E731
                 k_ms[C] = cuda_ms(k1, iters=20, warmup=3)
                 cold = cuda_ms(lambda: (flush.zero_(), k1()), iters=10) - f_ms
+                k1_dev[C] = device_ms(k1, 10, "blend_stream_fwd_kernel")
                 p_ms[C] = cuda_ms(lambda: rk.blend_stream_fwd_plain(
                     rows, counts, tstart, toff, gx, chunk), iters=2)
                 log(f"timing: blend_stream_fwd C={C}: kernel {k_ms[C]:.4f} ms/launch "
-                    f"({cold:.4f} with L2 flushed), plain {p_ms[C]:.3f} ms/launch, "
-                    f"evaluated pairs {work[C]['evaluated']} [{card}]")
+                    f"({cold:.4f} with L2 flushed; device time {k1_dev[C]:.4f}), plain "
+                    f"{p_ms[C]:.3f} ms/launch, evaluated pairs {work[C]['evaluated']}, in "
+                    f"box {work[C]['in_box']} [{card}]")
             rows, counts, tstart, toff, gx, bins, _ = streams[4]
             bargs = (rows, counts, tstart, toff, *cot, gx, chunk)
             k2_ms = cuda_ms(lambda: rk.blend_stream_bwd(*bargs), iters=20, warmup=3)
@@ -1523,12 +1551,14 @@ def main() -> int:
             k5 = lambda: rk.blend_tiles_fwd(gdata, dcounts, gx, chunk)  # noqa: E731
             k5_ms = cuda_ms(k5, iters=20, warmup=3)
             k5_cold = cuda_ms(lambda: (flush.zero_(), k5()), iters=10) - f_ms
+            k5_dev = device_ms(k5, 10, "blend_tiles_fwd_kernel")
             acc5, tf5 = k5()
             k5_plain = cuda_ms(lambda: rk.blend_tiles_fwd_plain(gdata, dcounts, gx, chunk),
                                iters=2)
             log(f"timing: blend_tiles_fwd C={F - 6}: kernel {k5_ms:.4f} ms/launch "
-                f"({k5_cold:.4f} with L2 flushed), plain {k5_plain:.3f} ms/launch, "
-                f"evaluated pairs {dense['work_fwd']['evaluated']} [{card}]")
+                f"({k5_cold:.4f} with L2 flushed; device time {k5_dev:.4f}), plain "
+                f"{k5_plain:.3f} ms/launch, evaluated pairs {dense['work_fwd']['evaluated']}, "
+                f"in box {dense['work_fwd']['in_box']} [{card}]")
             b6 = (gdata, dcounts, acc5, tf5, *dense["cot"], gx, chunk)
             k6_ms = cuda_ms(lambda: rk.blend_tiles_bwd(*b6), iters=20, warmup=3)
             k6_cold = cuda_ms(lambda: (flush.zero_(), rk.blend_tiles_bwd(*b6)),
@@ -1566,7 +1596,7 @@ def main() -> int:
                 f"both from that run) [{card}]")
         time_feature_stages(tr, card)
         time_step(tr, card)
-        train_k2 = time_train_frame(tr, chunk, card, peak_flops, peak_bytes)
+        train = time_train_frame(tr, chunk, card, peak_flops, peak_bytes)
         k1_bound = {C: fwd_bound(f"blend_stream_fwd C={C}", int(counts.sum()), rows.shape[1],
                                  counts.shape[0], 3, work[C], peak_flops, peak_bytes)
                     for C, (rows, counts, *_r) in streams.items()}
@@ -1610,17 +1640,20 @@ def main() -> int:
     total = {k: sum(p[k] for p in main_paths) for k in render_launches}
     log(f"launches on the main paths: render {render_launches}, "
         + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()))
-    log(f"summary: K2 on the training frame: kernel {train_k2['dev']:.4f} ms against a "
-        f"{train_k2['bound']:.4f} ms bound ({train_k2['by']}), the deepest tile alone "
-        f"{train_k2['deep_dev']:.4f} ms; on the render frame {k2_dev:.4f} ms [{card}]")
+    for k, kname, render_dev in (("k1", "K1", k1_dev), ("k2", "K2", {4: k2_dev})):
+        t = train[k]
+        log(f"summary: {kname} on the training frame: kernel {t['dev']:.4f} ms against a "
+            f"{t['bound']:.4f} ms bound ({t['by']}), the deepest tile alone "
+            f"{t['deep_dev']:.4f} ms; on the render frame "
+            + ", ".join(f"C={C} {v:.4f} ms" for C, v in render_dev.items()) + f" [{card}]")
     log(f"summary: stage-2.2 step ms {s22_ms}; sweep 2 / stage 3 ms per view {leaf_ms}; "
         f"partition against scan max abs err {partition_err:.3e} [{card}]")
     kernels = [
-        row("blend_stream_fwd", total["blend_stream_fwd"], k1_err,
+        row("blend_stream_fwd", total["blend_stream_fwd"], max(k1_err, train["k1"]["err"]),
             sum(k_ms.values()) / len(k_ms), sum(p_ms.values()) / len(p_ms),
             sum(k1_b) / len(k1_b), max(k1_bound.values())[1], line=562),
         row("blend_stream_bwd", total["blend_stream_bwd"],
-            max(grad["k2_err"], train_k2["err"]), k2_ms, k2_plain,
+            max(grad["k2_err"], train["k2"]["err"]), k2_ms, k2_plain,
             k2_b, k2_by, line=670),
         row("blend_stream_bwd_compact", total["blend_stream_bwd_compact"], compact["k4_err"],
             k4_dev, k4_plain, k4_b, k4_by, line=841),

@@ -8,28 +8,39 @@
 // transmittance after it stays >= 1e-4, and the first slot that would take
 // it below stops the pixel for good.
 //
-// Bound on an H100: operations. A (slot, pixel) pair costs ~24 fp32
-// operations to evaluate (the quadratic form, one expf, the threshold
-// tests); a pair that passes 1/255 adds 3 (the transmittance test) and one
-// that composites 1 + 2C more. Against ~44 bytes read per slot for a whole
-// 256-pixel tile, the fp32 issue rate, not the 3.35 TB/s of HBM, is the
-// floor. On the 1296x968 frame with 200k splats a pass evaluates 102M pairs,
-// of which 11M pass 1/255 and composite: 0.039 ms per launch at 67 TFLOP/s
-// fp32 (H100 SXM, 700 W). This kernel takes 0.27 ms there, 14% of that
-// bound (chip_smoke.py; PERF.md). The design does about that bound:
+// Bound on an H100: operations or bytes, by the frame. A (slot, pixel) pair
+// that must be evaluated (its warp's pixels meet the slot's cull box) costs
+// ~24 fp32 operations (the quadratic form, one expf, the threshold tests); a
+// pair that passes 1/255 adds 3 (the transmittance test) and one that
+// composites 1 + 2C more; each staged slot its box and a box test per warp.
+// The kernel reads each live row of 4(6 + C) bytes once and writes accum and
+// t_final. On the 1296x968 render frame with 200k splats (102M pairs
+// evaluated without the cull, 38M in a box, 11M composited) the bound is
+// 0.0162 / 0.0183 ms at C = 4 / 7 (operations / bytes), and the kernel
+// without the cull and the asynchronous staging took 0.2711 / 0.2730 ms
+// there ("NVIDIA H100 80GB HBM3, 700.00 W"; chip_smoke.py computes the
+// bounds from the frame's work counts; PERF.md has the numbers).
+// What the design does about that bound (blend_tile.cuh:blend_run_fwd):
 //   * one CTA per 16x16 tile and one thread per pixel, so every live pair is
-//     evaluated exactly once and nothing is recomputed;
-//   * the tile's run is staged chunk by chunk into shared memory with
-//     coalesced loads; each staged row is then read by all 256 threads as a
-//     shared-memory broadcast, so device memory sees each slot once;
-//   * the CTA stops as soon as every pixel has stopped (__syncthreads_and on
-//     the done flags), or when the run ends: it walks counts[t] slots, never
-//     a fixed padded window.
-// Left for later work: warp-level culling of slots no pixel of the warp
-// touches, and load balance for very deep tiles.
-//
-// The walk itself is blend_tile.cuh:blend_run_fwd, which the dense-block
-// forward (blend_tiles_fwd.cu, K5) shares.
+//     evaluated at most once and nothing is recomputed;
+//   * a warp cull: each staged slot gets its cull box (slot_box), which
+//     ballots turn into one bit per warp, and a warp walks only the slots
+//     whose box meets its 16x2 pixels, so the ~63% of a render frame's
+//     pairs that cannot pass 1/255 cost it neither an evaluation nor a
+//     test; the outputs are bit for bit those of the walk without it;
+//   * the run arrives in chunks through two shared-memory buffers by
+//     asynchronous copies (4-byte cp.async: a run starts at tstart[t] *
+//     (6 + C) floats, 16-byte aligned only by chance), chunk i + 1 in flight
+//     while the walk evaluates chunk i; each staged row is read by all 256
+//     threads as a shared-memory broadcast, so device memory sees each slot
+//     once;
+//   * the accumulators a thread holds follow C (4, 8 or 16), so the C = 4
+//     color pass keeps 4 in registers, not 16, and more CTAs fit on an SM;
+//   * a pixel that stops leaves the walk, and the CTA stops as soon as every
+//     pixel has stopped (__syncthreads_and on the done flags), or when the
+//     run ends: it walks counts[t] slots, never a fixed padded window.
+// A tile's run is not split across CTAs (a split of the backward's deep
+// tiles was measured and gave no gain on any frame the port runs; PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared.
 // No --use_fast_math: expf near the 1/255 and 1e-4 thresholds must round as
@@ -46,7 +57,8 @@ using og_blend::kPix;
 
 // rows: [P, n_fields] f32 = mean2d x/y, conic a/b/c, opacity, payload (C).
 // counts/tstart/toff: [T] int32. accum: [T, C, 256], t_final: [T, 256].
-__global__ void __launch_bounds__(kPix)
+template <int KC>
+__global__ void __launch_bounds__(kPix, og_blend::fwd_min_blocks(KC))
 blend_stream_fwd_kernel(const float* __restrict__ rows, int n_fields,
                         const int* __restrict__ counts,
                         const int* __restrict__ tstart,
@@ -55,25 +67,55 @@ blend_stream_fwd_kernel(const float* __restrict__ rows, int n_fields,
                         float* __restrict__ t_final) {
   const long long t = blockIdx.x;
   const long long C = n_fields - 6;
-  og_blend::blend_run_fwd(rows + tstart[t] * static_cast<long long>(n_fields),
-                          n_fields, counts[t], toff[t], grid_x, chunk,
-                          accum + t * C * kPix, t_final + t * kPix);
+  og_blend::blend_run_fwd<KC, false>(
+      rows + tstart[t] * static_cast<long long>(n_fields), n_fields, counts[t],
+      toff[t], grid_x, chunk, accum + t * C * kPix, t_final + t * kPix);
+}
+
+template <int KC>
+cudaError_t launch(const float* rows, int n_fields, const int* counts,
+                   const int* tstart, const int* toff, int n_tiles, int grid_x,
+                   int chunk, float* accum, float* t_final,
+                   cudaStream_t stream) {
+  const size_t smem = og_blend::fwd_smem_bytes(chunk, n_fields);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blend_stream_fwd_kernel<KC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  blend_stream_fwd_kernel<KC><<<n_tiles, kPix, smem, stream>>>(
+      rows, n_fields, counts, tstart, toff, grid_x, chunk, accum, t_final);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// Launches on `stream` and returns the first CUDA error (0 on success).
 int og_blend_stream_fwd(const float* rows, int n_fields, const int* counts,
                         const int* tstart, const int* toff, int n_tiles,
                         int grid_x, int chunk, float* accum, float* t_final,
                         void* stream) {
   if (n_tiles > 0) {
-    const size_t smem = static_cast<size_t>(chunk) * n_fields * sizeof(float);
-    blend_stream_fwd_kernel<<<n_tiles, kPix, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-        rows, n_fields, counts, tstart, toff, grid_x, chunk, accum, t_final);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err;
+    switch (og_blend::fwd_channels(n_fields - 6)) {
+      case 4:
+        err = launch<4>(rows, n_fields, counts, tstart, toff, n_tiles, grid_x,
+                        chunk, accum, t_final, s);
+        break;
+      case 8:
+        err = launch<8>(rows, n_fields, counts, tstart, toff, n_tiles, grid_x,
+                        chunk, accum, t_final, s);
+        break;
+      default:
+        err = launch<og_blend::kMaxC>(rows, n_fields, counts, tstart, toff,
+                                      n_tiles, grid_x, chunk, accum, t_final,
+                                      s);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

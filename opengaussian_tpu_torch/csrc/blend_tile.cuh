@@ -16,9 +16,17 @@
 // stays >= 1e-4, and the first slot that would take it below stops the pixel
 // for good.
 //
+// Both walks stage the run chunk by chunk into shared memory and cull by
+// warp: a warp whose 16x2 pixels all lie outside a slot's cull box
+// (slot_box) skips the slot, which changes no output bit. The forward
+// stages asynchronously into two buffers, so the next chunk lands while the
+// walk evaluates this one, and keeps one bit per warp and slot
+// (blend_run_fwd); the backward stages one chunk at a time, its boxes
+// beside its rows and the warps' partial sums (blend_run_bwd).
+//
 // Both are called by every thread of a CTA of kPix threads, one per pixel,
-// with dynamic shared memory of chunk * n_fields floats (forward) or
-// bwd_smem_bytes (backward). Pointer offsets are
+// with dynamic shared memory of fwd_smem_bytes (forward) or bwd_smem_bytes
+// (backward). Pointer offsets are
 // 64-bit: a dense block's (t * K + k) * n_fields passes 2^31 at full width.
 
 #pragma once
@@ -46,64 +54,7 @@ constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
 constexpr float kMinOneMinusA = static_cast<float>(1.0 - 0.99);
 
-// Forward blend of one run. tile: the image tile whose pixels this CTA
-// shades. accum: this tile's [C, 256] block; t_final: its [256] row.
-__device__ __forceinline__ void blend_run_fwd(
-    const float* __restrict__ run, int n_fields, int cnt, int tile,
-    int grid_x, int chunk, float* __restrict__ accum,
-    float* __restrict__ t_final) {
-  extern __shared__ float srow[];  // [chunk, n_fields]
-  const int lane = threadIdx.x;
-  const int C = n_fields - 6;
-  // integer pixel coordinates (rasterize_pallas.py:_pixels), not +0.5
-  const float px = static_cast<float>((tile % grid_x) * kTile + lane % kTile);
-  const float py = static_cast<float>((tile / grid_x) * kTile + lane / kTile);
-
-  float T = 1.0f;
-  int done = 0;
-  float acc[kMaxC];
-#pragma unroll
-  for (int c = 0; c < kMaxC; ++c) acc[c] = 0.0f;
-
-  for (int base = 0; base < cnt; base += chunk) {
-    // Every pixel stopped: the tile is finished. This is also the barrier
-    // that keeps the staging below from overwriting rows still being read.
-    if (__syncthreads_and(done)) break;
-    const int n = min(chunk, cnt - base);
-    const float* src = run + static_cast<long long>(base) * n_fields;
-    for (int i = lane; i < n * n_fields; i += kPix) srow[i] = src[i];
-    __syncthreads();
-    if (done) continue;
-    for (int k = 0; k < n; ++k) {
-      const float* g = srow + k * n_fields;
-      const float dx = g[0] - px;
-      const float dy = g[1] - py;
-      const float power =
-          -0.5f * (g[2] * dx * dx + g[4] * dy * dy) - g[3] * dx * dy;
-      const float gauss = expf(fminf(power, 0.0f));
-      const float araw = power <= 0.0f ? g[5] * gauss : 0.0f;
-      const float a = fminf(araw, kAlphaMax);
-      if (!(a >= kAlphaMin)) continue;
-      const float t_next = T * (1.0f - a);
-      if (t_next < kTEps) {
-        done = 1;
-        break;
-      }
-      const float w = a * T;
-#pragma unroll
-      for (int c = 0; c < kMaxC; ++c)
-        if (c < C) acc[c] += g[6 + c] * w;
-      T = t_next;
-    }
-  }
-
-#pragma unroll
-  for (int c = 0; c < kMaxC; ++c)
-    if (c < C) accum[c * kPix + lane] = acc[c];
-  t_final[lane] = T;
-}
-
-// Warp cull of the backward replay. The walk's fp32 quadratic form
+// Warp cull of the tile walks. The walk's fp32 quadratic form
 // q = a dx^2 + 2b dx dy + c dy^2 (-2 power, without fused multiply-adds)
 // rounds to within kCullEps * kappa * q of its exact value, kappa =
 // (max(a, c) + |b|)(a + c) / det bounding the absolute terms over q.
@@ -179,6 +130,244 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ run,
   for (int i = threadIdx.x; i < n; i += kPix)
     sbox[i] = slot_box(src + static_cast<long long>(i) * n_fields);
 }
+
+// Staging of the forward walk: asynchronous copies from device memory into
+// shared memory, so that chunk i + 1 lands while the walk evaluates chunk
+// i. All are Hopper (sm_90) instructions issued by inline PTX.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Every thread copies elements threadIdx.x, + kPix, ... of [0, count) by
+// 4-byte cp.async, then commits them as one group (possibly empty).
+__device__ __forceinline__ void copy_async_4(float* dst, const float* src,
+                                             int count) {
+  for (int i = threadIdx.x; i < count; i += kPix)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     smem_u32(dst + i)),
+                 "l"(src + i)
+                 : "memory");
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// One thread: a bulk copy (the TMA's 1-D form) of `bytes` from src to dst,
+// both 16-byte aligned, bytes a multiple of 16; its completion is the
+// phase of `bar`. The fence orders the walk's earlier reads of dst (generic
+// proxy) before the copy's writes (async proxy).
+__device__ __forceinline__ void copy_bulk(float* dst, const float* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Waits until phase `parity` of bar has completed.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned ok = 0;
+  while (!ok)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(ok)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// Forward blend of one run, chunk by chunk through two shared-memory
+// buffers: while the walk evaluates chunk i out of one, chunk i + 1 is
+// copied into the other. kBulk: each chunk arrives by one bulk copy, which
+// needs the run's first row and every chunk of rows 16-byte aligned (the
+// dense block, whose chunk starts at (t K + base) * n_fields floats, when
+// chunk % 4 == 0 and the block is); otherwise each thread copies every
+// kPix-th float by 4-byte cp.async, which takes any offset (a stream run
+// starts at tstart[t] * n_fields floats).
+//
+// Warp cull: once a chunk has landed, thread k % kPix computes slot k's
+// cull box (slot_box, from the staged row: the same function on the same
+// values as the backward's) and tests it against the 16x2 pixel rectangle
+// of each of the 8 warps, exactly as the backward does per slot; ballots
+// turn the tests into one bit per (warp, slot), 32 slots to a word. The walk
+// of a warp then visits only its set bits, in slot order: a slot whose box
+// misses the warp's rectangle costs it nothing, since none of its pixels
+// could pass 1/255, composite or stop there. So the outputs are bit for bit
+// those of the walk without the cull. A pixel that stops leaves the walk,
+// so a warp whose 32 pixels have all stopped leaves the chunk together;
+// the CTA stops at the next chunk when all 256 have (__syncthreads_and).
+//
+// The box tests of chunk i + 1 run right after the walk of chunk i, so one
+// barrier per chunk (two on the cp.async path, whose rows come from every
+// thread) orders the staging, the masks and the walk. KC: the accumulators
+// a thread holds, C <= KC <= kMaxC. tile: the image tile whose pixels this
+// CTA shades. accum: this tile's [C, 256] block; t_final: its [256] row.
+// Dynamic shared memory: fwd_smem_bytes.
+template <int KC, bool kBulk>
+__device__ __forceinline__ void blend_run_fwd(
+    const float* __restrict__ run, int n_fields, int cnt, int tile,
+    int grid_x, int chunk, float* __restrict__ accum,
+    float* __restrict__ t_final) {
+  static_assert(KC > 0 && KC <= kMaxC, "KC is at most kMaxC");
+  extern __shared__ __align__(16) float smem[];
+  const int words = (chunk + 31) / 32;  // mask words per warp and chunk
+  unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);  // [2]
+  unsigned* smask = reinterpret_cast<unsigned*>(smem + 4);  // [2][kWarps][words]
+  float* sbuf = smem + 4 + 2 * kWarps * words;  // [2][chunk, n_fields]
+  const int lane = threadIdx.x;
+  const int warp = lane / 32;
+  const int C = n_fields - 6;
+  const int tx = (tile % grid_x) * kTile;
+  const int ty = (tile / grid_x) * kTile;
+  // integer pixel coordinates (rasterize_pallas.py:_pixels), not +0.5
+  const float px = static_cast<float>(tx + lane % kTile);
+  const float py = static_cast<float>(ty + lane / kTile);
+
+  // chunk i of the run into buffer i % 2
+  auto stage = [&](int i) {
+    const int base = i * chunk;
+    const int n = min(chunk, cnt - base);
+    float* dst = sbuf + (i & 1) * chunk * n_fields;
+    const float* src = run + static_cast<long long>(base) * n_fields;
+    if constexpr (kBulk) {
+      // n rounded up to 4 rows keeps the size a multiple of 16 bytes; the
+      // rows past n lie inside the chunk and are never read
+      if (lane == 0)
+        copy_bulk(dst, src, static_cast<unsigned>((n + 3) & ~3) * n_fields * 4,
+                  &bar[i & 1]);
+    } else {
+      copy_async_4(dst, src, n * n_fields);
+    }
+  };
+  // wait for chunk i, then set the warps' masks of its slots
+  auto cull = [&](int i) {
+    const int n = min(chunk, cnt - i * chunk);
+    const float* srow = sbuf + (i & 1) * chunk * n_fields;
+    if constexpr (kBulk) {
+      mbar_wait(&bar[i & 1], (i >> 1) & 1);
+    } else {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();  // every thread's copies of the chunk
+    }
+    unsigned* mask = smask + (i & 1) * kWarps * words;
+    const float rx0 = static_cast<float>(tx);
+    const float rx1 = static_cast<float>(tx + kTile - 1);
+    for (int k0 = 0; k0 < n; k0 += kPix) {
+      const int k = k0 + lane;
+      unsigned meets = 0;  // bit w: warp w's rectangle meets slot k's box
+      if (k < n) {
+        const float4 b = slot_box(srow + k * n_fields);
+        if (!(rx1 < b.x || rx0 > b.y)) {
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) {
+            // warp w's pixels: rows 2w and 2w + 1 of the tile
+            const float ry0 = static_cast<float>(ty + 2 * w);
+            const float ry1 = ry0 + 1.0f;
+            if (!(ry1 < b.z || ry0 > b.w)) meets |= 1u << w;
+          }
+        }
+      }
+      const int word = k0 / 32 + warp;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const unsigned bits = __ballot_sync(kFull, (meets >> w) & 1u);
+        if (lane % 32 == 0 && word < words) mask[w * words + word] = bits;
+      }
+    }
+  };
+  if constexpr (kBulk) {
+    if (lane == 0) {
+      mbar_init(&bar[0]);
+      mbar_init(&bar[1]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  float T = 1.0f;
+  int done = 0;
+  float acc[KC];
+#pragma unroll
+  for (int c = 0; c < KC; ++c) acc[c] = 0.0f;
+
+  if (cnt > 0) {
+    stage(0);
+    cull(0);
+  }
+  int i = 0;
+  for (int base = 0; base < cnt; base += chunk, ++i) {
+    // Every pixel stopped: the tile is finished. This is also the barrier
+    // after which chunk i's masks are set and chunk i - 1's rows and masks
+    // no longer read, so chunk i + 1 may overwrite them. No copy is in
+    // flight here.
+    if (__syncthreads_and(done)) break;
+    const bool next = base + chunk < cnt;
+    if (next) stage(i + 1);
+    if (!done) {
+      const int n = min(chunk, cnt - base);
+      const float* srow = sbuf + (i & 1) * chunk * n_fields;
+      const unsigned* mask = smask + ((i & 1) * kWarps + warp) * words;
+      for (int q = 0; q < (n + 31) / 32; ++q) {
+        for (unsigned m = mask[q]; m != 0; m &= m - 1) {
+          const float* g = srow + (q * 32 + __ffs(m) - 1) * n_fields;
+          const float dx = g[0] - px;
+          const float dy = g[1] - py;
+          const float power =
+              -0.5f * (g[2] * dx * dx + g[4] * dy * dy) - g[3] * dx * dy;
+          const float gauss = expf(fminf(power, 0.0f));
+          const float araw = power <= 0.0f ? g[5] * gauss : 0.0f;
+          const float a = fminf(araw, kAlphaMax);
+          if (!(a >= kAlphaMin)) continue;
+          const float t_next = T * (1.0f - a);
+          if (t_next < kTEps) {
+            done = 1;
+            break;
+          }
+          const float w = a * T;
+#pragma unroll
+          for (int c = 0; c < KC; ++c)
+            if (c < C) acc[c] += g[6 + c] * w;
+          T = t_next;
+        }
+        if (done) break;
+      }
+    }
+    if (next) cull(i + 1);
+  }
+
+#pragma unroll
+  for (int c = 0; c < KC; ++c)
+    if (c < C) accum[c * kPix + lane] = acc[c];
+  t_final[lane] = T;
+}
+
+// Dynamic shared memory of blend_run_fwd, in bytes: two mbarriers, two
+// chunks' warp masks and two buffers of rows.
+inline size_t fwd_smem_bytes(int chunk, int n_fields) {
+  return 16 + 2 * static_cast<size_t>(kWarps) * ((chunk + 31) / 32) * 4 +
+         2 * static_cast<size_t>(chunk) * n_fields * sizeof(float);
+}
+
+// The accumulators a forward walk holds for C payload channels, and the
+// CTAs per SM it is compiled for (__launch_bounds__): 5 for the 4- and
+// 8-channel walks, which at 6-8 CTAs spill and ran no faster on the H100
+// (the walk waits on long dependent chains: the quadratic form, expf, the
+// transmittance); 4 for the 16-channel walk.
+inline int fwd_channels(int C) { return C <= 4 ? 4 : C <= 8 ? 8 : kMaxC; }
+constexpr int fwd_min_blocks(int kc) { return kc == kMaxC ? 4 : 5; }
 
 // Backward replay of one run: the forward's walk again, with the suffix form
 // of the blend's derivative, which needs no back-to-front pass and no stored

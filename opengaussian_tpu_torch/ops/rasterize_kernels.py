@@ -299,6 +299,15 @@ def blend_stream_fwd_plain(rows, counts, tstart, toff, grid_x: int, chunk: int,
     return out
 
 
+def _check_fwd_smem(chunk: int, F: int) -> None:
+    """The forward walk's shared memory (blend_tile.cuh:fwd_smem_bytes): two
+    mbarriers, two chunks' cull masks (a bit per slot and warp) and two
+    buffers of the chunk's rows."""
+    if 16 + 2 * (NPIX // WARP) * -(-chunk // 32) * 4 + 2 * chunk * F * 4 > 227 * 1024:
+        raise ValueError(f"chunk {chunk} x {F} fields exceeds the shared memory "
+                         "of a block")
+
+
 def blend_stream_fwd(rows, counts, tstart, toff, grid_x: int, chunk: int):
     """Forward blend of every tile's run out of the sorted slot stream.
 
@@ -320,9 +329,7 @@ def blend_stream_fwd(rows, counts, tstart, toff, grid_x: int, chunk: int):
     C = F - N_GEOM
     if C > MAX_C:
         raise ValueError(f"the kernel blends at most {MAX_C} channels, got {C}")
-    if chunk * F * 4 > 48 * 1024:
-        raise ValueError(f"chunk {chunk} x {F} fields exceeds 48 KiB of "
-                         "shared memory")
+    _check_fwd_smem(chunk, F)
     accum = torch.empty((T, C, NPIX), dtype=torch.float32, device=rows.device)
     t_final = torch.empty((T, NPIX), dtype=torch.float32, device=rows.device)
     if T == 0:
@@ -698,9 +705,7 @@ def blend_tiles_fwd(gdata, counts, grid_x: int, chunk: int, tile_offset: int = 0
     C = F - N_GEOM
     if C > MAX_C:
         raise ValueError(f"the kernel blends at most {MAX_C} channels, got {C}")
-    if chunk * F * 4 > 48 * 1024:
-        raise ValueError(f"chunk {chunk} x {F} fields exceeds 48 KiB of "
-                         "shared memory")
+    _check_fwd_smem(chunk, F)
     accum = torch.empty((T, C, NPIX), dtype=torch.float32, device=gdata.device)
     t_final = torch.empty((T, NPIX), dtype=torch.float32, device=gdata.device)
     if T == 0:

@@ -8,8 +8,8 @@ This file imports nothing of JAX, so it also runs where JAX is absent:
 test skips where torch.cuda.is_available() is false. The stream fixture
 `make_stream` is shared with tests/test_torch_blend.py, the backward ones
 (`make_bwd_stream`, `make_deep_bwd_stream`, `make_flat_bwd_stream`) with
-tests/test_torch_replay.py, the dense one `make_dense` with
-tests/test_torch_dense.py.
+tests/test_torch_replay.py and tests/test_torch_fwd_walk.py, the dense one
+`make_dense` with tests/test_torch_dense.py and tests/test_torch_fwd_walk.py.
 """
 
 import numpy as np
@@ -161,7 +161,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [4, 7, 16])
+@pytest.mark.parametrize("C", [1, 4, 7, 16])
 def test_kernel_matches_plain(cuda, C):
     args = [torch.as_tensor(x, device=cuda) for x in make_stream(C=C)]
     before = blend_stream_fwd.launches
@@ -169,8 +169,7 @@ def test_kernel_matches_plain(cuda, C):
     torch.cuda.synchronize()
     assert blend_stream_fwd.launches == before + 1
     acc_p, t_p = blend_stream_fwd_plain(*args, GRID_X, CHUNK)
-    torch.testing.assert_close(acc, acc_p, **TOL)
-    torch.testing.assert_close(t_final, t_p, **TOL)
+    assert torch.equal(acc, acc_p) and torch.equal(t_final, t_p)  # bit for bit
 
 
 @pytest.mark.gpu
@@ -196,6 +195,101 @@ def dense_of(stream, chunk=CHUNK):
         gdata[toff[t], :counts[t]] = rows[tstart[t]:tstart[t] + counts[t]]
         dcounts[toff[t]] = counts[t]
     return gdata, dcounts
+
+
+def check_fwd_kernels_bitwise(stream, dev, chunk=CHUNK):
+    """K1 on the stream and K5 on its dense block against their plain
+    versions, bit for bit, each through one launch of its kernel.
+    -> K1's plain (accum, t_final)."""
+    args = [torch.as_tensor(x, device=dev) for x in stream[:4]]
+    before = blend_stream_fwd.launches
+    out = blend_stream_fwd(*args, GRID_X, chunk)
+    torch.cuda.synchronize()
+    assert blend_stream_fwd.launches == before + 1
+    want = blend_stream_fwd_plain(*args, GRID_X, chunk)
+    assert all(torch.equal(x, y) for x, y in zip(out, want))
+    gdata, dcounts = (torch.as_tensor(x, device=dev) for x in dense_of(stream, chunk))
+    before = blend_tiles_fwd.launches
+    out = blend_tiles_fwd(gdata, dcounts, GRID_X, chunk)
+    torch.cuda.synchronize()
+    assert blend_tiles_fwd.launches == before + 1
+    assert all(torch.equal(x, y) for x, y in
+               zip(out, blend_tiles_fwd_plain(gdata, dcounts, GRID_X, chunk)))
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [make_deep_bwd_stream, make_flat_bwd_stream])
+@pytest.mark.parametrize("C", [1, 4, 7, 16])
+def test_fwd_kernels_bit_equal_on_deep_and_opaque_runs(cuda, make, C):
+    """K1 and K5 bit for bit at C = 1, 4, 7 and 16 (each channel bucket) on
+    a run of over ten chunks, most of whose pixels stay live to its end, and
+    on flat opaque splats, where every tile stops after its first chunk
+    while its second is in flight."""
+    stream = make(C=C)
+    acc, t_final = check_fwd_kernels_bitwise(stream, cuda)
+    rows, counts, tstart, toff = stream[:4]
+    assert acc.abs().max() > 0 and counts.max() > CHUNK
+    if make is make_deep_bwd_stream:  # the deep run's last chunk changes its pixels
+        cut = counts.copy()
+        cut[2] = 10 * CHUNK
+        args = [torch.as_tensor(x, device=cuda) for x in (rows, cut, tstart, toff)]
+        assert not torch.equal(blend_stream_fwd_plain(*args, GRID_X, CHUNK)[1][2], t_final[2])
+    else:  # every pixel of a tile of 3 slots or more stops at its third
+        assert (t_final[torch.as_tensor(counts >= 3, device=cuda)] < 1e-3).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [4, 16])
+def test_fwd_kernels_bit_equal_at_a_chunk_of_512(cuda, C):
+    """K1 and K5 bit for bit at a chunk of 512 slots, more than the CTA's
+    256 threads, so each thread computes two slots' cull boxes; at C = 16
+    the two staging buffers pass 48 KiB of shared memory."""
+    stream = make_deep_bwd_stream(C=C)
+    assert stream[1].max() > 256
+    check_fwd_kernels_bitwise(stream, cuda, 512)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [4, 7])
+def test_stream_fwd_kernel_bit_equal_off_16_byte_boundaries(cuda, C):
+    """K1 bit for bit where the tiles' runs start off a 16-byte boundary:
+    the stream's rows begin 4 (6 + C + 1) bytes into a buffer, as a view,
+    so every run starts wherever its tstart puts it."""
+    rows, counts, tstart, toff = make_deep_bwd_stream(C=C)[:4]
+    P, F = rows.shape
+    flat = torch.as_tensor(np.concatenate([np.zeros(F + 1, np.float32), rows.ravel()]),
+                           device=cuda)
+    r = flat[F + 1:].view(P, F)
+    starts = {(r.data_ptr() + int(s) * F * 4) % 16 for s, n in zip(tstart, counts) if n}
+    assert len(starts) > 1 and starts != {0}
+    args = [r] + [torch.as_tensor(x, device=cuda) for x in (counts, tstart, toff)]
+    acc, t_final = blend_stream_fwd(*args, GRID_X, CHUNK)
+    torch.cuda.synchronize()
+    acc_p, t_p = blend_stream_fwd_plain(*args, GRID_X, CHUNK)
+    assert torch.equal(acc, acc_p) and torch.equal(t_final, t_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk,aligned", [(10, True), (CHUNK, False)])
+def test_dense_fwd_kernel_bit_equal_off_the_bulk_copy(cuda, chunk, aligned):
+    """K5 bit for bit where its chunks cannot arrive by bulk copy, both with
+    a tile_offset: a chunk that is not a multiple of 4, and a block 4 bytes
+    off a 16-byte boundary. The kernel stages them element-wise itself; the
+    wrapper launches it all the same."""
+    gdata, counts, _ = make_dense(C=7, tile_offset=4)
+    T, Kd, F = gdata.shape
+    flat = torch.as_tensor(np.concatenate([np.zeros(1, np.float32), gdata.ravel()]),
+                           device=cuda)
+    g = flat[1:].clone().view(T, Kd, F) if aligned else flat[1:].view(T, Kd, F)
+    assert (g.data_ptr() % 16 == 0) == aligned
+    c = torch.as_tensor(counts, device=cuda)
+    before = blend_tiles_fwd.launches
+    acc, t_final = blend_tiles_fwd(g, c, GRID_X, chunk, 4)
+    torch.cuda.synchronize()
+    assert blend_tiles_fwd.launches == before + 1
+    acc_p, t_p = blend_tiles_fwd_plain(g, c, GRID_X, chunk, 4)
+    assert torch.equal(acc, acc_p) and torch.equal(t_final, t_p)
 
 
 def check_bwd_kernels_bitwise(stream, dev, chunk=CHUNK):
@@ -357,8 +451,7 @@ def test_dense_kernels_match_plain(cuda, C, tile_offset):
     acc, t_final = blend_tiles_fwd(g, c, GRID_X, CHUNK, tile_offset)
     torch.cuda.synchronize()
     acc_p, t_p = blend_tiles_fwd_plain(g, c, GRID_X, CHUNK, tile_offset)
-    torch.testing.assert_close(acc, acc_p, **TOL)
-    torch.testing.assert_close(t_final, t_p, **TOL)
+    assert torch.equal(acc, acc_p) and torch.equal(t_final, t_p)  # bit for bit
     rng = np.random.default_rng(3)
     g_acc = torch.as_tensor(rng.normal(0, 0.1, acc.shape).astype(np.float32), device=cuda)
     g_t = torch.as_tensor(rng.normal(0, 0.1, t_final.shape).astype(np.float32), device=cuda)
