@@ -1,6 +1,10 @@
 """Drive the PyTorch port (opengaussian_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+--parent DIR: another checkout of this repository (the parent commit), whose
+K2, K4 and K6 are built from its own csrc/ and timed beside this tree's, in
+turns, on the same inputs of the render and training frames.
 
 Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -13,11 +17,14 @@ Phases, in order; any failure exits non-zero:
      compact backward K4 (both bit for bit) and the per-splat reduce K3 on
      the C = 4 stream, with the cotangents of an L1 + SSIM loss against the
      view's image, K4 again on the same stream made of flat opaque splats
-     (every tile stops after one chunk), and K4 + K3 against K2 + K3 per
-     splat. The dense layout's forward K5 and its backward K6 (both bit for
-     bit) and K3 over its rows on the same frame's C = 7 dense block, with
-     the cotangents of the stage-1 loss (separation + cohesion on the view's
-     SAM masks). A partition render of one root's 5 leaves against the same
+     (every tile stops after one chunk), K4 + K3 against K2 + K3 per splat,
+     and K4 + K3 under torch.cuda.set_sync_debug_mode("error") (no host
+     sync). The dense layout's forward K5 and its backward K6 (both bit for
+     bit; K6 also on the block made of flat opaque splats, and its rows
+     against K2's on the frame's C = 7 stream) and K3 over K6's rows on the
+     same frame's C = 7 dense block, with the cotangents of the stage-1 loss
+     (separation + cohesion on the view's SAM masks); the sizes K6 writes
+     and K3 reads and what the two allocate. A partition render of one root's 5 leaves against the same
      leaves rendered one by one. Then the rasterizer on the card against the
      naive oracle on the CPU, and at 160x120 one stage-0 step, one stage-1
      and one stage-2.1 step in each input layout, one stage-2.2 step in the
@@ -47,11 +54,12 @@ Phases, in order; any failure exits non-zero:
   6. timings (CUDA events after warm-up), each line with the card's name:
      each kernel against its plain version and its bound, K3's call and
      device time in turns with its index_add_ yardstick, K2 + K3 against
-     K4 + K3, K1 and K2 on the training frame (the stage-1 step's feature
-     pass from the trained state, each held bit for bit against its plain
-     version, with its bound) and their deepest tile alone, the dense
-     block's zero fill, the
-     render, the stage-0 step and its phases, the stage-1 and stage-2.1
+     K4 + K3 on the C = 4 frame and K2 + K3, K4 + K3 and K6 + K3 on the
+     C = 7 frame, in turns, K1, K2, K4 and K6 on the training frame (the
+     stage-1 step's feature pass from the trained state, each held bit for
+     bit against its plain version, with its bound) and their deepest tile
+     alone, with --parent K2, K4 and K6 beside the parent's on both frames,
+     the render, the stage-0 step and its phases, the stage-1 and stage-2.1
      steps in both layouts, the stage-2.2 step of each training run, sweeps
      1 and 2 and stage 3 per view, the root and leaf k-means, and
      torch.profiler's device time by kernel over one render of each view and
@@ -416,8 +424,9 @@ def fitted_max_per_tile(deepest: int, chunk: int) -> int:
 def frame_dense(camera, state, max_per_tile: int):
     """The feature pass's dense block of one view, built by the render path's
     own _prepare (pallas_input="dense") and gather_rows: C = 7 (6-D
-    features + depth). -> (gdata [T, K, 13], counts, gauss_idx, grid_x,
-    n_truncated)."""
+    features + depth). -> (gdata [T, K, 13], counts, tile_start,
+    sorted_gauss, grid_x, n_truncated): tile_start and sorted_gauss are the
+    stream the block was gathered from, K6's row positions and K3's ids."""
     from opengaussian_tpu_torch.ops.projection import build_cov3d
     from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, _prepare, gather_rows
     from opengaussian_tpu_torch.render import encoded_ins_feat
@@ -429,7 +438,8 @@ def frame_dense(camera, state, max_per_tile: int):
     opac = torch.where(proj.valid, state.opacity, 0.0)
     payload = torch.cat([encoded_ins_feat(state, origin_feat=True), proj.depth[:, None]], -1)
     gdata = gather_rows(proj.mean2d, proj.conic, opac, payload, bins.gauss_idx)
-    return gdata, bins.counts, bins.gauss_idx, gx, int(bins.n_truncated)
+    return (gdata, bins.counts, bins.tile_start, bins.sorted_gauss, gx,
+            int(bins.n_truncated))
 
 
 def stage1_cotangents(camera, grids, accum, t_final, sam_ids, max_masks: int,
@@ -454,17 +464,22 @@ def stage1_cotangents(camera, grids, accum, t_final, sam_ids, max_masks: int,
     return g_accum.contiguous(), g_t.contiguous()
 
 
-def check_dense_kernels(block, camera, grids, sam_ids, max_masks: int, chunk: int,
-                        n: int) -> dict:
+def check_dense_kernels(block, stream, camera, grids, sam_ids, max_masks: int,
+                        chunk: int, n: int) -> dict:
     """blend_tiles_fwd (K5), blend_tiles_bwd (K6) and segment_reduce (K3)
-    over the block's rows against their plain versions on the card, with
-    stage-1 cotangents. -> {"k5_err", "k6_err", "k3_err", "work_fwd",
-    "work_bwd", "cot", "ids"}."""
+    over K6's rows against their plain versions on the card, with stage-1
+    cotangents; K6's rows against K2's on the frame's C = 7 stream, from
+    which the block was gathered; K6 again on the block made of flat opaque
+    splats, whose tiles all stop after one chunk. Logs the sizes of K6's
+    output and K3's input, and the device memory K6 + K3 allocate, beside
+    the block's. -> {"k5_err", "k6_err", "k3_err", "work_fwd", "work_bwd",
+    "cot"}."""
     from opengaussian_tpu_torch.config import OptimizationConfig
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 
-    gdata, counts, gauss_idx, gx, _ = block
+    gdata, counts, tstart, sorted_gauss, gx, _ = block
     T, K, F = gdata.shape
+    P = sorted_gauss.shape[0]
     acc, t_final = rk.blend_tiles_fwd(gdata, counts, gx, chunk)
     torch.cuda.synchronize()
     acc_p, t_p, work_f = rk.blend_tiles_fwd_plain(gdata, counts, gx, chunk, count_work=True)
@@ -473,30 +488,59 @@ def check_dense_kernels(block, camera, grids, sam_ids, max_masks: int, chunk: in
              for nm, x, y in (("accum", acc, acc_p), ("t_final", t_final, t_p)))
     cot = stage1_cotangents(camera, grids, acc_p, t_p, sam_ids, max_masks,
                             OptimizationConfig().loss_weight)
-    args = (gdata, counts, acc_p, t_p, *cot, gx, chunk)
+    args = (gdata, counts, tstart, P, acc_p, t_p, *cot, gx, chunk)
     d = rk.blend_tiles_bwd(*args)
     torch.cuda.synchronize()
     d_p, work_b = rk.blend_tiles_bwd_plain(*args, count_work=True)
     log("work K6: " + ", ".join(f"{k} {v}" for k, v in work_b.items()))
-    rows, rows_p = d.view(T * K, F), d_p.view(T * K, F)
-    k6 = compare(f"blend_tiles_bwd C={F - 6} d_slot", rows, rows_p, 0.0, 0.0)
-    if float(rows_p.abs().max()) == 0.0:
+    k6 = compare(f"blend_tiles_bwd C={F - 6} d_rows", d, d_p, 0.0, 0.0)
+    if float(d_p.abs().max()) == 0.0:
         raise AssertionError("K6: the stage-1 loss gave no gradient")
-    live = torch.arange(K, device=counts.device)[None, :] < counts[:, None]
-    ids = torch.where(live, gauss_idx, n).to(torch.int32).view(T * K)
-    per = rk.segment_reduce(rows_p, ids, n)
+    rows, s_counts, s_tstart, toff = stream[:4]
+    if not (torch.equal(s_tstart, tstart) and torch.equal(s_counts, counts)):
+        raise AssertionError("the dense block was not gathered from the C=7 stream")
+    d2 = rk.blend_stream_bwd(rows, s_counts, s_tstart, toff, acc_p, t_p, *cot, gx, chunk)
     torch.cuda.synchronize()
-    per_p = rk.segment_reduce_plain(rows_p, ids, n)
-    k3 = compare("segment_reduce per-splat (dense rows)", per, per_p, grad_atol(per_p),
+    if not torch.equal(d, d2):
+        raise AssertionError("K6's rows differ from K2's on the stream of the same frame")
+    # flat splats (conic 0) of opacity 0.98: every tile stops after its
+    # first chunk, so the rows past it stay as the wrapper zeroed them
+    flat = gdata.clone()
+    flat[..., 2:5] = 0.0
+    flat[..., 5] = 0.98
+    acc_o, t_o = rk.blend_tiles_fwd(flat, counts, gx, chunk)
+    args_o = (flat, counts, tstart, P, acc_o, t_o, *cot, gx, chunk)
+    d_o = rk.blend_tiles_bwd(*args_o)
+    torch.cuda.synchronize()
+    k6 = max(k6, compare(f"blend_tiles_bwd C={F - 6} d_rows, flat opaque splats", d_o,
+                         rk.blend_tiles_bwd_plain(*args_o), 0.0, 0.0))
+    del flat, acc_o, t_o, d_o
+    # K3 over K6's rows; what the dense backward allocates
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    per = rk.segment_reduce(rk.blend_tiles_bwd(*args), sorted_gauss, n)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"K6 + K3, dense backward: K6 writes [{P}, {F}] rows ({P * F * 4 / 1e6:.1f} MB) "
+        f"for {int(counts.sum())} live slots and K3 reduces those {P} rows, where the "
+        f"block [T, K, F] = {list(gdata.shape)} holds {T * K} slots "
+        f"({gdata.numel() * 4 / 1e6:.1f} MB); K6 + K3 allocate at most {peak / 1e6:.1f} MB "
+        f"on the card; K6's rows equal K2's on the frame's stream")
+    if peak >= gdata.numel() * 4:
+        raise AssertionError(f"K6 + K3 allocated {peak} bytes, a block's worth")
+    per_p = rk.segment_reduce_plain(d_p, sorted_gauss, n)
+    k3 = compare("segment_reduce per-splat (K6's rows)", per, per_p, grad_atol(per_p),
                  GRAD_TOL["rtol"])
     return dict(k5_err=k5, k6_err=k6, k3_err=k3, work_fwd=work_f, work_bwd=work_b,
-                cot=cot, ids=ids)
+                cot=cot)
 
 
 def poison_allocator(rows: int, F: int, dev) -> None:
     """Leave NaN-filled blocks the size of K4's two outputs in PyTorch's
     caching allocator, which the wrapper's torch.empty then reuses: a row
     or an id the kernel fails to write shows as NaN or as a wrong id."""
+    torch.cuda.synchronize()
     blocks = [torch.full((rows, F), float("nan"), device=dev),
               torch.full((rows,), float("nan"), device=dev)]
     del blocks
@@ -504,21 +548,36 @@ def poison_allocator(rows: int, F: int, dev) -> None:
 
 def check_compact_kernel(stream, cot, chunk: int, n: int, d_rows_k2) -> dict:
     """blend_stream_bwd_compact (K4) against its plain version on the card,
-    bit for bit, on one frame's stream and loss cotangents, and on the same
-    stream with near-opaque splats, where the tiles stop early and K4 must
-    zero the live rows past the stop itself; then K4 + K3 against K2 + K3
-    per splat. -> {"k4_err", "k43_err", "d", "ids"}."""
+    bit for bit (the rows of the tiles' range, the ids of every row: n past
+    it), on one frame's stream and loss cotangents, and on the same stream
+    with near-opaque splats, where the tiles stop early and K4 must zero the
+    live rows past the stop itself; then K4 + K3 against K2 + K3 per splat.
+    K4 and K3 run under torch.cuda.set_sync_debug_mode("error"): a host
+    sync on their path fails the run. -> {"k4_err", "k43_err", "d", "ids",
+    "nc_rows"}."""
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 
     rows, counts, tstart, toff, gx, bins, _ = stream
     nc_rows = rk.compact_offsets(counts, chunk)[1] * chunk
+    R = rk.compact_rows(rows.shape[0], counts.shape[0], chunk)
     args = (rows, counts, tstart, toff, bins.sorted_gauss, *cot, gx, chunk, n)
-    poison_allocator(nc_rows, rows.shape[1], rows.device)
-    d, ids = rk.blend_stream_bwd_compact(*args)
+    poison_allocator(R, rows.shape[1], rows.device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d, ids = rk.blend_stream_bwd_compact(*args)
+        per4 = rk.segment_reduce(d, ids, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    log(f"K4 + K3 ran under torch.cuda.set_sync_debug_mode('error'): no host sync; "
+        f"{R} rows sized from P = {rows.shape[0]} and T = {counts.shape[0]}, of which "
+        f"the tiles' {nc_rows // chunk} chunks fill {nc_rows}")
     d_p, ids_p = rk.blend_stream_bwd_compact_plain(*args)
-    k4 = compare("blend_stream_bwd_compact C=4 d_rows", d, d_p, 0.0, 0.0)
-    if not torch.equal(ids, ids_p):
+    if d.shape != d_p.shape or d.shape[0] != R:
+        raise AssertionError(f"K4: {tuple(d.shape)} rows, plain {tuple(d_p.shape)}, want {R}")
+    k4 = compare("blend_stream_bwd_compact C=4 d_rows", d[:nc_rows], d_p[:nc_rows], 0.0,
+                 0.0)
+    if not torch.equal(ids, ids_p) or not bool((ids[nc_rows:] == n).all()):
         raise AssertionError("K4: the ids differ from the plain version's")
     # flat splats (conic 0) of opacity 0.98 cover every pixel of their tile
     # at alpha 0.98, so every pixel stops at its third slot and every tile's
@@ -529,12 +588,12 @@ def check_compact_kernel(stream, cot, chunk: int, n: int, d_rows_k2) -> dict:
     acc_o, t_o = rk.blend_stream_fwd(flat, counts, tstart, toff, gx, chunk)
     args_o = (flat, counts, tstart, toff, bins.sorted_gauss, acc_o, t_o, *cot[2:], gx,
               chunk, n)
-    poison_allocator(nc_rows, rows.shape[1], rows.device)
+    poison_allocator(R, rows.shape[1], rows.device)
     d_o, ids_o = rk.blend_stream_bwd_compact(*args_o)
     torch.cuda.synchronize()
     d_op, ids_op = rk.blend_stream_bwd_compact_plain(*args_o)
-    k4 = max(k4, compare("blend_stream_bwd_compact C=4 d_rows, flat opaque splats", d_o,
-                         d_op, 0.0, 0.0))
+    k4 = max(k4, compare("blend_stream_bwd_compact C=4 d_rows, flat opaque splats",
+                         d_o[:nc_rows], d_op[:nc_rows], 0.0, 0.0))
     if not torch.equal(ids_o, ids_op):
         raise AssertionError("K4, flat opaque splats: the ids differ from the plain "
                              "version's")
@@ -543,14 +602,13 @@ def check_compact_kernel(stream, cot, chunk: int, n: int, d_rows_k2) -> dict:
         f"{int(counts.sum())} live rows past the stop, zero-written by K4")
     if past == 0:
         raise AssertionError("K4: no tile of the frame is deeper than one chunk")
-    per4 = rk.segment_reduce(d, ids, n)
     per2 = rk.segment_reduce(d_rows_k2, bins.sorted_gauss, n)
     torch.cuda.synchronize()
     k43 = compare("K4 + K3 against K2 + K3 per splat", per4, per2, grad_atol(per2),
                   GRAD_TOL["rtol"])
     log(f"K4: {d.shape[0]} compacted rows for {int(counts.sum())} live slots, "
-        f"{int((ids == n).sum())} tail rows with id n")
-    return dict(k4_err=k4, k43_err=k43, d=d, ids=ids)
+        f"{int((ids == n).sum())} rows with id n ({R - nc_rows} past the tiles' range)")
+    return dict(k4_err=k4, k43_err=k43, d=d, ids=ids, nc_rows=nc_rows)
 
 
 def check_partition_against_scan(camera, state, dev) -> float:
@@ -849,16 +907,22 @@ def device_ms(fn, n: int, *names: str) -> float:
     """Device time per call of the kernels whose names hold one of `names`,
     by torch.profiler over n calls: the kernels alone, without the host work
     of their wrapper. Each name's time is its mean over the launches the
-    profiler recorded (it can miss one of a window), times its launches per
-    call. With no names, every device event of the window, per call."""
+    profiler recorded (it can miss one of a window, and now and then a
+    whole window, which is then profiled again, up to 3 times), times its
+    launches per call. With no names, every device event of the window, per
+    call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if all(any(name in e.name for e in events) for name in names):
+            break
+        log(f"profile: a window of {n} calls recorded none of {names}; profiling again")
     if not names:
         return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / n
     total = 0.0
@@ -1241,15 +1305,71 @@ def time_on_frame(name: str, kernel: str, full, alone, bound: float, by: str,
     return out
 
 
-def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes) -> dict:
-    """K1 and K2 on the training frame: the feature pass (C = 7) of view 0
-    of the profiled stage-1 step, from the trained state at the trainer's
-    fitted max_per_tile, K2 with the stage-1 loss's cotangents. Holds each
-    against its plain version bit for bit, counts the frame's pairs, and
-    times each (call and device time) beside its bound and the deepest tile
-    alone (every other tile's count set to 0), which sets the launch's least
-    time. -> {"k1": {"err", "ms", "dev", "deep_ms", "deep_dev", "bound",
-    "by"}, "k2": the same}."""
+def time_against_parent(prk, cases: dict, card: str) -> dict:
+    """Each case's kernel beside the parent tree's, in turns (this tree's,
+    the parent's, the parent's, this tree's): the call by CUDA events over 20
+    launches, the kernel by torch.profiler's device time over 10. prk: the
+    parent tree's rasterize_kernels module; cases: {label: (kernel name,
+    this tree's call, the parent's call)}. -> {label: {"ms", "parent_ms",
+    "dev", "parent_dev"}}."""
+    out = {}
+    for label, (kname, new, old) in cases.items():
+        calls = [cuda_ms(f, iters=20, warmup=3) for f in (new, old, old, new)]
+        devs = [device_ms(f, 10, kname) for f in (new, old, old, new)]
+        r = dict(ms=(calls[0] + calls[3]) / 2, parent_ms=(calls[1] + calls[2]) / 2,
+                 dev=(devs[0] + devs[3]) / 2, parent_dev=(devs[1] + devs[2]) / 2)
+        log(f"timing: {label}, this tree against the parent tree's kernel in turns "
+            f"(this, parent, parent, this): call " + ", ".join(f"{x:.4f}" for x in calls)
+            + " ms; kernel " + ", ".join(f"{x:.4f}" for x in devs) + f" ms; this tree's "
+            f"kernel at {r['dev'] / r['parent_dev']:.3f} of the parent's, its call at "
+            f"{r['ms'] / r['parent_ms']:.3f} [{card}]")
+        out[label] = r
+    return out
+
+
+def load_parent_kernels(path: str):
+    """The rasterize_kernels module of another checkout of this repository
+    (the parent commit), with its own csrc/ and build, to time its kernels
+    beside this tree's on the same inputs. Its plain-torch imports resolve
+    to this tree's package, which the kernels do not read."""
+    import importlib.util
+
+    src = os.path.join(path, "opengaussian_tpu_torch", "ops", "rasterize_kernels.py")
+    spec = importlib.util.spec_from_file_location("parent_rasterize_kernels", src)
+    prk = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prk)
+    t0 = time.perf_counter()
+    _, build_log = prk.build()
+    log(f"parent tree: {path}: built its kernels in {time.perf_counter() - t0:.3f} s")
+    for line in build_log.splitlines():
+        if line.startswith("==") or "registers" in line or "spill" in line:
+            log(f"parent tree: {path}: build: {line.strip()}")
+    return prk
+
+
+def parent_k6(prk, gdata, counts, tstart, n_rows: int, *rest):
+    """A call of another tree's K6 on these inputs: the parent's takes no
+    stream positions and returns the whole [T, K, F] block."""
+    import inspect
+
+    if "tstart" in inspect.signature(prk.blend_tiles_bwd).parameters:
+        return lambda: prk.blend_tiles_bwd(gdata, counts, tstart, n_rows, *rest)
+    return lambda: prk.blend_tiles_bwd(gdata, counts, *rest)
+
+
+def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes,
+                     prks: dict | None = None) -> dict:
+    """K1, K2, K4 and K6 on the training frame: the feature pass (C = 7) of
+    view 0 of the profiled stage-1 step, from the trained state at the
+    trainer's fitted max_per_tile, the backwards with the stage-1 loss's
+    cotangents, K6 on the same frame's dense block. Holds each against its
+    plain version bit for bit (K4 on the tiles' range, its ids everywhere)
+    and K6's rows against K2's, counts the frame's pairs, and times each
+    (call and device time) beside its bound and the deepest tile alone
+    (every other tile's count set to 0), which sets the launch's least
+    time. With prks ({path: another tree's kernels}, the parent's), also
+    K2, K4 and K6 in turns with each. -> {"k1": {"err", "ms", "dev",
+    "deep_ms", "deep_dev", "bound", "by"}, "k2", "k4", "k6": the same}."""
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 
     cam = tr.bundle.camera(0)
@@ -1289,6 +1409,40 @@ def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes) -> dict:
         "work K1 " + ", ".join(f"{k} {v}" for k, v in work_f.items())
         + "; work K2 " + ", ".join(f"{k} {v}" for k, v in work.items())
         + "; the deepest tile alone gives its outputs in the frame bit for bit")
+    # K4 on the same stream and cotangents
+    n = tr.state.capacity
+    cargs = (rows, counts, tstart, toff, bins.sorted_gauss, acc, t_final, *cot, gx, chunk, n)
+    d4, ids4 = rk.blend_stream_bwd_compact(*cargs)
+    torch.cuda.synchronize()
+    d4_p, ids4_p = rk.blend_stream_bwd_compact_plain(*cargs)
+    nc_rows = rk.compact_offsets(counts, chunk)[1] * chunk
+    k4_err = compare("blend_stream_bwd_compact C=7 training frame d_rows", d4[:nc_rows],
+                     d4_p[:nc_rows], 0.0, 0.0)
+    if not torch.equal(ids4, ids4_p):
+        raise AssertionError("K4, training frame: the ids differ from the plain version's")
+    del d4, ids4, d4_p, ids4_p
+    # K6 on the frame's dense block, gathered from the same stream
+    with torch.no_grad():
+        gdata, dcounts, dstart, gauss, _, n_trunc = frame_dense(cam, tr.state,
+                                                               tr.rcfg.max_per_tile)
+        if n_trunc or not (torch.equal(dcounts, counts) and torch.equal(dstart, tstart)):
+            raise AssertionError("the training frame's dense block is not its stream's")
+        acc5, t5 = rk.blend_tiles_fwd(gdata, dcounts, gx, chunk)
+    if not (torch.equal(acc5, acc) and torch.equal(t5, t_final)):
+        raise AssertionError("K5 on the training frame's block differs from K1")
+    P = rows.shape[0]
+    bargs = (gdata, dcounts, dstart, P, acc, t_final, *cot, gx, chunk)
+    d6 = rk.blend_tiles_bwd(*bargs)
+    torch.cuda.synchronize()
+    k6_err = compare("blend_tiles_bwd C=7 training frame d_rows", d6,
+                     rk.blend_tiles_bwd_plain(*bargs), 0.0, 0.0)
+    if not torch.equal(d6, d):
+        raise AssertionError("K6, training frame: its rows differ from K2's")
+    del d6
+    log(f"K4 and K6, training frame: K4 bit for bit on its {nc_rows} rows of the tiles' "
+        f"range (of {rk.compact_rows(P, counts.shape[0], chunk)}); K6 on the block "
+        f"{list(gdata.shape)} ({gdata.numel() * 4 / 1e9:.3f} GB) bit for bit with its "
+        f"plain version and with K2's rows, [{P}, {rows.shape[1]}]")
     live, F, T = int(counts.sum()), rows.shape[1], counts.shape[0]
     out = {}
     with torch.no_grad():
@@ -1302,23 +1456,55 @@ def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes) -> dict:
     out["k2"] = dict(err=err, bound=bound, by=by, **time_on_frame(
         "blend_stream_bwd", "blend_stream_bwd_kernel", lambda: rk.blend_stream_bwd(*args),
         lambda: rk.blend_stream_bwd(rows, only, *args[2:]), bound, by, card))
+    R = rk.compact_rows(P, T, chunk)
+    bound, by = compact_bound(live, nc_rows, R, F, T, work, peak_flops, peak_bytes)
+    out["k4"] = dict(err=k4_err, bound=bound, by=by, **time_on_frame(
+        "blend_stream_bwd_compact", "blend_stream_bwd_compact_kernel",
+        lambda: rk.blend_stream_bwd_compact(*cargs),
+        lambda: rk.blend_stream_bwd_compact(rows, only, *cargs[2:]), bound, by, card))
+    bound, by = bwd_bound("blend_tiles_bwd C=7 training frame", live, F, T, 2, work,
+                          peak_flops, peak_bytes)
+    out["k6"] = dict(err=k6_err, bound=bound, by=by, **time_on_frame(
+        "blend_tiles_bwd", "blend_tiles_bwd_kernel", lambda: rk.blend_tiles_bwd(*bargs),
+        lambda: rk.blend_tiles_bwd(gdata, only, *bargs[2:]), bound, by, card))
+    for path, prk in (prks or {}).items():
+        log(f"parent tree {path}, training frame:")
+        time_against_parent(prk, {
+            "blend_stream_bwd C=7 training frame": (
+                "blend_stream_bwd_kernel", lambda: rk.blend_stream_bwd(*args),
+                lambda: prk.blend_stream_bwd(*args)),
+            "blend_stream_bwd_compact C=7 training frame": (
+                "blend_stream_bwd_compact_kernel", lambda: rk.blend_stream_bwd_compact(*cargs),
+                lambda: prk.blend_stream_bwd_compact(*cargs)),
+            "blend_tiles_bwd C=7 training frame": (
+                "blend_tiles_bwd_kernel", lambda: rk.blend_tiles_bwd(*bargs),
+                parent_k6(prk, *bargs))}, card)
     return out
 
 
-def compact_bound(live: int, nc_rows: int, F: int, T: int, work, peak_flops,
+def compact_bound(live: int, nc_rows: int, rows: int, F: int, T: int, work, peak_flops,
                   peak_bytes) -> tuple[float, str]:
-    """K4: the live rows and their splat ids read once, every owned row and
-    its id written once (NC * chunk of each), the [T] counts, tstart, toff
-    and cstart tables, accum/g_accum/t_final/g_t read once; the replay's
-    operations from its pair counts, as K2's."""
+    """K4: the live rows and their splat ids read once, the rows of the
+    tiles' range written once (nc_rows), every id of the output written once
+    (rows), the [T] counts, tstart, toff and cstart tables,
+    accum/g_accum/t_final/g_t read once; the replay's operations from its
+    pair counts, as K2's."""
     C = F - 6
-    moved = (live * (F + 1) * 4 + nc_rows * (F + 1) * 4 + 4 * T * 4
+    moved = (live * (F + 1) * 4 + nc_rows * F * 4 + rows * 4 + 4 * T * 4
              + 2 * T * 256 * (C + 1) * 4)
     ops = walk_ops(work) + work["blended"] * ops_grad(C) + T * 256 * (2 * C + 1)
     return bound_of("blend_stream_bwd_compact", moved, ops, peak_flops, peak_bytes)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR", action="append", default=[],
+                    help="another checkout of this repository (the parent commit): time "
+                         "its K2, K4 and K6 beside this tree's, in turns, on the same "
+                         "inputs; may be given more than once")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
@@ -1349,6 +1535,7 @@ def main() -> int:
         if (line.startswith("==") or "registers" in line or "spill" in line
                 or "entry function" in line):
             log(f"build: {line.strip()}")
+    prks = {path: load_parent_kernels(path) for path in opts.parent}
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         t0 = time.perf_counter()
@@ -1378,11 +1565,11 @@ def main() -> int:
             block = frame_dense(views[0].camera, state, k_dense)
         gdata = block[0]
         log(f"dense block: [T, K, F] = {list(gdata.shape)} ({gdata.numel() * 4 / 1e9:.3f} "
-            f"GB), {int(block[1].sum())} live rows, n_truncated {block[4]}")
-        if block[4] != 0:
+            f"GB), {int(block[1].sum())} live rows, n_truncated {block[5]}")
+        if block[5] != 0:
             raise AssertionError("the fitted max_per_tile truncated a tile")
-        dense = check_dense_kernels(block, cam0, grids, sam.sam_ids[0], sam.max_masks,
-                                    chunk, state.capacity)
+        dense = check_dense_kernels(block, streams[7], cam0, grids, sam.sam_ids[0],
+                                    sam.max_masks, chunk, state.capacity)
         check_against_oracle(dev)
         check_step_against_cpu(dev)
         check_feature_steps_against_cpu(dev)
@@ -1501,9 +1688,14 @@ def main() -> int:
             k4_cold = cuda_ms(lambda: (flush.zero_(), rk.blend_stream_bwd_compact(*cargs)),
                               iters=10) - f_ms
             k4_plain = cuda_ms(lambda: rk.blend_stream_bwd_compact_plain(*cargs), iters=2)
+            R4 = compact["d"].shape[0]
+            tail_fill = cuda_ms(lambda: torch.full((R4,), n, dtype=torch.int32, device=dev),
+                                iters=20, warmup=3)
             log(f"timing: blend_stream_bwd_compact C=4: kernel {k4_ms:.4f} ms/launch "
                 f"({k4_cold:.4f} with L2 flushed), plain {k4_plain:.3f} ms/launch, "
-                f"{compact['d'].shape[0]} compacted rows [{card}]")
+                f"{R4} compacted rows, {compact['nc_rows']} of them in the tiles' range "
+                f"(the kernel writes the other rows' ids; a torch.full of all {R4} ids "
+                f"would take {tail_fill:.4f} ms) [{card}]")
             k2f = lambda: rk.blend_stream_bwd(*bargs)  # noqa: E731
             k2_dev = device_ms(k2f, 10, "blend_stream_bwd_kernel")
             k4_dev = device_ms(lambda: rk.blend_stream_bwd_compact(*cargs), 10,
@@ -1511,13 +1703,13 @@ def main() -> int:
             log(f"timing: device time by torch.profiler, C=4 frame: K2 kernel {k2_dev:.4f} ms "
                 f"K4 kernel {k4_dev:.4f} ms per launch "
                 f"(the calls above add the wrappers' host work: K2's zero fill of d_rows, "
-                f"K4's chunk offsets with one host sync) [{card}]")
+                f"K4's chunk offsets on the card, no host sync) [{card}]")
             k2k3 = lambda: rk.segment_reduce(rk.blend_stream_bwd(*bargs), ids, n)  # noqa: E731
             k4k3 = lambda: rk.segment_reduce(*rk.blend_stream_bwd_compact(*cargs), n)  # noqa: E731
             pair = [cuda_ms(f, iters=20, warmup=3) for f in (k2k3, k4k3, k4k3, k2k3)]
             log(f"timing: backward + reduce, C=4 frame, in turns K2+K3, K4+K3, K4+K3, K2+K3: "
                 + ", ".join(f"{x:.4f}" for x in pair) + " ms (K2's wrapper zero-fills d_rows, "
-                f"K4's computes the chunk offsets with one host sync) [{card}]")
+                f"K4's computes the chunk offsets on the card) [{card}]")
             k3 = lambda: rk.segment_reduce(d_rows, ids, n)  # noqa: E731
             k3_plain = cuda_ms(lambda: rk.segment_reduce_plain(d_rows, ids, n), iters=5)
             ids64 = ids.to(torch.int64)
@@ -1546,8 +1738,9 @@ def main() -> int:
                 f"torch.profiler: K3 {k3_dev:.4f} ms (kernel {k3_kernel:.4f}, the rest its "
                 f"zero fill), library {lib_dev:.4f} ms; plain {k3_plain:.4f} ms [{card}]")
             # K5 and K6 on the dense block of phase 3
-            gdata, dcounts, gauss_idx, gx, _ = block
+            gdata, dcounts, dstart, dgauss, gx, _ = block
             T, K, F = gdata.shape
+            P7 = dgauss.shape[0]
             k5 = lambda: rk.blend_tiles_fwd(gdata, dcounts, gx, chunk)  # noqa: E731
             k5_ms = cuda_ms(k5, iters=20, warmup=3)
             k5_cold = cuda_ms(lambda: (flush.zero_(), k5()), iters=10) - f_ms
@@ -1559,27 +1752,46 @@ def main() -> int:
                 f"({k5_cold:.4f} with L2 flushed; device time {k5_dev:.4f}), plain "
                 f"{k5_plain:.3f} ms/launch, evaluated pairs {dense['work_fwd']['evaluated']}, "
                 f"in box {dense['work_fwd']['in_box']} [{card}]")
-            b6 = (gdata, dcounts, acc5, tf5, *dense["cot"], gx, chunk)
-            k6_ms = cuda_ms(lambda: rk.blend_tiles_bwd(*b6), iters=20, warmup=3)
-            k6_cold = cuda_ms(lambda: (flush.zero_(), rk.blend_tiles_bwd(*b6)),
-                              iters=10) - f_ms
+            b6 = (gdata, dcounts, dstart, P7, acc5, tf5, *dense["cot"], gx, chunk)
+            k6 = lambda: rk.blend_tiles_bwd(*b6)  # noqa: E731
+            k6_ms = cuda_ms(k6, iters=20, warmup=3)
+            k6_cold = cuda_ms(lambda: (flush.zero_(), k6()), iters=10) - f_ms
+            k6_dev = device_ms(k6, 10, "blend_tiles_bwd_kernel")
             k6_plain = cuda_ms(lambda: rk.blend_tiles_bwd_plain(*b6), iters=2)
-            fill_ms = cuda_ms(lambda: torch.zeros_like(gdata), iters=20, warmup=3)
+            fill_ms = cuda_ms(lambda: torch.zeros((P7, F), device=dev), iters=20, warmup=3)
             log(f"timing: blend_tiles_bwd C={F - 6}: kernel {k6_ms:.4f} ms/launch "
-                f"({k6_cold:.4f} with L2 flushed; the d_slot zero fill of "
-                f"{gdata.numel() * 4 / 1e9:.3f} GB before it takes {fill_ms:.4f} ms), "
-                f"plain {k6_plain:.3f} ms/launch, composited pairs "
+                f"({k6_cold:.4f} with L2 flushed; device time {k6_dev:.4f}; the zero fill "
+                f"of its [{P7}, {F}] output, {P7 * F * 4 / 1e6:.1f} MB, in the call takes "
+                f"{fill_ms:.4f} ms), plain {k6_plain:.3f} ms/launch, composited pairs "
                 f"{dense['work_bwd']['blended']} [{card}]")
-            full = torch.empty((T, tr.rcfg.max_per_tile, F), device=dev)
-            big_fill = cuda_ms(full.zero_, iters=10, warmup=2)
-            log(f"timing: the zero fill of a [T, K, F] = {list(full.shape)} block "
-                f"({full.numel() * 4 / 1e9:.3f} GB, the trained frame's feature pass at "
-                f"its fitted max_per_tile): {big_fill:.4f} ms [{card}]")
-            del full
-            rows6 = torch.zeros((T * K, F), device=dev)
-            k3d_ms = cuda_ms(lambda: rk.segment_reduce(rows6, dense["ids"], n), iters=10)
-            log(f"timing: segment_reduce over the dense block's {T * K} rows (dead ones "
-                f"dropped by id): {k3d_ms:.4f} ms [{card}]")
+            # the three backwards with their reduce on the C = 7 feature pass:
+            # K2 and K4 on its stream, K6 on the block gathered from it
+            rows7, counts7, tstart7, toff7, _, bins7, _ = streams[7]
+            b2 = (rows7, counts7, tstart7, toff7, acc5, tf5, *dense["cot"], gx, chunk)
+            b4 = (rows7, counts7, tstart7, toff7, dgauss, acc5, tf5, *dense["cot"], gx,
+                  chunk, n)
+            three = {"K2+K3": lambda: rk.segment_reduce(rk.blend_stream_bwd(*b2), dgauss, n),
+                     "K4+K3": lambda: rk.segment_reduce(*rk.blend_stream_bwd_compact(*b4), n),
+                     "K6+K3": lambda: rk.segment_reduce(k6(), dgauss, n)}
+            order = list(three) + list(three)[::-1]
+            bwd3 = [cuda_ms(three[k], iters=20, warmup=3) for k in order]
+            log(f"timing: backward + reduce, C={F - 6} frame (stage-1 cotangents), in turns "
+                + ", ".join(f"{k} {x:.4f}" for k, x in zip(order, bwd3)) + f" ms [{card}]")
+            cargs4 = (rows, counts, tstart, toff, ids, *cot, gx, chunk, n)
+            for path, prk in prks.items():
+                log(f"parent tree {path}, render frame:")
+                time_against_parent(prk, {
+                    "blend_stream_bwd C=4": ("blend_stream_bwd_kernel",
+                                             lambda: rk.blend_stream_bwd(*bargs),
+                                             lambda: prk.blend_stream_bwd(*bargs)),
+                    "blend_stream_bwd_compact C=4": (
+                        "blend_stream_bwd_compact_kernel",
+                        lambda: rk.blend_stream_bwd_compact(*cargs4),
+                        lambda: prk.blend_stream_bwd_compact(*cargs4)),
+                    f"blend_tiles_bwd C={F - 6}": (
+                        "blend_tiles_bwd_kernel", k6,
+                        parent_k6(prk, gdata, dcounts, dstart, P7, acc5, tf5, *dense["cot"],
+                                  gx, chunk))}, card)
             render_all = lambda: [render(v.camera, state, bg, 3, RasterizeConfig(),  # noqa: E731
                                          render_color=True, render_feat_map=True,
                                          origin_feat=True) for v in views]
@@ -1596,7 +1808,7 @@ def main() -> int:
                 f"both from that run) [{card}]")
         time_feature_stages(tr, card)
         time_step(tr, card)
-        train = time_train_frame(tr, chunk, card, peak_flops, peak_bytes)
+        train = time_train_frame(tr, chunk, card, peak_flops, peak_bytes, prks)
         k1_bound = {C: fwd_bound(f"blend_stream_fwd C={C}", int(counts.sum()), rows.shape[1],
                                  counts.shape[0], 3, work[C], peak_flops, peak_bytes)
                     for C, (rows, counts, *_r) in streams.items()}
@@ -1608,8 +1820,9 @@ def main() -> int:
                                 counts.shape[0], 3, grad["work"], peak_flops, peak_bytes)
         log(f"bound: blend_stream_bwd C=4: {k2_b:.4f} ms/launch ({k2_by}), kernel at "
             f"{k2_b / k2_ms:.3f} of it [{card}]")
-        k4_b, k4_by = compact_bound(int(counts.sum()), compact["d"].shape[0], rows.shape[1],
-                                    counts.shape[0], grad["work"], peak_flops, peak_bytes)
+        k4_b, k4_by = compact_bound(int(counts.sum()), compact["nc_rows"],
+                                    compact["d"].shape[0], rows.shape[1], counts.shape[0],
+                                    grad["work"], peak_flops, peak_bytes)
         log(f"bound: blend_stream_bwd_compact C=4: {k4_b:.4f} ms/launch ({k4_by}), kernel "
             f"(device time) at {k4_b / k4_dev:.3f} of it, the call at {k4_b / k4_ms:.3f} "
             f"[{card}]")
@@ -1622,10 +1835,11 @@ def main() -> int:
                                 dense["work_fwd"], peak_flops, peak_bytes)
         log(f"bound: blend_tiles_fwd C={F - 6}: {k5_b:.4f} ms/launch ({k5_by}), kernel at "
             f"{k5_b / k5_ms:.3f} of it [{card}]")
-        k6_b, k6_by = bwd_bound(f"blend_tiles_bwd C={F - 6}", live, F, T, 1,
+        k6_b, k6_by = bwd_bound(f"blend_tiles_bwd C={F - 6}", live, F, T, 2,
                                 dense["work_bwd"], peak_flops, peak_bytes)
-        log(f"bound: blend_tiles_bwd C={F - 6}: {k6_b:.4f} ms/launch ({k6_by}), kernel at "
-            f"{k6_b / k6_ms:.3f} of it [{card}]")
+        log(f"bound: blend_tiles_bwd C={F - 6}: {k6_b:.4f} ms/launch ({k6_by}), kernel "
+            f"(device time) at {k6_b / k6_dev:.3f} of it, the call at {k6_b / k6_ms:.3f} "
+            f"[{card}]")
 
     k1_b = [b for b, _ in k1_bound.values()]
 
@@ -1640,7 +1854,8 @@ def main() -> int:
     total = {k: sum(p[k] for p in main_paths) for k in render_launches}
     log(f"launches on the main paths: render {render_launches}, "
         + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()))
-    for k, kname, render_dev in (("k1", "K1", k1_dev), ("k2", "K2", {4: k2_dev})):
+    for k, kname, render_dev in (("k1", "K1", k1_dev), ("k2", "K2", {4: k2_dev}),
+                                 ("k4", "K4", {4: k4_dev}), ("k6", "K6", {7: k6_dev})):
         t = train[k]
         log(f"summary: {kname} on the training frame: kernel {t['dev']:.4f} ms against a "
             f"{t['bound']:.4f} ms bound ({t['by']}), the deepest tile alone "
@@ -1655,15 +1870,17 @@ def main() -> int:
         row("blend_stream_bwd", total["blend_stream_bwd"],
             max(grad["k2_err"], train["k2"]["err"]), k2_ms, k2_plain,
             k2_b, k2_by, line=670),
-        row("blend_stream_bwd_compact", total["blend_stream_bwd_compact"], compact["k4_err"],
-            k4_dev, k4_plain, k4_b, k4_by, line=841),
+        row("blend_stream_bwd_compact", total["blend_stream_bwd_compact"],
+            max(compact["k4_err"], train["k4"]["err"]), k4_dev, k4_plain, k4_b, k4_by,
+            line=841),
         row("segment_reduce", total["segment_reduce"],
             max(grad["k3_err"], dense["k3_err"], compact["k43_err"]),
             k3_dev, k3_plain, k3_b, k3_by, lib=lib_dev, line=1196),
         row("blend_tiles_fwd", total["blend_tiles_fwd"], dense["k5_err"], k5_ms, k5_plain,
             k5_b, k5_by, line=322),
-        row("blend_tiles_bwd", total["blend_tiles_bwd"], dense["k6_err"], k6_ms, k6_plain,
-            k6_b, k6_by, line=413),
+        row("blend_tiles_bwd", total["blend_tiles_bwd"],
+            max(dense["k6_err"], train["k6"]["err"]), k6_ms, k6_plain, k6_b, k6_by,
+            line=413),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -24,17 +24,25 @@
 // operations are the floor; on a sparse render frame both are close
 // (chip_smoke.py computes both from the frame's work counts; PERF.md has
 // the numbers).
-// What the design does about that bound:
-//   * one CTA per 16x16 tile, one thread per pixel, the run staged chunk by
-//     chunk into shared memory with a cull box per slot
-//     (blend_tile.cuh:slot_box): a warp whose 16x2 pixels all lie outside
-//     the box skips the slot, so the ~90% of pairs that fall below 1/255
-//     mostly cost one box test per warp, not an evaluation per pixel;
+// What the design does about that bound (blend_tile.cuh:blend_run_bwd):
+//   * one CTA per 16x16 tile, one thread per pixel, the run arriving chunk
+//     by chunk through two shared-memory buffers by 4-byte cp.async (a run
+//     starts at tstart[t] * (6 + C) floats, 16-byte aligned only by
+//     chance), chunk i + 1 in flight while chunk i is walked;
+//   * a warp cull: ballots on the staged slots' cull boxes
+//     (blend_tile.cuh:slot_box) give one bit per warp and slot, and a warp
+//     walks only its set bits, so the ~90% of pairs that fall below 1/255
+//     cost it nothing past the box test;
 //   * the sum over pixels is a reduce-scatter butterfly over a slot's
 //     6 + C fields (16 shuffles for up to 16 fields, where a shuffle tree per
-//     field takes 5 (6 + C)), then a fixed-order sum of the 8 warps' partials
-//     through shared memory: no atomics, and the sums are bit for bit those
-//     of the shuffle tree that the plain version models;
+//     field takes 5 (6 + C)), then a fixed-order sum through shared memory
+//     of the partials of the warps whose bit is set (a warp in which no
+//     pixel composites clears its bit and writes nothing): no atomics, and
+//     the sums are bit for bit those of the shuffle tree over all 256 pixels
+//     that the plain version models;
+//   * the payload terms a thread computes follow C (4, 8, 10 or 16 channels
+//     held), so the C = 4 color pass spends no issue slots on channels it
+//     does not have;
 //   * the CTA stops when every pixel has stopped, as the forward does.
 // A tile's run is not split across CTAs: on a trained scene's frame every
 // tile is deep and the launch is throughput-bound, and on the sparse frames
@@ -59,8 +67,8 @@ using og_blend::kPix;
 // rows: [P, n_fields] f32 = mean2d x/y, conic a/b/c, opacity, payload (C).
 // counts/tstart/toff: [T] int32. accum/g_accum: [T, C, 256];
 // t_final/g_t: [T, 256]. d_rows: [P, n_fields], zeroed by the caller.
-template <int NV>
-__global__ void __launch_bounds__(kPix, og_blend::bwd_min_blocks(NV))
+template <int KC>
+__global__ void __launch_bounds__(kPix, og_blend::bwd_min_blocks(KC))
 blend_stream_bwd_kernel(const float* __restrict__ rows, int n_fields,
                         const int* __restrict__ counts,
                         const int* __restrict__ tstart,
@@ -73,13 +81,14 @@ blend_stream_bwd_kernel(const float* __restrict__ rows, int n_fields,
   const long long t = blockIdx.x;
   const long long C = n_fields - 6;
   const long long start = tstart[t] * static_cast<long long>(n_fields);
-  og_blend::blend_run_bwd<NV>(rows + start, n_fields, counts[t], toff[t],
-                              grid_x, chunk, accum + t * C * kPix,
-                              t_final + t * kPix, g_accum + t * C * kPix,
-                              g_t + t * kPix, d_rows + start);
+  og_blend::blend_run_bwd<KC, false>(rows + start, n_fields, counts[t],
+                                     toff[t], grid_x, chunk,
+                                     accum + t * C * kPix, t_final + t * kPix,
+                                     g_accum + t * C * kPix, g_t + t * kPix,
+                                     d_rows + start);
 }
 
-template <int NV>
+template <int KC>
 cudaError_t launch(const float* rows, int n_fields, const int* counts,
                    const int* tstart, const int* toff, int n_tiles, int grid_x,
                    int chunk, const float* accum, const float* t_final,
@@ -88,11 +97,11 @@ cudaError_t launch(const float* rows, int n_fields, const int* counts,
   const size_t smem = og_blend::bwd_smem_bytes(chunk, n_fields);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        blend_stream_bwd_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        blend_stream_bwd_kernel<KC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  blend_stream_bwd_kernel<NV><<<n_tiles, kPix, smem, stream>>>(
+  blend_stream_bwd_kernel<KC><<<n_tiles, kPix, smem, stream>>>(
       rows, n_fields, counts, tstart, toff, grid_x, chunk, accum, t_final,
       g_accum, g_t, d_rows);
   return cudaSuccess;
@@ -110,12 +119,25 @@ int og_blend_stream_bwd(const float* rows, int n_fields, const int* counts,
                         const float* g_t, float* d_rows, void* stream) {
   if (n_tiles > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const cudaError_t err =
-        n_fields <= 16
-            ? launch<16>(rows, n_fields, counts, tstart, toff, n_tiles, grid_x,
-                         chunk, accum, t_final, g_accum, g_t, d_rows, s)
-            : launch<32>(rows, n_fields, counts, tstart, toff, n_tiles, grid_x,
+    cudaError_t err;
+    switch (og_blend::bwd_channels(n_fields - 6)) {
+      case 4:
+        err = launch<4>(rows, n_fields, counts, tstart, toff, n_tiles, grid_x,
+                        chunk, accum, t_final, g_accum, g_t, d_rows, s);
+        break;
+      case 8:
+        err = launch<8>(rows, n_fields, counts, tstart, toff, n_tiles, grid_x,
+                        chunk, accum, t_final, g_accum, g_t, d_rows, s);
+        break;
+      case 10:
+        err = launch<10>(rows, n_fields, counts, tstart, toff, n_tiles, grid_x,
                          chunk, accum, t_final, g_accum, g_t, d_rows, s);
+        break;
+      default:
+        err = launch<og_blend::kMaxC>(rows, n_fields, counts, tstart, toff,
+                                      n_tiles, grid_x, chunk, accum, t_final,
+                                      g_accum, g_t, d_rows, s);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

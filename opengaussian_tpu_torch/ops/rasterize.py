@@ -14,7 +14,8 @@ channel. The blend takes one of two input layouts, as in the JAX package
   * "dense": `DenseBlend`, the counterpart of the custom VJP
     `blend_tiles_pallas`. Its forward gathers a [T, K, 6 + C] block and
     launches `blend_tiles_fwd` (K5), its backward `blend_tiles_bwd` (K6,
-    d_slot [T, K, 6 + C]) and then `segment_reduce` over the block's rows.
+    the live rows at their stream positions, as K2 gives them) and then
+    `segment_reduce` over those rows with the stream's ids.
 All give the same images and gradients. On the CPU each kernel runs its
 plain PyTorch version.
 
@@ -193,33 +194,31 @@ class DenseBlend(torch.autograd.Function):
     package's custom VJP rasterize_pallas.py:blend_tiles_pallas).
 
     forward(mean2d [N,2], conic [N,3], opac [N], payload [N,C], gauss_idx
-    [T,K], counts [T], grid_x, chunk) -> (accum [T, C, 256], t_final
-    [T, 256]). The block gdata [T, K, 6+C] is gathered inside the forward,
-    where autograd records nothing, as in StreamBlend. The backward takes
-    d_slot [T, K, 6+C] from the K6 replay and sums its rows per splat with
-    K3; slots k >= counts[t] hold splat 0 in gauss_idx, so their ids are set
-    to n, which the reduce drops."""
+    [T,K], sorted_gauss [P], tile_start [T], counts [T], grid_x, chunk) ->
+    (accum [T, C, 256], t_final [T, 256]). The block gdata [T, K, 6+C] is
+    gathered inside the forward, where autograd records nothing, as in
+    StreamBlend. The backward takes the live rows from the K6 replay, at
+    the stream positions tile_start[t] + k the block was gathered from, and
+    sums them per splat with K3 by sorted_gauss: P rows, not T x K."""
 
     @staticmethod
-    def forward(ctx, mean2d, conic, opac, payload, gauss_idx, counts, grid_x: int,
-                chunk: int):
+    def forward(ctx, mean2d, conic, opac, payload, gauss_idx, sorted_gauss, tile_start,
+                counts, grid_x: int, chunk: int):
         gdata = gather_rows(mean2d, conic, opac, payload, gauss_idx)
         accum, t_final = blend_tiles_fwd(gdata, counts, grid_x, chunk)
-        ctx.save_for_backward(gdata, gauss_idx, counts, accum, t_final)
+        ctx.save_for_backward(gdata, sorted_gauss, tile_start, counts, accum, t_final)
         ctx.grid_x, ctx.chunk, ctx.n = grid_x, chunk, mean2d.shape[0]
         return accum, t_final
 
     @staticmethod
     def backward(ctx, g_accum, g_t):
-        gdata, gauss_idx, counts, accum, t_final = ctx.saved_tensors
-        d_slot = blend_tiles_bwd(gdata, counts, accum, t_final, g_accum.contiguous(),
-                                 g_t.contiguous(), ctx.grid_x, ctx.chunk)
-        T, K, F = gdata.shape
-        live = torch.arange(K, device=counts.device)[None, :] < counts[:, None]
-        ids = torch.where(live, gauss_idx, ctx.n).to(torch.int32)
-        per = segment_reduce(d_slot.view(T * K, F), ids.view(T * K), ctx.n)
+        gdata, sorted_gauss, tile_start, counts, accum, t_final = ctx.saved_tensors
+        d_rows = blend_tiles_bwd(gdata, counts, tile_start, sorted_gauss.shape[0], accum,
+                                 t_final, g_accum.contiguous(), g_t.contiguous(),
+                                 ctx.grid_x, ctx.chunk)
+        per = segment_reduce(d_rows, sorted_gauss, ctx.n)
         return (per[:, 0:2], per[:, 2:5], per[:, 5], per[:, N_GEOM:],
-                None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def _untile(x: torch.Tensor, grid_x: int, grid_y: int, H: int, W: int) -> torch.Tensor:
@@ -258,8 +257,8 @@ def _composite(camera: Camera, proj: Projected, bins: TileBins, grids,
     opac, full_payload = _blend_inputs(proj, opacities, payload)
     if config.pallas_input == "dense":
         accum, t_final = DenseBlend.apply(
-            proj.mean2d, proj.conic, opac, full_payload, bins.gauss_idx, bins.counts,
-            grid_x, config.chunk)
+            proj.mean2d, proj.conic, opac, full_payload, bins.gauss_idx,
+            bins.sorted_gauss, bins.tile_start, bins.counts, grid_x, config.chunk)
     else:
         toff = torch.arange(grid_x * grid_y, dtype=torch.int32,
                             device=bins.counts.device)

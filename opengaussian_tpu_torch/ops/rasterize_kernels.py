@@ -19,6 +19,8 @@
     block is a stream whose tile t starts at t * K, so the stream kernels and
     the dense ones share their walk (csrc/blend_tile.cuh), and the dense
     plain versions are the stream plain versions over that strided stream.
+    The dense backward writes its rows at the stream positions the block
+    was gathered from, so its output is the stream backward's.
 
 Each source notes the bound on the card and what its design does about it.
 Each wrapper dispatches on the device of its inputs: a CPU tensor runs the
@@ -64,12 +66,12 @@ _ENTRIES = {
     "og_blend_stream_bwd": ("blend_stream_bwd", [_p, _i, _p, _p, _p, _i, _i, _i,
                                                  _p, _p, _p, _p, _p, _p]),
     "og_blend_stream_bwd_compact": ("blend_stream_bwd_compact",
-                                    [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i,
+                                    [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
                                      _p, _p, _p, _p, _p, _p, _p]),
     "og_segment_reduce": ("segment_reduce", [_p, _p, _i, _i, _i, _p, _p]),
     "og_blend_tiles_fwd": ("blend_tiles_fwd", [_p, _i, _i, _i, _p, _i, _i, _i, _p, _p,
                                                _p]),
-    "og_blend_tiles_bwd": ("blend_tiles_bwd", [_p, _i, _i, _i, _p, _i, _i, _i,
+    "og_blend_tiles_bwd": ("blend_tiles_bwd", [_p, _i, _i, _i, _p, _p, _i, _i, _i,
                                                _p, _p, _p, _p, _p, _p]),
 }
 
@@ -299,11 +301,15 @@ def blend_stream_fwd_plain(rows, counts, tstart, toff, grid_x: int, chunk: int,
     return out
 
 
-def _check_fwd_smem(chunk: int, F: int) -> None:
-    """The forward walk's shared memory (blend_tile.cuh:fwd_smem_bytes): two
+def _staging_bytes(chunk: int, F: int) -> int:
+    """The walks' staging in shared memory (blend_tile.cuh:fwd_smem_bytes): two
     mbarriers, two chunks' cull masks (a bit per slot and warp) and two
     buffers of the chunk's rows."""
-    if 16 + 2 * (NPIX // WARP) * -(-chunk // 32) * 4 + 2 * chunk * F * 4 > 227 * 1024:
+    return 16 + 2 * (NPIX // WARP) * -(-chunk // 32) * 4 + 2 * chunk * F * 4
+
+
+def _check_fwd_smem(chunk: int, F: int) -> None:
+    if _staging_bytes(chunk, F) > 227 * 1024:
         raise ValueError(f"chunk {chunk} x {F} fields exceeds the shared memory "
                          "of a block")
 
@@ -358,9 +364,9 @@ def _check_bwd(n_fields: int, dev, counts, accum, t_final, g_accum, g_t) -> None
 
 
 def _check_bwd_smem(chunk: int, F: int) -> None:
-    """The backward walk's shared memory (blend_tile.cuh:bwd_smem_bytes): a
-    16-byte cull box per slot, the chunk's rows and the 8 warps' partials."""
-    if chunk * 16 + (1 + NPIX // WARP) * chunk * F * 4 > 227 * 1024:
+    """The backward walk's shared memory (blend_tile.cuh:bwd_smem_bytes): the
+    forward's staging and the 8 warps' partials of a chunk."""
+    if _staging_bytes(chunk, F) + (NPIX // WARP) * chunk * F * 4 > 227 * 1024:
         raise ValueError(f"chunk {chunk} x {F} fields exceeds the shared memory "
                          "of a block")
 
@@ -496,14 +502,27 @@ def blend_stream_bwd(rows, counts, tstart, toff, accum, t_final, g_accum, g_t,
 blend_stream_bwd.launches = 0
 
 
-def compact_offsets(counts, chunk: int) -> tuple[torch.Tensor, int]:
+def compact_starts(counts, chunk: int) -> torch.Tensor:
     """Each tile's first chunk in the compacted layout: cstart [T] int32, the
-    exclusive cumsum of ceil(counts / chunk), and NC, the number of chunks
-    (a host sync)."""
+    exclusive cumsum of ceil(counts / chunk), on the counts' device."""
+    nchunks = torch.div(counts + (chunk - 1), chunk, rounding_mode="floor")
+    return torch.cumsum(nchunks, 0, dtype=torch.int32).sub_(nchunks)
+
+
+def compact_rows(n_rows: int, n_tiles: int, chunk: int) -> int:
+    """The compacted layout's length from numbers the host knows: chunk *
+    max_chunks, max_chunks = (P + T (chunk - 1)) // chunk, which the tiles'
+    sum of ceil(counts / chunk) chunks cannot pass while the counts sum to
+    at most the stream's P rows (the JAX package's static max_chunks)."""
+    return (n_rows + n_tiles * (chunk - 1)) // chunk * chunk
+
+
+def compact_offsets(counts, chunk: int) -> tuple[torch.Tensor, int]:
+    """compact_starts and NC, the number of chunks the tiles own: their rows
+    are the first NC * chunk of the compacted layout. Reading NC is a host
+    sync; the kernel's path does not."""
     nchunks = (counts.to(torch.int64) + chunk - 1) // chunk
-    ends = torch.cumsum(nchunks, 0)
-    nc = int(ends[-1]) if counts.numel() else 0
-    return (ends - nchunks).to(torch.int32), nc
+    return compact_starts(counts, chunk), int(nchunks.sum())
 
 
 def _check_ids(sorted_gauss, rows, n: int) -> None:
@@ -522,20 +541,22 @@ def blend_stream_bwd_compact_plain(rows, counts, tstart, toff, sorted_gauss, acc
     """Plain PyTorch version of the compact backward kernel: the stream
     backward's plain version (K2's walk), its rows placed at the compacted
     offsets, the ids beside them and the tails of the last chunks written.
-    Arguments and outputs as for `blend_stream_bwd_compact`."""
+    Arguments and outputs as for `blend_stream_bwd_compact`; the rows past
+    the tiles' range, which the kernel leaves unwritten, are zero here."""
     _check_ids(sorted_gauss, rows, n)
     d = blend_stream_bwd_plain(rows, counts, tstart, toff, accum, t_final, g_accum,
                                g_t, grid_x, chunk)
-    cstart, nc = compact_offsets(counts, chunk)
+    cstart = compact_starts(counts, chunk)
     dev = rows.device
     cnt = counts.to(torch.int64)
     tile = torch.repeat_interleave(torch.arange(cnt.shape[0], device=dev), cnt)
     k = torch.arange(tile.shape[0], device=dev) - (torch.cumsum(cnt, 0) - cnt)[tile]
     src = tstart.to(torch.int64)[tile] + k
     dst = cstart.to(torch.int64)[tile] * chunk + k
-    d_rows = torch.zeros((nc * chunk, rows.shape[1]), dtype=torch.float32, device=dev)
+    R = compact_rows(rows.shape[0], counts.shape[0], chunk)
+    d_rows = torch.zeros((R, rows.shape[1]), dtype=torch.float32, device=dev)
     d_rows[dst] = d[src]
-    ids = torch.full((nc * chunk,), n, dtype=torch.int32, device=dev)
+    ids = torch.full((R,), n, dtype=torch.int32, device=dev)
     ids[dst] = sorted_gauss[src]
     return d_rows, ids
 
@@ -549,13 +570,15 @@ def blend_stream_bwd_compact(rows, counts, tstart, toff, sorted_gauss, accum, t_
     `blend_stream_fwd`); sorted_gauss [P] int32: the splat of every stream
     slot; accum, t_final: the forward's outputs; g_accum, g_t: their
     cotangents; n: the splat count. Tile t owns NC_t = ceil(counts[t] /
-    chunk) chunks of the output, from chunk cstart[t] on (`compact_offsets`).
-    -> (d_rows [NC * chunk, 6 + C] f32, ids [NC * chunk] int32), NC =
-    sum of NC_t: row k of tile t's range is the gradient row of its slot
-    tstart[t] + k (zero after the tile's pixels all stopped) with that
-    slot's splat as id; rows k >= counts[t] are zero with id n, which
-    `segment_reduce` drops. The per-splat sums equal those of
-    `blend_stream_bwd`'s rows by sorted_gauss.
+    chunk) chunks of the output, from chunk cstart[t] on (`compact_starts`).
+    -> (d_rows [R, 6 + C] f32, ids [R] int32), R = `compact_rows(P, T,
+    chunk)`, a bound known without reading the counts: row k of tile t's
+    range is the gradient row of its slot tstart[t] + k (zero after the
+    tile's pixels all stopped) with that slot's splat as id; rows k >=
+    counts[t] are zero with id n, which `segment_reduce` drops. The tiles'
+    ranges cover the first NC * chunk rows, NC = sum of NC_t; past them every
+    id is n and d_rows is left unwritten by the kernel. The per-splat sums
+    equal those of `blend_stream_bwd`'s rows by sorted_gauss. No host sync.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     `blend_stream_bwd_compact.launches` counts kernel launches."""
@@ -573,14 +596,17 @@ def blend_stream_bwd_compact(rows, counts, tstart, toff, sorted_gauss, accum, t_
     if F - N_GEOM > MAX_C:
         raise ValueError(f"the kernel takes at most {MAX_C} channels, got {F - N_GEOM}")
     _check_bwd_smem(chunk, F)
-    cstart, nc = compact_offsets(counts, chunk)
-    d_rows = torch.empty((nc * chunk, F), dtype=torch.float32, device=rows.device)
-    ids = torch.empty((nc * chunk,), dtype=torch.int32, device=rows.device)
+    R = compact_rows(rows.shape[0], T, chunk)
+    if R >= 2**31:
+        raise ValueError(f"{R} compacted rows exceed int32 offsets")
+    d_rows = torch.empty((R, F), dtype=torch.float32, device=rows.device)
     if T == 0:
-        return d_rows, ids
+        return d_rows, torch.full((R,), n, dtype=torch.int32, device=rows.device)
+    ids = torch.empty((R,), dtype=torch.int32, device=rows.device)
+    cstart = compact_starts(counts, chunk)
     _launch("og_blend_stream_bwd_compact", rows.device, rows.data_ptr(), F,
             counts.data_ptr(), tstart.data_ptr(), toff.data_ptr(), cstart.data_ptr(),
-            sorted_gauss.data_ptr(), T, grid_x, chunk, n, accum.data_ptr(),
+            sorted_gauss.data_ptr(), T, grid_x, chunk, n, R, accum.data_ptr(),
             t_final.data_ptr(), g_accum.data_ptr(), g_t.data_ptr(), d_rows.data_ptr(),
             ids.data_ptr())
     blend_stream_bwd_compact.launches += 1
@@ -720,51 +746,81 @@ def blend_tiles_fwd(gdata, counts, grid_x: int, chunk: int, tile_offset: int = 0
 blend_tiles_fwd.launches = 0
 
 
-def blend_tiles_bwd_plain(gdata, counts, accum, t_final, g_accum, g_t, grid_x: int,
-                          chunk: int, tile_offset: int = 0, count_work: bool = False):
+def _check_starts(tstart, counts, n_rows: int) -> None:
+    if tstart.dtype != torch.int32 or tstart.shape != counts.shape:
+        raise ValueError(f"tstart must be int32 [{counts.shape[0]}], got {tstart.dtype} "
+                         f"{tuple(tstart.shape)}")
+    if tstart.device != counts.device or not tstart.is_contiguous():
+        raise ValueError("tstart must be contiguous, on the counts' device")
+    if not 0 <= n_rows < 2**31:
+        raise ValueError(f"n_rows must be in [0, 2^31), got {n_rows}")
+
+
+def blend_tiles_bwd_plain(gdata, counts, tstart, n_rows: int, accum, t_final, g_accum,
+                          g_t, grid_x: int, chunk: int, tile_offset: int = 0,
+                          count_work: bool = False):
     """Plain PyTorch version of the dense backward kernel: the stream
-    backward's plain version over the strided stream. Arguments and output as
-    for `blend_tiles_bwd`; count_work as for `blend_stream_bwd_plain`."""
+    backward's plain version over the strided stream, its live rows then
+    placed at their stream positions. Arguments and output as for
+    `blend_tiles_bwd`; count_work as for `blend_stream_bwd_plain`."""
     _check_dense(gdata, counts, chunk)
+    _check_starts(tstart, counts, n_rows)
+    T, K, F = gdata.shape
     out = blend_stream_bwd_plain(*_strided(gdata, counts, tile_offset), accum, t_final,
                                  g_accum, g_t, grid_x, chunk, count_work)
-    if count_work:
-        return out[0].view(gdata.shape), out[1]
-    return out.view(gdata.shape)
+    d_slot = out[0] if count_work else out
+    dev = gdata.device
+    cnt = torch.clamp(counts, max=K).to(torch.int64)
+    tile = torch.repeat_interleave(torch.arange(T, device=dev), cnt)
+    k = torch.arange(tile.shape[0], device=dev) - (torch.cumsum(cnt, 0) - cnt)[tile]
+    d_rows = torch.zeros((n_rows, F), dtype=torch.float32, device=dev)
+    d_rows[tstart.to(torch.int64)[tile] + k] = d_slot[tile * K + k]
+    return (d_rows, out[1]) if count_work else d_rows
 
 
-def blend_tiles_bwd(gdata, counts, accum, t_final, g_accum, g_t, grid_x: int,
-                    chunk: int, tile_offset: int = 0):
-    """Per-slot gradient rows of the dense-block blend.
+def blend_tiles_bwd(gdata, counts, tstart, n_rows: int, accum, t_final, g_accum, g_t,
+                    grid_x: int, chunk: int, tile_offset: int = 0):
+    """Per-slot gradient rows of the dense-block blend, at the slots' stream
+    positions.
 
     gdata, counts, grid_x, chunk, tile_offset: the forward's inputs (see
-    `blend_tiles_fwd`); accum [T, C, 256], t_final [T, 256]: its outputs;
-    g_accum [T, C, 256], g_t [T, 256]: their cotangents. -> d_slot
-    [T, K, 6 + C] f32: slot k of tile t gets the loss gradient by its row's
-    fields (mean2d 2, conic 3, opacity 1, payload C) summed over the tile's
-    pixels; zero for k >= counts[t] and for slots the walk did not reach.
+    `blend_tiles_fwd`); tstart [T] int32: the position in the sorted slot
+    stream of each tile's first slot (`TileBins.tile_start`, from which the
+    dense layout gathered row t); n_rows: the stream's length P; accum
+    [T, C, 256], t_final [T, 256]: the forward's outputs; g_accum
+    [T, C, 256], g_t [T, 256]: their cotangents. -> d_rows [P, 6 + C] f32:
+    slot k < counts[t] of tile t gets, at row tstart[t] + k, the loss
+    gradient by its row's fields (mean2d 2, conic 3, opacity 1, payload C)
+    summed over the tile's pixels (`blend_stream_bwd`'s output for the
+    stream the block was gathered from); zero for rows no tile walks. The
+    runs tstart[t] + [0, counts[t]) must be disjoint and inside [0, P), as
+    the binned stream's are. Only the live rows are written: nothing of
+    T x K x (6 + C) size is allocated, and the per-splat reduce takes the
+    stream's ids.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     `blend_tiles_bwd.launches` counts kernel launches."""
     if gdata.device.type == "cpu":
-        return blend_tiles_bwd_plain(gdata, counts, accum, t_final, g_accum, g_t,
-                                     grid_x, chunk, tile_offset)
+        return blend_tiles_bwd_plain(gdata, counts, tstart, n_rows, accum, t_final,
+                                     g_accum, g_t, grid_x, chunk, tile_offset)
     if gdata.device.type != "cuda":
         raise ValueError(f"blend_tiles_bwd runs on cpu or cuda, not {gdata.device}")
     _check_dense(gdata, counts, chunk)
+    _check_starts(tstart, counts, n_rows)
     T, K, F = gdata.shape
     _check_bwd(F, gdata.device, counts, accum, t_final, g_accum, g_t)
     if F - N_GEOM > MAX_C:
         raise ValueError(f"the kernel takes at most {MAX_C} channels, got {F - N_GEOM}")
     _check_bwd_smem(chunk, F)
-    d_slot = torch.zeros_like(gdata)
+    d_rows = torch.zeros((n_rows, F), dtype=torch.float32, device=gdata.device)
     if T == 0:
-        return d_slot
+        return d_rows
     _launch("og_blend_tiles_bwd", gdata.device, gdata.data_ptr(), T, K, F,
-            counts.data_ptr(), tile_offset, grid_x, chunk, accum.data_ptr(),
-            t_final.data_ptr(), g_accum.data_ptr(), g_t.data_ptr(), d_slot.data_ptr())
+            counts.data_ptr(), tstart.data_ptr(), tile_offset, grid_x, chunk,
+            accum.data_ptr(), t_final.data_ptr(), g_accum.data_ptr(), g_t.data_ptr(),
+            d_rows.data_ptr())
     blend_tiles_bwd.launches += 1
-    return d_slot
+    return d_rows
 
 
 blend_tiles_bwd.launches = 0

@@ -34,6 +34,7 @@ from opengaussian_tpu_torch.ops.rasterize_kernels import (
     blend_stream_bwd_compact,
     blend_stream_bwd_compact_plain,
     compact_offsets,
+    compact_rows,
     segment_reduce,
 )
 from tests.test_rasterize import make_cam
@@ -61,17 +62,25 @@ def jax_compact(rows, counts, tstart, toff, acc, t_final, g_acc, g_t, nc):
 
 def test_plain_compact_matches_pallas():
     """Every live row's gradients; ids on the rows the JAX kernel walked;
-    zeros and id n on each last chunk's tail."""
+    zeros and id n on each last chunk's tail. The output's length is the
+    bound compact_rows(P, T, chunk), as the JAX kernel's max_chunks buffer,
+    and every row past the tiles' NC chunks has id n (and, in the plain
+    version, zeros)."""
     stream = make_bwd_stream()
     rows, counts = stream[:2]
     t = tuple(map(torch.as_tensor, stream))
     P = rows.shape[0]
     sorted_gauss = torch.arange(1, P + 1, dtype=torch.int32)  # slot + 1, as the JAX ids
     n = P + 1
-    d, ids = blend_stream_bwd_compact(*t[:4], sorted_gauss, *t[4:], GRID_X, CHUNK, n)
+    d_all, ids_all = blend_stream_bwd_compact(*t[:4], sorted_gauss, *t[4:], GRID_X, CHUNK,
+                                              n)
     cstart, nc = compact_offsets(t[1], CHUNK)
     assert nc == int(((counts + CHUNK - 1) // CHUNK).sum())
-    assert d.shape == (nc * CHUNK, rows.shape[1]) and ids.shape == (nc * CHUNK,)
+    R = (P + len(counts) * (CHUNK - 1)) // CHUNK * CHUNK
+    assert compact_rows(P, len(counts), CHUNK) == R > nc * CHUNK
+    assert d_all.shape == (R, rows.shape[1]) and ids_all.shape == (R,)
+    assert (ids_all[nc * CHUNK:] == n).all() and not d_all[nc * CHUNK:].any()
+    d, ids = d_all[:nc * CHUNK], ids_all[:nc * CHUNK]
     want, jids = jax_compact(*stream, nc)
     np.testing.assert_allclose(d.numpy(), want, atol=3e-5, rtol=1e-4)
     owned = -(-counts // CHUNK) * CHUNK
@@ -106,14 +115,18 @@ def test_compact_plus_reduce_equals_k2_plus_reduce():
 
 
 def test_plain_compact_handles_empty_and_all_zero_counts():
-    """Sweep 2 renders groups with no splats: all counts 0 give empty rows."""
+    """Sweep 2 renders groups with no splats: all counts 0 own no chunk, so
+    every row of the bounded output is zero with id n, which K3 drops."""
     stream = list(make_bwd_stream())
     stream[1] = np.zeros_like(stream[1])
     t = tuple(map(torch.as_tensor, stream))
-    d, ids = blend_stream_bwd_compact_plain(*t[:4], torch.zeros(stream[0].shape[0],
-                                                                dtype=torch.int32),
+    P, F = stream[0].shape
+    d, ids = blend_stream_bwd_compact_plain(*t[:4], torch.zeros(P, dtype=torch.int32),
                                             *t[4:], GRID_X, CHUNK, 5)
-    assert d.shape == (0, stream[0].shape[1]) and ids.shape == (0,)
+    R = compact_rows(P, len(stream[1]), CHUNK)
+    assert d.shape == (R, F) and ids.shape == (R,) and R > 0
+    assert not d.any() and (ids == 5).all()
+    assert not segment_reduce(d, ids, 5).any()
 
 
 def test_compact_wrapper_validates_inputs():

@@ -52,7 +52,7 @@ from opengaussian_tpu_torch.ops.rasterize_kernels import (
 )
 from tests.test_rasterize import make_cam, random_scene
 from tests.test_torch_binning import GX, GY, H, W, separated_scene
-from tests.test_torch_gpu import CHUNK, GRID_X, K, make_dense
+from tests.test_torch_gpu import CHUNK, GRID_X, K, dense_starts, make_dense
 from tests.test_torch_rasterize_grad import assert_normalised
 
 torch.set_num_threads(1)
@@ -81,7 +81,10 @@ def test_plain_dense_blend_matches_pallas(tile_offset):
 
 @pytest.mark.parametrize("tile_offset", [0, 4])
 def test_plain_dense_bwd_matches_pallas(tile_offset):
-    gdata, counts, _ = make_dense(C=7, tile_offset=tile_offset)
+    """K6's rows, at the stream positions of the block's slots, against the
+    JAX kernel's d_slot [T, K, F] at the live slots; every other row of the
+    stream zero, as the JAX kernel's dead slots are."""
+    gdata, counts, stream = make_dense(C=7, tile_offset=tile_offset)
     gdata[:, :5, 5] = 1.0  # alpha clamps at 0.99 near these splats' centers
     g, c = torch.as_tensor(gdata), torch.as_tensor(counts)
     acc, t_final = blend_tiles_fwd_plain(g, c, GRID_X, CHUNK, tile_offset)
@@ -90,13 +93,21 @@ def test_plain_dense_bwd_matches_pallas(tile_offset):
         jnp.asarray(gdata), jnp.asarray(counts), jnp.asarray(acc.numpy()),
         jnp.asarray(t_final.numpy()), jnp.asarray(g_acc), jnp.asarray(g_t), GRID_X,
         CHUNK, jnp.asarray([tile_offset], jnp.int32)))
-    got = blend_tiles_bwd(g, c, acc, t_final, torch.as_tensor(g_acc),
-                          torch.as_tensor(g_t), GRID_X, CHUNK, tile_offset).numpy()
-    assert got.shape == gdata.shape
+    tstart = dense_starts(stream, tile_offset)
+    P = stream[0].shape[0]
+    got = blend_tiles_bwd(g, c, torch.as_tensor(tstart), P, acc, t_final,
+                          torch.as_tensor(g_acc), torch.as_tensor(g_t), GRID_X, CHUNK,
+                          tile_offset).numpy()
+    assert got.shape == (P, gdata.shape[2])
+    live = np.arange(K)[None, :] < counts[:, None]
+    pos = tstart[:, None] + np.arange(K)[None, :]
     # sums over a tile's pixels in another order: within 1e-5 of the largest
-    assert_normalised(got, want, 1e-5, "d_slot")
-    dead = np.arange(K)[None, :] >= counts[:, None]
-    assert not got[dead].any()  # zeros past counts
+    assert_normalised(got[pos[live]], want[live], 1e-5, "d_slot")
+    assert not want[~live].any()  # the JAX kernel's zeros past counts
+    others = np.ones(P, bool)
+    others[pos[live]] = False
+    assert not got[others].any()  # the rows of tiles left out of the block
+    assert others.any() == (tile_offset > 0)
     assert np.abs(got).max() > 1.0
 
 
@@ -104,7 +115,7 @@ def test_dense_plain_equals_stream_plain():
     """A dense block is a stream whose tile t starts at t * K: K5's plain
     version equals K1's on that strided stream, and, as both layouts must,
     K1's on the compact stream the block was laid out from, bit for bit;
-    likewise K6 and K2."""
+    likewise K6 and K2, whose rows K6 writes at the same stream positions."""
     gdata, counts, (rows, s_counts, tstart, toff) = make_dense(seed=3, C=7)
     T = len(counts)
     g, c = torch.as_tensor(gdata), torch.as_tensor(counts)
@@ -119,14 +130,17 @@ def test_dense_plain_equals_stream_plain():
     assert torch.equal(acc[perm], acc_c) and torch.equal(t_final[perm], t_c)
 
     g_acc, g_t = map(torch.as_tensor, cotangents(acc.numpy(), t_final.numpy(), seed=7))
-    d_slot = blend_tiles_bwd_plain(g, c, acc, t_final, g_acc, g_t, GRID_X, CHUNK)
+    d_rows = blend_tiles_bwd_plain(g, c, torch.as_tensor(dense_starts((rows, s_counts,
+                                                                      tstart, toff))),
+                                   rows.shape[0], acc, t_final, g_acc, g_t, GRID_X, CHUNK)
     d_s = blend_stream_bwd_plain(*strided, acc, t_final, g_acc, g_t, GRID_X, CHUNK)
-    assert torch.equal(d_slot.view(T * K, -1), d_s)
     d_c = blend_stream_bwd_plain(*stream, acc_c, t_c, g_acc[perm], g_t[perm], GRID_X,
                                  CHUNK)
+    assert torch.equal(d_rows, d_c)
     for t in range(T):
         n, d = int(s_counts[t]), int(toff[t])
-        assert torch.equal(d_slot[d, :n], d_c[tstart[t]:tstart[t] + n])
+        assert torch.equal(d_s[d * K:d * K + n], d_c[tstart[t]:tstart[t] + n])
+    assert d_c.abs().max() > 0
 
 
 def test_dense_wrappers_validate_inputs():
@@ -139,8 +153,11 @@ def test_dense_wrappers_validate_inputs():
     with pytest.raises(ValueError, match="counts must be int32"):
         blend_tiles_fwd(g, c[:-1], GRID_X, CHUNK)
     acc, t_final = blend_tiles_fwd(g, c, GRID_X, CHUNK)
+    starts = torch.zeros_like(c)
     with pytest.raises(ValueError, match="g_t must be float32"):
-        blend_tiles_bwd(g, c, acc, t_final, acc, t_final[:, :8], GRID_X, CHUNK)
+        blend_tiles_bwd(g, c, starts, 10, acc, t_final, acc, t_final[:, :8], GRID_X, CHUNK)
+    with pytest.raises(ValueError, match="tstart must be int32"):
+        blend_tiles_bwd(g, c, starts.long(), 10, acc, t_final, acc, t_final, GRID_X, CHUNK)
 
 
 def test_entry_types_match_the_c_signatures():

@@ -9,7 +9,8 @@ test skips where torch.cuda.is_available() is false. The stream fixture
 `make_stream` is shared with tests/test_torch_blend.py, the backward ones
 (`make_bwd_stream`, `make_deep_bwd_stream`, `make_flat_bwd_stream`) with
 tests/test_torch_replay.py and tests/test_torch_fwd_walk.py, the dense one
-`make_dense` with tests/test_torch_dense.py and tests/test_torch_fwd_walk.py.
+`make_dense` (with `dense_starts`) with tests/test_torch_dense.py and
+tests/test_torch_fwd_walk.py.
 """
 
 import numpy as np
@@ -32,6 +33,7 @@ from opengaussian_tpu_torch.ops.rasterize_kernels import (
     blend_tiles_fwd,
     blend_tiles_fwd_plain,
     compact_offsets,
+    compact_rows,
     segment_reduce,
     segment_reduce_plain,
 )
@@ -132,6 +134,34 @@ def make_flat_bwd_stream(seed=0, C=4):
     return with_cotangents(rows, counts, tstart, toff, seed)
 
 
+def make_zero_sign_bwd_stream(seed=0, C=4):
+    """make_stream's stream with three slots put at the front of every
+    non-empty run, and the cotangent of payload channel 0 set to -0 at every
+    pixel, so that each pixel compositing a slot gives that field -0 and a
+    warp whose 32 pixels all composite it sums to -0: a band over tile rows
+    0-7 (warps 0-3 composite it, the rest of the warps do not), a wide splat
+    that every pixel composites (all 8 warps sum to -0), and a band over rows
+    10-15 (warps 5-7). -> as make_bwd_stream."""
+    rows, counts, tstart, toff = make_stream(seed, C)
+    runs, new_counts = [], counts.copy()
+    for t in range(len(counts)):
+        run = rows[tstart[t]:tstart[t] + counts[t]]
+        if counts[t]:
+            ox, oy = (toff[t] % GRID_X) * 16, (toff[t] // GRID_X) * 16
+            band, wide = [1e-4, 0.0, 0.5, 0.5], [1e-4, 0.0, 1e-4, 0.3]
+            pay = [0.5] * C
+            run = np.concatenate([np.float32([[ox + 7.5, oy + 3.5, *band, *pay],
+                                              [ox + 7.5, oy + 7.5, *wide, *pay],
+                                              [ox + 7.5, oy + 12.5, *band, *pay]]), run])
+            new_counts[t] += 3
+        runs.append(run)
+    rows = np.concatenate(runs).astype(np.float32)
+    tstart = (np.cumsum(new_counts) - new_counts).astype(np.int32)
+    out = with_cotangents(rows, new_counts, tstart, toff, seed)
+    out[6][:, 0, :] = -0.0
+    return out
+
+
 def make_dense(seed=0, C=4, tile_offset=0):
     """make_stream's tile runs laid out densely: row d of the block is the
     run of the stream tile whose pixels are those of image tile
@@ -151,6 +181,27 @@ def make_dense(seed=0, C=4, tile_offset=0):
         gdata[d, :counts[t]] = rows[tstart[t]:tstart[t] + counts[t]]
         dcounts[d] = counts[t]
     return gdata, dcounts, (rows, counts, tstart, toff)
+
+
+def dense_starts(stream, tile_offset=0):
+    """The stream positions of a dense block's tiles (make_dense's and
+    dense_of's layout): tile d of the block is the run of the stream tile
+    whose pixels are those of image tile d + tile_offset. -> tstart [T]
+    int32, T the tiles kept."""
+    tstart, toff = stream[2], stream[3]
+    keep = toff >= tile_offset
+    out = np.zeros(int(keep.sum()), np.int32)
+    out[toff[keep] - tile_offset] = tstart[keep]
+    return out
+
+
+def to_dense_tiles(x, toff, tile_offset=0):
+    """Per-tile rows of a stream (accum, t_final or their cotangents, [T, ...])
+    in the order of its dense block's tiles."""
+    keep = torch.nonzero(toff >= tile_offset).squeeze(1)
+    out = torch.zeros((keep.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    out[toff[keep].long() - tile_offset] = x[keep]
+    return out
 
 
 @pytest.fixture
@@ -183,17 +234,19 @@ def test_bwd_kernel_matches_plain(cuda, C):
     assert torch.equal(d, blend_stream_bwd_plain(*args, GRID_X, CHUNK))  # bit for bit
 
 
-def dense_of(stream, chunk=CHUNK):
-    """A stream's tile runs as a dense block: row toff[t] of the block is
-    the run of stream tile t, K the deepest run rounded up to chunk.
-    -> (gdata [T, K, F], counts [T])."""
+def dense_of(stream, chunk=CHUNK, tile_offset=0):
+    """A stream's tile runs as a dense block: row toff[t] - tile_offset of
+    the block is the run of stream tile t (for toff[t] >= tile_offset), K
+    the deepest run rounded up to chunk. -> (gdata [T, K, F], counts [T])."""
     rows, counts, tstart, toff = stream[:4]
     K = -(-int(counts.max()) // chunk) * chunk
-    gdata = np.zeros((len(counts), K, rows.shape[1]), np.float32)
-    dcounts = np.zeros(len(counts), np.int32)
-    for t in range(len(counts)):
-        gdata[toff[t], :counts[t]] = rows[tstart[t]:tstart[t] + counts[t]]
-        dcounts[toff[t]] = counts[t]
+    T = int((toff >= tile_offset).sum())
+    gdata = np.zeros((T, K, rows.shape[1]), np.float32)
+    dcounts = np.zeros(T, np.int32)
+    for t in np.flatnonzero(toff >= tile_offset):
+        d = toff[t] - tile_offset
+        gdata[d, :counts[t]] = rows[tstart[t]:tstart[t] + counts[t]]
+        dcounts[d] = counts[t]
     return gdata, dcounts
 
 
@@ -293,8 +346,10 @@ def test_dense_fwd_kernel_bit_equal_off_the_bulk_copy(cuda, chunk, aligned):
 
 
 def check_bwd_kernels_bitwise(stream, dev, chunk=CHUNK):
-    """K2, K4 and K6 on the stream (K6 on its dense block) against their
-    plain versions, bit for bit. -> K2's plain rows."""
+    """K2, K4 and K6 on the stream (K6 on its dense block, with the stream's
+    forward outputs and cotangents) against their plain versions, bit for
+    bit (K4 on the tiles' range, its ids everywhere), and K6's rows against
+    K2's. -> K2's plain rows."""
     args = [torch.as_tensor(x, device=dev) for x in stream]
     d = blend_stream_bwd(*args, GRID_X, chunk)
     torch.cuda.synchronize()
@@ -307,32 +362,37 @@ def check_bwd_kernels_bitwise(stream, dev, chunk=CHUNK):
     d4, ids = blend_stream_bwd_compact(*cargs)
     torch.cuda.synchronize()
     d4_p, ids_p = blend_stream_bwd_compact_plain(*cargs)
-    assert torch.equal(d4, d4_p) and torch.equal(ids, ids_p)
+    live = compact_offsets(args[1], chunk)[1] * chunk
+    assert torch.equal(d4[:live], d4_p[:live]) and torch.equal(ids, ids_p)
     gdata, dcounts = (torch.as_tensor(x, device=dev) for x in dense_of(stream, chunk))
-    acc, t_final = blend_tiles_fwd_plain(gdata, dcounts, GRID_X, chunk)
-    rng = np.random.default_rng(2)
-    cot = [torch.as_tensor(rng.normal(0, 0.1, x.shape).astype(np.float32), device=dev)
-           for x in (acc, t_final)]
-    bargs = (gdata, dcounts, acc, t_final, *cot, GRID_X, chunk)
+    bargs = (gdata, dcounts, torch.as_tensor(dense_starts(stream), device=dev),
+             stream[0].shape[0], *(to_dense_tiles(x, args[3]) for x in args[4:]),
+             GRID_X, chunk)
     d6 = blend_tiles_bwd(*bargs)
     torch.cuda.synchronize()
     assert torch.equal(d6, blend_tiles_bwd_plain(*bargs))
+    assert torch.equal(d6, d)  # the stream backward's rows, at the same places
     return d_p
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("make", [make_deep_bwd_stream, make_flat_bwd_stream])
-@pytest.mark.parametrize("C", [4, 7])
+@pytest.mark.parametrize("make", [make_deep_bwd_stream, make_flat_bwd_stream,
+                                  make_zero_sign_bwd_stream])
+@pytest.mark.parametrize("C", [1, 4, 7, 10, 16])
 def test_bwd_kernels_bit_equal_on_deep_and_opaque_runs(cuda, make, C):
-    """K2, K4 and K6 against their plain versions, bit for bit, on a run of
-    over ten chunks, most of whose pixels stay live to its end, and on flat
-    opaque splats, where every tile stops after its first chunk and the
-    rest of each run gets no row."""
+    """K2, K4 and K6 against their plain versions, bit for bit, at C = 1, 4,
+    7, 10 and 16 (each channel bucket of the walk), on a run of over ten chunks,
+    most of whose pixels stay live to its end, and on flat opaque splats,
+    where every tile stops after its first chunk while its second is in
+    flight and the rest of each run gets no row, and on runs where some
+    warps sum a slot's field to -0 while the others skip it."""
     stream = make(C=C)
     d_p = check_bwd_kernels_bitwise(stream, cuda)
     rows, counts, tstart = stream[:3]
     if make is make_deep_bwd_stream:  # the last chunk of the deep run has rows
         assert counts[2] > 10 * CHUNK and d_p[int(tstart[2]) + 10 * CHUNK:].abs().sum() > 0
+    elif make is make_zero_sign_bwd_stream:  # a field summed from -0 terms only
+        assert d_p.abs().sum() > 0 and not d_p[:, 6].any()
     else:  # rows past the first chunk of each tile stay zero
         assert d_p.abs().sum() > 0 and counts.max() > CHUNK
         for t in range(len(counts)):
@@ -344,7 +404,8 @@ def test_bwd_kernels_bit_equal_on_deep_and_opaque_runs(cuda, make, C):
 def test_bwd_kernels_bit_equal_wide_rows_and_long_chunks(cuda, C, chunk):
     """K2, K4 and K6 bit for bit on the deep run at 18 and 22 fields (the
     walk that holds 32 values per lane) and at a chunk of 512 slots, more
-    than the CTA's 256 threads, so each thread stages two slots' boxes."""
+    than the CTA's 256 threads, so each thread computes two slots' boxes
+    (K6's chunks by bulk copy)."""
     stream = make_deep_bwd_stream(C=C)
     assert stream[1].max() > 256
     d_p = check_bwd_kernels_bitwise(stream, cuda, chunk)
@@ -354,27 +415,37 @@ def test_bwd_kernels_bit_equal_wide_rows_and_long_chunks(cuda, C, chunk):
 @pytest.mark.gpu
 @pytest.mark.parametrize("C", [4, 7])
 def test_compact_bwd_kernel_matches_plain(cuda, C):
-    """K4 against its plain version (rows and ids), and K4 + K3 against
-    K2 + K3 per splat. The buffers come from torch.empty, and NaN-filled
-    blocks of their sizes wait in the caching allocator, so a row or an id
-    the kernel failed to write would show."""
+    """K4 against its plain version (rows on the tiles' range, ids
+    everywhere: n on every row past it), and K4 + K3 against K2 + K3 per
+    splat, with K4 and K3 under torch.cuda.set_sync_debug_mode("error"), so
+    a host sync on their path fails. The buffers come from torch.empty, and
+    NaN-filled blocks of their sizes wait in the caching allocator, so a row
+    or an id the kernel failed to write would show."""
     stream = make_bwd_stream(C=C)
     args = [torch.as_tensor(x, device=cuda) for x in stream]
     n = 57
-    gauss = torch.as_tensor(np.random.default_rng(0).integers(0, n, stream[0].shape[0]),
+    P = stream[0].shape[0]
+    gauss = torch.as_tensor(np.random.default_rng(0).integers(0, n, P),
                             dtype=torch.int32, device=cuda)
-    rows = compact_offsets(args[1], CHUNK)[1] * CHUNK
-    poison = [torch.full((rows, C + 6), float("nan"), device=cuda),
-              torch.full((rows,), float("nan"), device=cuda)]
+    R = compact_rows(P, len(stream[1]), CHUNK)
+    live = compact_offsets(args[1], CHUNK)[1] * CHUNK
+    assert R > live
+    poison = [torch.full((R, C + 6), float("nan"), device=cuda),
+              torch.full((R,), float("nan"), device=cuda)]
     del poison
     before = blend_stream_bwd_compact.launches
-    d, ids = blend_stream_bwd_compact(*args[:4], gauss, *args[4:], GRID_X, CHUNK, n)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d, ids = blend_stream_bwd_compact(*args[:4], gauss, *args[4:], GRID_X, CHUNK, n)
+        per = segment_reduce(d, ids, n)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert blend_stream_bwd_compact.launches == before + 1
+    assert d.shape == (R, C + 6) and ids.shape == (R,)
     d_p, ids_p = blend_stream_bwd_compact_plain(*args[:4], gauss, *args[4:], GRID_X, CHUNK, n)
-    assert torch.equal(d, d_p)  # bit for bit
-    assert torch.equal(ids, ids_p)
-    per = segment_reduce(d, ids, n)
+    assert torch.equal(d[:live], d_p[:live])  # bit for bit
+    assert torch.equal(ids, ids_p) and bool((ids[live:] == n).all())
     per2 = segment_reduce(blend_stream_bwd(*args, GRID_X, CHUNK), gauss, n)
     torch.testing.assert_close(per, per2, atol=1e-5 * float(per2.abs().max()), rtol=1e-4)
 
@@ -444,7 +515,7 @@ def test_rasterize_on_card_matches_oracle(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("C,tile_offset", [(4, 0), (7, 4)])
 def test_dense_kernels_match_plain(cuda, C, tile_offset):
-    gdata, counts, _ = make_dense(C=C, tile_offset=tile_offset)
+    gdata, counts, stream = make_dense(C=C, tile_offset=tile_offset)
     gdata[:, :5, 5] = 1.0  # alpha clamps at 0.99 near these splats' centers
     g, c = torch.as_tensor(gdata, device=cuda), torch.as_tensor(counts, device=cuda)
     before = (blend_tiles_fwd.launches, blend_tiles_bwd.launches)
@@ -455,14 +526,50 @@ def test_dense_kernels_match_plain(cuda, C, tile_offset):
     rng = np.random.default_rng(3)
     g_acc = torch.as_tensor(rng.normal(0, 0.1, acc.shape).astype(np.float32), device=cuda)
     g_t = torch.as_tensor(rng.normal(0, 0.1, t_final.shape).astype(np.float32), device=cuda)
-    args = (g, c, acc_p, t_p, g_acc, g_t, GRID_X, CHUNK, tile_offset)
+    rows, s_counts, tstart, toff = stream
+    args = (g, c, torch.as_tensor(dense_starts(stream, tile_offset), device=cuda),
+            rows.shape[0], acc_p, t_p, g_acc, g_t, GRID_X, CHUNK, tile_offset)
     d = blend_tiles_bwd(*args)
     torch.cuda.synchronize()
     assert (blend_tiles_fwd.launches, blend_tiles_bwd.launches) == (before[0] + 1,
                                                                     before[1] + 1)
+    assert d.shape == rows.shape
     assert torch.equal(d, blend_tiles_bwd_plain(*args))  # bit for bit
-    dead = torch.arange(K, device=cuda)[None, :] >= c[:, None]
-    assert not d[dead].any()
+    # only the live rows of the block's tiles are written, at their stream places
+    live = np.zeros(rows.shape[0], bool)
+    for t in np.flatnonzero(toff >= tile_offset):
+        live[tstart[t]:tstart[t] + s_counts[t]] = True
+    assert not d[torch.as_tensor(~live, device=cuda)].any() and d.abs().max() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk,aligned", [(10, True), (CHUNK, False), (512, True)])
+def test_dense_bwd_kernel_bit_equal_on_and_off_the_bulk_copy(cuda, chunk, aligned):
+    """K6 bit for bit, with a tile_offset, on the deep run's dense block: at a
+    chunk of 10 (not a multiple of 4) and on a block 4 bytes off a 16-byte
+    boundary, whose chunks cannot arrive by bulk copy, so the kernel stages
+    them element-wise itself, and at a chunk of 512 by bulk copy, more slots
+    than the CTA's threads. Its rows are K2's on the same tiles."""
+    stream = make_deep_bwd_stream(C=4)
+    args = [torch.as_tensor(x, device=cuda) for x in stream]
+    toff = args[3]
+    gdata, counts = dense_of(stream, chunk, tile_offset=4)
+    T, Kd, F = gdata.shape
+    assert counts.max() > 10 * CHUNK  # the deep run is one of the block's tiles
+    flat = torch.as_tensor(np.concatenate([np.zeros(1, np.float32), gdata.ravel()]),
+                           device=cuda)
+    g = flat[1:].clone().view(T, Kd, F) if aligned else flat[1:].view(T, Kd, F)
+    assert (g.data_ptr() % 16 == 0) == aligned
+    bargs = (g, torch.as_tensor(counts, device=cuda),
+             torch.as_tensor(dense_starts(stream, 4), device=cuda), stream[0].shape[0],
+             *(to_dense_tiles(x, toff, 4) for x in args[4:]), GRID_X, chunk, 4)
+    before = blend_tiles_bwd.launches
+    d = blend_tiles_bwd(*bargs)
+    torch.cuda.synchronize()
+    assert blend_tiles_bwd.launches == before + 1
+    assert torch.equal(d, blend_tiles_bwd_plain(*bargs))
+    kept = torch.where(toff >= 4, args[1], 0)  # K2 on the block's tiles alone
+    assert torch.equal(d, blend_stream_bwd(args[0], kept, *args[2:], GRID_X, chunk))
 
 
 @pytest.mark.gpu

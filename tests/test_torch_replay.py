@@ -12,6 +12,12 @@ modelled here in plain numpy and PyTorch, with the kernel's fp32 arithmetic:
   * the walk with the cull and the butterfly must give
     `blend_stream_bwd_plain`'s rows bit for bit, and the JAX package's
     `blend_stream_pallas_bwd` (interpret mode) within the usual tolerance;
+  * the walk by mask bits, in which a warp writes no partial for a slot it
+    skips and the row adds only the set warps' partials (+ 0 once where a
+    warp skipped), must give the rows of the walk that adds every warp's
+    partial, zero or not, bit for bit with the sign of every zero (the trap:
+    partials of -0 in some warps, none in others), and so the plain
+    version's;
   * the evaluations the culled walk makes are the "in_box" pairs that
     count_work reports, on which chip_smoke.py bases the kernels' bounds.
 """
@@ -41,6 +47,7 @@ from tests.test_torch_gpu import (
     make_bwd_stream,
     make_deep_bwd_stream,
     make_flat_bwd_stream,
+    make_zero_sign_bwd_stream,
 )
 
 torch.set_num_threads(1)
@@ -71,24 +78,31 @@ def reduce_scatter(v: np.ndarray) -> np.ndarray:
     return v[:, 0]
 
 
+def warp_partial(vals: np.ndarray) -> np.ndarray:
+    """One warp's sum of vals [F, 32] f32 over its lanes: the butterfly over
+    the fields padded to 16 (or 32). -> [F] f32."""
+    F = vals.shape[0]
+    nv = 16 if F <= 16 else 32
+    v = np.zeros((WARP, nv), F32)
+    v[:, :F] = vals.T
+    out = reduce_scatter(v)
+    lanes = np.arange(WARP)
+    held = lanes >> 1 if nv == 16 else lanes
+    part = np.zeros(F, F32)
+    for f in range(F):
+        where = lanes[held == f]
+        assert (out[where].view(np.uint32) == out[where[0]].view(np.uint32)).all()
+        part[f] = out[where[0]]
+    return part
+
+
 def warp_sums(vals: np.ndarray) -> np.ndarray:
     """The kernel's sum over a tile's pixels of vals [F, 256] f32: each
     warp's butterfly over its fields padded to 16 (or 32), then the 8 warps'
     partials in warp order. -> [F] f32."""
-    F = vals.shape[0]
-    nv = 16 if F <= 16 else 32
     total = None
     for w in range(NPIX // WARP):
-        v = np.zeros((WARP, nv), F32)
-        v[:, :F] = vals[:, w * WARP:(w + 1) * WARP].T
-        out = reduce_scatter(v)
-        lanes = np.arange(WARP)
-        held = lanes >> 1 if nv == 16 else lanes
-        part = np.zeros(F, F32)
-        for f in range(F):
-            where = lanes[held == f]
-            assert (out[where].view(np.uint32) == out[where[0]].view(np.uint32)).all()
-            part[f] = out[where[0]]
+        part = warp_partial(vals[:, w * WARP:(w + 1) * WARP])
         total = part if total is None else total + part
     return total
 
@@ -339,3 +353,105 @@ def test_culled_walk_matches_pallas():
         want[tstart[t]:tstart[t] + counts[t]] = d[t, :counts[t], :F]
     got, _ = walk_model(*stream, GRID_X, CHUNK)
     np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4)
+
+
+def bit_walk_model(rows, counts, tstart, toff, acc, t_final, g_acc, g_t, grid_x: int,
+                   chunk: int) -> tuple[torch.Tensor, dict]:
+    """blend_tile.cuh:blend_run_bwd as it walks by mask bits, in plain numpy
+    and PyTorch, one tile (CTA) at a time, chunk by chunk until every pixel
+    stopped. Per chunk, one bit per (warp, slot): the warp's rectangle meets
+    the slot's box. Per slot, each warp whose bit is set evaluates its
+    pixels that have not stopped (walk_model's arithmetic); if none of them
+    composites the slot, it clears its bit and writes no partial, else its
+    partial is its butterfly sum. The row is the set warps' partials added
+    in warp order, + 0 once if some warp's bit is clear, +0 if none is set.
+    -> (d_rows [P, F], {"flipped": fields whose set warps summed to -0 and
+    took the + 0, "kept": fields that all 8 warps summed to -0})."""
+    rows_t = torch.as_tensor(rows)
+    P, F = rows.shape
+    C = F - 6
+    W = NPIX // WARP
+    d = np.zeros((P, F), F32)
+    trap = {"flipped": 0, "kept": 0}
+    boxes = slot_box(rows)
+    px, py = (x[:, 0] for x in _pixels(torch.as_tensor(toff), grid_x, "cpu"))
+    g_acc, acc = torch.as_tensor(g_acc), torch.as_tensor(acc)
+    floor = 1.0 - blend.ALPHA_MAX
+    for t in range(len(counts)):
+        cnt, t0 = int(counts[t]), int(tstart[t])
+        ox, oy = int(toff[t] % grid_x) * 16, int(toff[t] // grid_x) * 16
+        ga_total = g_acc[t, 0] * acc[t, 0]
+        for c in range(1, C):
+            ga_total = ga_total + g_acc[t, c] * acc[t, c]
+        gtt = torch.as_tensor(g_t[t]) * torch.as_tensor(t_final[t])
+        trans = torch.ones(NPIX)
+        bacc = torch.zeros(NPIX)
+        done = torch.zeros(NPIX, dtype=torch.bool)
+        for base in range(0, cnt, chunk):
+            if bool(done.all()):
+                break
+            for k in range(base, min(base + chunk, cnt)):
+                g = rows_t[t0 + k]
+                bit = ~culled(boxes[t0 + k], ox, oy)  # [W]
+                lane_bit = torch.as_tensor(np.repeat(bit, WARP))
+                dx, dy = g[0] - px[t], g[1] - py[t]
+                power = -0.5 * (g[2] * dx * dx + g[4] * dy * dy) - g[3] * dx * dy
+                gauss = torch.exp(torch.clamp(power, max=0.0))
+                araw = torch.where(power <= 0.0, g[5] * gauss, 0.0)
+                a = torch.clamp(araw, max=blend.ALPHA_MAX)
+                a = torch.where((a >= blend.ALPHA_MIN) & lane_bit & ~done, a, 0.0)
+                t_next = trans * (1.0 - a)
+                stop = (a > 0.0) & (t_next < blend.T_EPS)
+                contrib = (a > 0.0) & ~stop
+                w = torch.where(contrib, a * trans, 0.0)
+                gc = g[6] * g_acc[t, 0]
+                for c in range(1, C):
+                    gc = gc + g[6 + c] * g_acc[t, c]
+                bacc = torch.where(contrib, bacc + w * gc, bacc)
+                one_m_a = torch.clamp(1.0 - a, min=floor)
+                d_alpha = trans * gc - (ga_total - bacc) / one_m_a - gtt / one_m_a
+                d_alpha = torch.where(araw < blend.ALPHA_MAX, d_alpha, 0.0)
+                d_power = a * d_alpha
+                vals = torch.stack(
+                    [d_power * -(g[2] * dx + g[3] * dy),
+                     d_power * -(g[4] * dy + g[3] * dx),
+                     d_power * (-0.5 * dx * dx), d_power * (-dx * dy),
+                     d_power * (-0.5 * dy * dy), d_alpha * gauss]
+                    + [w * g_acc[t, c] for c in range(C)])
+                vals = torch.where(contrib, vals, 0.0).numpy()
+                who = contrib.numpy().reshape(W, WARP).any(axis=1)
+                kept = [wi for wi in range(W) if bit[wi] and who[wi]]
+                if kept:
+                    s = warp_partial(vals[:, kept[0] * WARP:(kept[0] + 1) * WARP])
+                    for wi in kept[1:]:
+                        s = s + warp_partial(vals[:, wi * WARP:(wi + 1) * WARP])
+                    neg = (s == 0) & np.signbit(s)
+                    if len(kept) < W:
+                        trap["flipped"] += int(neg.sum())
+                        s = s + F32(0.0)
+                    else:
+                        trap["kept"] += int(neg.sum())
+                    d[t0 + k] = s
+                trans = torch.where(contrib, t_next, trans)
+                done = done | stop
+    return torch.as_tensor(d), trap
+
+
+@pytest.mark.parametrize("make", [make_bwd_stream, make_deep_bwd_stream,
+                                  make_flat_bwd_stream, make_zero_sign_bwd_stream])
+def test_bit_walk_equals_the_full_sum_bitwise(make):
+    """The walk by mask bits, with its sum over the set warps only: the rows
+    of the walk that adds all 8 warps' partials, bit for bit with the sign
+    of every zero, and so blend_stream_bwd_plain's (zeros compared as equal
+    whatever their sign, as torch.equal does), on runs of several chunks, of
+    over ten chunks, of flat opaque splats, and on the zero-sign fixture,
+    whose -0 partials meet both sides of the trap."""
+    stream = make()
+    got, trap = bit_walk_model(*stream, GRID_X, CHUNK)
+    full, _ = walk_model(*stream, GRID_X, CHUNK)
+    assert (bits(got.numpy()) == bits(full.numpy())).all()
+    want = blend_stream_bwd_plain(*map(torch.as_tensor, stream), GRID_X, CHUNK)
+    assert torch.equal(got, want) and want.abs().max() > 0
+    if make is make_zero_sign_bwd_stream:
+        assert trap["flipped"] > 0 and trap["kept"] > 0
+        assert (bits(full.numpy()[:, 6]) == bits(-0.0)).any()
