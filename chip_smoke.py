@@ -51,7 +51,23 @@ Phases, in order; any failure exits non-zero:
      same schedule runs with RasterizeConfig(pallas_input="dense") (K5, K6,
      K3) and with bwd_layout="compact" (K1, K4, K3); their first losses
      equal the stream run's.
-  6. timings (CUDA events after warm-up), each line with the card's name:
+  6. queries, on a copy of the stream run's trained model: its
+     cluster_lang.npz rewritten with a converged-quality table aimed at the
+     two leaves that own the most alive splats under the leaf-level scale
+     cull (the substitution of tests/test_user_journey.py, since the
+     80-iteration table has no leaf a text query could find), then
+     `cli.render_by_text.main` for two texts over the 3 views (non-empty
+     selections after the KNN mask and the scale cull, RGB and silhouette
+     PNGs, one K1 launch per (text, view)), `cli.render_by_click.main` at
+     the brightest ins_feat1 pixel of view 0 and at the pixel nearest a
+     root whose leaves were clustered (one K1 launch per view each);
+     render_selection (RGB and feature payloads), LPIPS on random weights
+     with cuDNN's TF32 at torch's default, and evaluate_dirs' PSNR and SSIM
+     on the card against the CPU at 160x120; a SIBR viewer round trip
+     against a Trainer taking stage-0 steps at full width (the frame's bytes
+     equal to a render of its camera, training resumed); the times of
+     render_selection alone, LPIPS per full-width view and a viewer frame.
+  7. timings (CUDA events after warm-up), each line with the card's name:
      each kernel against its plain version and its bound, K3's call and
      device time in turns with its index_add_ yardstick, K2 + K3 against
      K4 + K3 on the C = 4 frame and K2 + K3, K4 + K3 and K6 + K3 on the
@@ -1496,6 +1512,432 @@ def compact_bound(live: int, nc_rows: int, rows: int, F: int, T: int, work, peak
     return bound_of("blend_stream_bwd_compact", moved, ops, peak_flops, peak_bytes)
 
 
+QUERY_TEXTS = ("chip object", "second chip object")
+
+
+def zero_launches() -> dict:
+    """Set every kernel's launch count to 0. -> the wrappers by name."""
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    return wrappers
+
+
+def read_launches(wrappers: dict, want_fwd: int, what: str, **want) -> dict:
+    """The counts since zero_launches; raise unless K1 launched want_fwd
+    times and every other kernel as `want` says (0 where unnamed)."""
+    torch.cuda.synchronize()
+    got = {k: w.launches for k, w in wrappers.items()}
+    expect = {k: want.get(k, 0) for k in got}
+    expect["blend_stream_fwd"] = want_fwd
+    if got != expect:
+        raise AssertionError(f"{what}: launches {got}, expected {expect}")
+    return got
+
+
+def substitute_lang_table(model: str, dev) -> tuple[str, dict]:
+    """The substitution of tests/test_user_journey.py:72-88: rewrite
+    cluster_lang.npz with a converged-quality table (score 0.9, occurrence
+    10, a one-hot feature per target) aimed at the two leaves that own the
+    most alive splats passing the leaf-level scale cull, since the
+    80-iteration run's table has no leaf a text query could find (ROADMAP
+    Queue 3, open check a), and write the matching text features as a .zip.
+    -> (the .zip's path, {text: target leaf})."""
+    import zipfile
+
+    from opengaussian_tpu_torch.models.loading import load_cluster_lang, load_model
+    from opengaussian_tpu_torch.render import passes_scale_cull
+
+    state, kms, _ = load_model(model, device=dev)
+    lang = load_cluster_lang(model)
+    k = lang["leaf_feat"].shape[0]
+    alive = state.alive.cpu().numpy()
+    small = passes_scale_cull(state).cpu().numpy()
+    counts = np.bincount(kms.leaf_cls_ids.cpu().numpy()[alive & small], minlength=k + 1)[:k]
+    targets = [int(x) for x in np.argsort(-counts, kind="stable")[:len(QUERY_TEXTS)]]
+    log(f"queries: {int(alive.sum())} alive splats, {int((alive & small).sum())} pass the "
+        f"leaf-level scale cull, {int((counts > 0).sum())} of {k} leaves own some of them; "
+        f"targets: leaves {targets} with {[int(counts[t]) for t in targets]} splats")
+    if k > 512 or counts[targets[-1]] < 10:
+        raise AssertionError(f"queries: no two leaves of {k} own 10 splats under the cull")
+    feat = np.zeros((k, 512), np.float32)
+    for t in targets:
+        feat[t, t] = 1.0
+    np.savez(os.path.join(model, "cluster_lang.npz"), leaf_feat=feat,
+             leaf_score=np.full(k, 0.9, np.float32), occu_count=np.full(k, 10.0, np.float32),
+             leaf_ind=lang["leaf_ind"])
+    path = os.path.join(model, "text_features.zip")
+    with zipfile.ZipFile(path, "w") as z:
+        z.writestr("text_features.json", json.dumps(
+            {text: feat[t].tolist() for text, t in zip(QUERY_TEXTS, targets)}))
+    return path, dict(zip(QUERY_TEXTS, targets))
+
+
+def text_query(model: str, scene_dir: str, tf_zip: str, targets: dict, dev, card) -> dict:
+    """cli.render_by_text.main over every view for each text: the best leaf
+    is the target, the selection is non-empty after the KNN mask and the
+    scale cull, an RGB and a silhouette PNG per (text, view), the RGB tinted
+    on its white background, one K1 launch per (text, view). K1's output on
+    the first (text, frame), captured on its way back to the rasterizer, is
+    held bit for bit against its plain version on the same rows."""
+    from unittest import mock
+
+    from PIL import Image
+
+    from opengaussian_tpu_torch.cli import render_by_text as cli_text
+    from opengaussian_tpu_torch.ops import rasterize as rz
+    from opengaussian_tpu_torch.ops import rasterize_kernels as rk
+
+    first = {}
+
+    def capture(*args, **kw):
+        out = rk.blend_stream_fwd(*args, **kw)
+        if not first:
+            first.update(args=args, kw=kw, out=out)
+        return out
+
+    wrappers = zero_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(rz, "blend_stream_fwd", capture):
+        recs = cli_text.main(["-m", model, "-s", scene_dir, "--scene_name", "chip_smoke",
+                              "--text_features", tf_zip, "--texts", *targets], device=dev)
+    seconds = time.perf_counter() - t0
+    launches = read_launches(wrappers, len(targets) * N_VIEWS, "text query")
+    rows, counts = first["args"][:2]
+    with torch.no_grad():
+        want = rk.blend_stream_fwd_plain(*first["args"], **first["kw"])
+    for nm, x, y in zip(("accum", "t_final"), first["out"], want):
+        compare(f"blend_stream_fwd C={rows.shape[1] - 6} text query frame {nm}", x, y, 0.0, 0.0)
+        if not torch.equal(x, y):
+            raise AssertionError(f"K1 on the text query's frame: {nm} differs from the plain "
+                                 "version's")
+    log(f"queries: K1 on the first (text, frame) at {WIDTH}x{HEIGHT}: {int(counts.sum())} "
+        f"slots in {counts.shape[0]} tiles, bit for bit with its plain version")
+    base = os.path.join(model, "text2obj", f"ours_{TRAIN_ITERS}")
+    for rec in recs:
+        text = rec["text"]
+        if rec["leaves"][0] != targets[text] or len(rec["frames"]) != N_VIEWS \
+                or not rec["after_cull"] > 0:
+            raise AssertionError(f"text query {text!r}: {rec}")
+        names = [f"{f}_{text}.png" for f in rec["frames"]]
+        for sub in ("renders_cluster", "renders_cluster_silhouette"):
+            if not all(os.path.exists(os.path.join(base, sub, n)) for n in names):
+                raise AssertionError(f"text query {text!r}: missing PNGs in {sub}")
+        low = min(int(np.asarray(Image.open(os.path.join(base, "renders_cluster", n))).min())
+                  for n in names)
+        if not low < 250:
+            raise AssertionError(f"text query {text!r}: the selection rendered nothing")
+        log(f"queries: text {text!r} -> leaves {rec['leaves']}: {rec['members']} splats, "
+            f"{rec['after_knn']} after the KNN mask, {rec['after_cull']} under the scale "
+            f"cull; darkest pixel {low}; per (text, frame): host selection "
+            f"{1e3 * rec['select_s'] / N_VIEWS:.3f} ms, KNN {1e3 * rec['knn_s'] / N_VIEWS:.3f} "
+            f"ms, render to PNG " + ", ".join(f"{1e3 * s:.3f}" for s in rec["render_s"])
+            + f" ms [{card}]")
+    log(f"queries: text query of {len(targets)} texts x {N_VIEWS} views in {seconds:.2f} s "
+        f"(model and scene load included), launches {launches}")
+    return dict(recs=recs, launches=launches, seconds=seconds)
+
+
+def click_pixels(model: str) -> dict:
+    """Two clicks on view 0's feature maps, decoded and matched to their
+    roots by cli.render_by_click's own helpers: the brightest ins_feat1
+    pixel (tests/test_user_journey.py's click; on the 80-iteration model it
+    may land in a root with no clustered leaf, which is logged), and the
+    brightest pixel whose feature lies nearest a root whose leaves the leaf
+    k-means clustered (the 80-iteration run clusters only the root stage 2.2
+    enters with). Raises when no pixel of view 0 falls in such a root.
+    -> {name: (x, y)}."""
+    from opengaussian_tpu_torch.cli.render_by_click import (
+        decode_features,
+        leaf_slots,
+        nearest_roots,
+    )
+    from opengaussian_tpu_torch.utils.codebook import load_codebook
+
+    fdir = os.path.join(model, "train", "ours")
+    feat = decode_features(os.path.join(fdir, "ins_feat1", "00000.png"),
+                           os.path.join(fdir, "ins_feat2", "00000.png"))
+    pc = os.path.join(model, "point_cloud", f"iteration_{TRAIN_ITERS}")
+    roots, _ = load_codebook(os.path.join(pc, "root_code_book"))
+    leaves, _ = load_codebook(os.path.join(pc, "leaf_code_book"))
+    k1 = roots.shape[0]
+    k2 = leaf_slots(leaves.shape[0], k1)
+    clustered = np.flatnonzero(np.abs(leaves[:k1 * k2].reshape(k1, k2, -1)).sum((1, 2)) > 0)
+    inside = np.isin(nearest_roots(feat.reshape(-1, 6), roots), clustered)
+    bright = feat[..., :3].sum(-1).reshape(-1)
+    log(f"queries: roots with clustered leaves {clustered.tolist()}; {int(inside.sum())} of "
+        f"{inside.size} pixels of view 0 decode into them")
+    if not inside.any():
+        raise AssertionError("queries: no pixel of view 0 decodes into a root with clustered "
+                             "leaves, so no click can select a non-empty leaf")
+    W = feat.shape[1]
+    pick = {"brightest": int(np.argmax(bright)),
+            "in a clustered root": int(np.argmax(np.where(inside, bright, -np.inf)))}
+    return {k: (i % W, i // W) for k, i in pick.items()}
+
+
+def click_query(model: str, scene_dir: str, xy, dev, card, what: str,
+                must_render: bool) -> dict:
+    """cli.render_by_click.main at pixel xy of view 0: a leaf, one PNG and
+    one K1 launch per view; with must_render, splats selected after the KNN
+    mask and the scale cull, and a PNG tinted on its white background."""
+    from PIL import Image
+
+    from opengaussian_tpu_torch.cli import render_by_click as cli_click
+
+    wrappers = zero_launches()
+    rec = cli_click.main(["-m", model, "-s", scene_dir, "--view", "00000", "--click",
+                          str(xy[0]), str(xy[1])], device=dev)
+    launches = read_launches(wrappers, N_VIEWS, f"click query ({what})")
+    names = [f"{f}_leaf{rec['leaf']}.png" for f in rec["frames"]]
+    if len(names) != N_VIEWS or not all(os.path.exists(os.path.join(rec["out_dir"], n))
+                                        for n in names):
+        raise AssertionError(f"click query ({what}): {rec}")
+    low = min(int(np.asarray(Image.open(os.path.join(rec["out_dir"], n))).min())
+              for n in names)
+    if must_render and not (rec["after_cull"] > 0 and low < 250):
+        raise AssertionError(f"click query ({what}): the selection rendered nothing "
+                             f"(darkest pixel {low}): {rec}")
+    log(f"queries: click ({what}) at {xy} -> leaf {rec['leaf']}: {rec['members']} splats, "
+        f"{rec['after_knn']} after the KNN mask, {rec['after_cull']} under the scale cull; "
+        f"darkest pixel {low}; per view, render to PNG "
+        + ", ".join(f"{1e3 * s:.3f}" for s in rec["render_s"]) + f" ms [{card}]")
+    return dict(rec, launches=launches)
+
+
+def check_queries_against_cpu(dev) -> dict:
+    """At 160x120 on blob_scene, the card against the CPU: render_selection
+    (RGB and feature payloads, the scale cull on; one K1 launch each),
+    LPIPS on random weights with cuDNN's TF32 at torch's default (allowed),
+    and evaluate_dirs' PSNR and SSIM; each within a normalised 1e-3.
+    -> the largest errors."""
+    import contextlib
+    from unittest import mock
+
+    from PIL import Image
+
+    from opengaussian_tpu_torch.eval import lpips as lp
+    from opengaussian_tpu_torch.eval.metrics import evaluate_dirs
+    from opengaussian_tpu_torch.render import render_selection
+
+    W, H = 160, 120
+    st, roots, cam, _ = blob_scene(W, H)
+    st_g = to_device(st, dev)
+    rng = np.random.default_rng(17)
+    select = (roots == 0) | torch.as_tensor(rng.random(roots.shape[0]) < 0.2)
+    errs = {}
+    with torch.no_grad():
+        for payload_rgb in (True, False):
+            wrappers = zero_launches()
+            got = render_selection(cam, st_g, torch.ones(3, device=dev), select.to(dev),
+                                   payload_rgb=payload_rgb)
+            read_launches(wrappers, 1, "render_selection")
+            want = render_selection(cam, st, torch.ones(3), select, payload_rgb=payload_rgb)
+            for k in ("cluster_imgs", "cluster_silhouettes"):
+                errs[f"render_selection {'rgb' if payload_rgb else 'feature'} {k}"] = \
+                    normalised_err(getattr(got, k), getattr(want, k))
+            for k in ("cluster_occur", "cluster_valid"):
+                if bool(getattr(got, k)) != bool(getattr(want, k)):
+                    raise AssertionError(f"render_selection on the card: {k} differs")
+            if not float(want.cluster_silhouettes.max()) > 0.5:
+                raise AssertionError("render_selection: the blob selection rendered nothing")
+            if payload_rgb:
+                a = want.cluster_imgs.clamp(0, 1).numpy()
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    w = lp.random_weights(seed=3)
+    want_lp = lp.LPIPS(w, "cpu")(a, b)
+    torch.backends.cudnn.allow_tf32 = True  # torch's default: the call must pin fp32
+    try:
+        got_lp = lp.LPIPS(w, dev)(a, b)
+        if not torch.backends.cudnn.allow_tf32:
+            raise AssertionError("LPIPS did not restore the caller's TF32 setting")
+        # what the same network gives with TF32 left on, for the log
+        x, y = (torch.as_tensor(v, device=dev).permute(2, 0, 1)[None] for v in (a, b))
+        with mock.patch.object(lp, "fp32_convolutions", contextlib.nullcontext), \
+                torch.no_grad():
+            tf32_lp = float(lp.lpips_pair(x, y, lp.torch_weights(w, dev))[0])
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    errs["lpips"] = abs(got_lp - want_lp) / abs(want_lp)
+    log(f"queries: LPIPS {W}x{H}, random weights: card {got_lp!r}, cpu {want_lp!r}; with "
+        f"TF32 left on the same network gives {tf32_lp!r} (relative error "
+        f"{abs(tf32_lp - want_lp) / abs(want_lp):.3e})")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as d:
+        for sub in ("renders", "gt"):
+            os.makedirs(os.path.join(d, sub))
+        for i in range(3):
+            gt = (np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1) * 255).astype(np.uint8)
+            rd = (np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1) * 255).astype(np.uint8)
+            Image.fromarray(gt).save(os.path.join(d, "gt", f"{i:05d}.png"))
+            Image.fromarray(rd).save(os.path.join(d, "renders", f"{i:05d}.png"))
+        args = (os.path.join(d, "renders"), os.path.join(d, "gt"))
+        got_m, want_m = evaluate_dirs(*args, device=dev), evaluate_dirs(*args, device="cpu")
+    for m in ("PSNR", "SSIM"):
+        errs[f"evaluate_dirs {m}"] = max(abs(got_m["per_view"][m][n] - v) / abs(v)
+                                         for n, v in want_m["per_view"][m].items())
+    bad = {k: v for k, v in errs.items() if not v <= 1e-3}
+    log("queries: card against CPU at 160x120: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()))
+    if bad:
+        raise AssertionError(f"queries: card against CPU past a normalised 1e-3: {bad}")
+    return errs
+
+
+def sibr_request(w2c, width: int, height: int, fovx: float, fovy: float) -> bytes:
+    """A SIBR remote-viewer request for one frame that lets training go on
+    (the transposed w2c with columns 1 and 2 negated, network_gui.py)."""
+    m = np.asarray(w2c, np.float32).T.copy()
+    m[:, 1:3] = -m[:, 1:3]
+    msg = dict(resolution_x=width, resolution_y=height, train=True, fov_y=fovy, fov_x=fovx,
+               z_near=0.01, z_far=100.0, shs_python=False, rot_scale_python=False,
+               keep_alive=False, scaling_modifier=1.0,
+               view_matrix=[float(x) for x in m.reshape(-1)],
+               view_projection_matrix=[0.0] * 16)
+    data = json.dumps(msg).encode("utf-8")
+    return len(data).to_bytes(4, "little") + data
+
+
+def recv_exact(sock, n: int) -> bytes:
+    out = b""
+    while len(out) < n:
+        chunk = sock.recv(n - len(out))
+        if not chunk:
+            raise ConnectionError("the viewer server closed early")
+        out += chunk
+    return out
+
+
+def viewer_round_trip(scene_dir: str, root: str, dev, card) -> dict:
+    """A Trainer on the card at full width takes stage-0 steps with the
+    viewer on: a SIBR request for view 0's camera, queued before iteration
+    2's poll, comes back as H x W x 3 bytes equal to _viewer_render of the
+    state at that poll, the client's end of stream drops the viewer, and
+    training resumes (K1: 2 steps + 1 frame; K2 and K3: 2 steps).
+    -> launches and the frame's host time (render to bytes)."""
+    import socket
+    import threading
+
+    from opengaussian_tpu_torch.cameras import focal2fov
+    from opengaussian_tpu_torch.config import Config, OptimizationConfig
+    from opengaussian_tpu_torch.data.dataset import load_scene
+    from opengaussian_tpu_torch.train.loop import Trainer
+
+    out = os.path.join(root, "viewer")
+    tr = Trainer(load_scene(scene_dir), Config(opt=OptimizationConfig(
+        iterations=3, densify_from_iter=100)), out, device=dev)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tr.viewer_port = port
+    try:
+        tr.train(until=1, log_every=1)  # the first poll opens the listener
+        served = tr.state
+        cam = tr.bundle.camera(0)
+        w2c = np.eye(4, dtype=np.float32)
+        w2c[:3, :3], w2c[:3, 3] = cam.R_w2c.cpu().numpy(), cam.t_w2c.cpu().numpy()
+        req = dict(width=WIDTH, height=HEIGHT, w2c=w2c,
+                   fovx=focal2fov(float(cam.fx), WIDTH), fovy=focal2fov(float(cam.fy), HEIGHT))
+        reply = {}
+        wrappers = zero_launches()
+        with socket.create_connection(("127.0.0.1", port), timeout=120) as c:
+            c.sendall(sibr_request(w2c, WIDTH, HEIGHT, req["fovx"], req["fovy"]))
+            c.shutdown(socket.SHUT_WR)
+
+            def read():
+                try:
+                    reply["img"] = recv_exact(c, HEIGHT * WIDTH * 3)
+                    n = int.from_bytes(recv_exact(c, 4), "little")
+                    reply["path"] = recv_exact(c, n).decode()
+                except OSError as e:
+                    reply["error"] = repr(e)
+
+            reader = threading.Thread(target=read, daemon=True)
+            reader.start()
+            tr.train(until=3, log_every=1)
+            reader.join(timeout=120)
+        launches = read_launches(wrappers, 3, "viewer", blend_stream_bwd=2, segment_reduce=2)
+        if reader.is_alive() or "img" not in reply or reply.get("path") != out:
+            raise AssertionError(f"viewer: no reply ({reply.get('error')})")
+        if tr.iteration != 3 or tr.viewer.conn is not None:
+            raise AssertionError("viewer: training did not resume without the viewer")
+        current, tr.state = tr.state, served
+        direct = tr._viewer_render(req, 1.0)
+        frame_s = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            tr._viewer_render(req, 1.0)
+            frame_s.append(time.perf_counter() - t0)
+        tr.state = current
+        if reply["img"] != direct:
+            raise AssertionError("viewer: the served frame differs from a render of its camera")
+        lit = float((np.frombuffer(direct, np.uint8).reshape(HEIGHT, WIDTH, 3) > 0)
+                    .any(-1).mean())
+        log(f"queries: viewer round trip at {WIDTH}x{HEIGHT}: {len(reply['img'])} bytes equal "
+            f"to the render of the request's camera ({lit:.3f} of the pixels lit), training "
+            f"resumed to iteration {tr.iteration}, launches {launches}; one frame (render to "
+            f"bytes) " + ", ".join(f"{1e3 * s:.3f}" for s in frame_s) + f" ms [{card}]")
+        return dict(launches=launches, frame_ms=1e3 * float(np.median(frame_s)))
+    finally:
+        if tr.viewer is not None:
+            tr.viewer.close()
+
+
+def queries_path(out: str, scene_dir: str, root: str, dev, card) -> dict:
+    """The queries phase on the stream run's trained model (a copy, whose
+    cluster_lang.npz is substituted): the text query, the two clicks, the
+    card against the CPU at 160x120, the viewer round trip, and the times of
+    render_selection alone and of LPIPS at full width.
+    -> {"launches": {path: {kernel: launches}}, "errors": ..., times}."""
+    import shutil
+
+    from opengaussian_tpu_torch.data.dataset import load_scene
+    from opengaussian_tpu_torch.eval.lpips import LPIPS, random_weights
+    from opengaussian_tpu_torch.eval.metrics import read_rgb
+    from opengaussian_tpu_torch.models.loading import load_model
+    from opengaussian_tpu_torch.ops.knn import selection_mask
+    from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig
+    from opengaussian_tpu_torch.render import render_selection
+
+    model = os.path.join(root, "queries")
+    pc = os.path.join("point_cloud", f"iteration_{TRAIN_ITERS}")
+    shutil.copytree(os.path.join(out, pc), os.path.join(model, pc))
+    shutil.copytree(os.path.join(out, "train", "ours"), os.path.join(model, "train", "ours"))
+    shutil.copy(os.path.join(out, "cluster_lang.npz"), model)
+    tf_zip, targets = substitute_lang_table(model, dev)
+    text = text_query(model, scene_dir, tf_zip, targets, dev, card)
+    clicks = {what: click_query(model, scene_dir, xy, dev, card, what,
+                                must_render=what == "in a clustered root")
+              for what, xy in click_pixels(model).items()}
+    errors = check_queries_against_cpu(dev)
+    viewer = viewer_round_trip(scene_dir, root, dev, card)
+
+    # render_selection alone, on the first text's selection at full width
+    state, kms, _ = load_model(model, device=dev)
+    member, _ = selection_mask(kms.leaf_cls_ids.cpu().numpy(), state.alive.cpu().numpy(),
+                               state.means.cpu().numpy(), text["recs"][0]["leaves"])
+    member_t = torch.as_tensor(member, device=dev)
+    camera = load_scene(scene_dir).train_views[0].camera
+    ones = torch.ones(3, device=dev)
+    with torch.no_grad():
+        sel_ms = cuda_ms(lambda: render_selection(camera, state, ones, member_t,
+                                                  RasterizeConfig()), iters=10, warmup=2)
+    # LPIPS per view at full width, on cli.render's output of the trained model
+    d = os.path.join(out, "train", "ours")
+    a, b = (torch.as_tensor(read_rgb(os.path.join(d, sub, "00000.png")), device=dev)
+            for sub in ("renders", "gt"))
+    lpips = LPIPS(random_weights(seed=0), dev)
+    lp_ms = cuda_ms(lambda: lpips(a, b), iters=3, warmup=1)
+    log(f"timing: render_selection {sel_ms:.3f} ms ({int(member.sum())} splats selected, "
+        f"{WIDTH}x{HEIGHT}, CUDA events); LPIPS {lp_ms:.3f} ms per {WIDTH}x{HEIGHT} view "
+        f"(random weights, value {lpips(a, b):.5f}); viewer frame {viewer['frame_ms']:.3f} ms "
+        f"[{card}]")
+    launches = {"text query": text["launches"],
+                **{f"click ({k})": c["launches"] for k, c in clicks.items()},
+                "viewer": viewer["launches"]}
+    return dict(launches=launches, errors=errors, sel_ms=sel_ms, lp_ms=lp_ms,
+                frame_ms=viewer["frame_ms"])
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1638,6 +2080,8 @@ def main(argv=None) -> int:
             if run == "stream":
                 tr, out = tr_r, out_r
                 check_trained_render(out, scene_dir, dev)
+                # 6. queries: selection, evaluation and the viewer on this model
+                queries = queries_path(out, scene_dir, root, dev, card)
             else:
                 l_s, l_r = float(tr.losses[0]), float(tr_r.losses[0])
                 if not math.isclose(l_r, l_s, rel_tol=1e-5):
@@ -1656,7 +2100,7 @@ def main(argv=None) -> int:
             if run != "stream":
                 del tr_r
 
-        # 6. timings
+        # 7. timings
         k_ms, p_ms, k1_dev = {}, {}, {}
         with torch.no_grad():
             flush = torch.empty(2**26, dtype=torch.float32, device=dev)  # 256 MB > L2
@@ -1850,10 +2294,11 @@ def main(argv=None) -> int:
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
-    main_paths = (render_launches, *train_launches.values())
+    main_paths = (render_launches, *train_launches.values(), *queries["launches"].values())
     total = {k: sum(p[k] for p in main_paths) for k in render_launches}
     log(f"launches on the main paths: render {render_launches}, "
-        + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()))
+        + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()) + ", "
+        + ", ".join(f"{q} {v}" for q, v in queries["launches"].items()))
     for k, kname, render_dev in (("k1", "K1", k1_dev), ("k2", "K2", {4: k2_dev}),
                                  ("k4", "K4", {4: k4_dev}), ("k6", "K6", {7: k6_dev})):
         t = train[k]
@@ -1863,6 +2308,10 @@ def main(argv=None) -> int:
             + ", ".join(f"C={C} {v:.4f} ms" for C, v in render_dev.items()) + f" [{card}]")
     log(f"summary: stage-2.2 step ms {s22_ms}; sweep 2 / stage 3 ms per view {leaf_ms}; "
         f"partition against scan max abs err {partition_err:.3e} [{card}]")
+    log(f"summary: queries: render_selection {queries['sel_ms']:.3f} ms, LPIPS "
+        f"{queries['lp_ms']:.3f} ms per view, viewer frame {queries['frame_ms']:.3f} ms; "
+        f"card against CPU at 160x120, largest normalised error "
+        f"{max(queries['errors'].values()):.3e} [{card}]")
     kernels = [
         row("blend_stream_fwd", total["blend_stream_fwd"], max(k1_err, train["k1"]["err"]),
             sum(k_ms.values()) / len(k_ms), sum(p_ms.values()) / len(p_ms),

@@ -11,8 +11,10 @@ directory. It saves point_cloud/iteration_N/point_cloud.ply at the save
 milestones, which `opengaussian_tpu_torch.cli.render` renders, with the root
 and leaf codebooks beside it once their stages have begun. It writes
 chkpnt<N>.npz at each of --checkpoint_iterations and resumes from
---start_checkpoint (an .npz of either package or a reference .pth). A flag
-whose feature the port does not have yet raises NotImplementedError.
+--start_checkpoint (an .npz of either package or a reference .pth). It
+writes the train_process/ PNG dumps unless --disable_intermediate_dumps, and
+with --port N serves the SIBR remote viewer on 127.0.0.1:N while it trains.
+A flag whose feature the port does not have yet raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -92,8 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=0,
                    help="SIBR remote-viewer TCP port (0 = viewer off)")
     p.add_argument("--disable_intermediate_dumps", action="store_true",
-                   help="skip the periodic train_process/ PNG dumps (the port "
-                        "writes none yet)")
+                   help="skip the periodic train_process/ PNG dumps")
     return p
 
 
@@ -103,7 +104,6 @@ def _refuse_left_out(args, cfg: Config) -> None:
         "--mesh": (bool(args.mesh), "multi-GPU training"),
         "--save_memory": (bool(cfg.opt.save_memory), "host-resident view bundles"),
         "--lazy_load": (args.lazy_load, "lazily decoded views"),
-        "--port": (bool(args.port), "the remote viewer"),
         "--enable_multiview_sam_refinement": (
             bool(cfg.opt.enable_multiview_sam_refinement), "the SAM mask refiner"),
     }
@@ -138,6 +138,10 @@ def main(argv=None, device="cuda", rcfg: RasterizeConfig | None = None) -> Train
           f"{len(scene.points)} init points, extent {scene.cameras_extent:.2f}",
           flush=True)
     tr = Trainer(scene, cfg, out_dir, rcfg=rcfg, seed=args.seed, device=dev)
+    if args.port:
+        tr.viewer_port = args.port
+    if args.disable_intermediate_dumps:
+        tr.save_intermediate = False
     if args.start_checkpoint:
         tr.restore_checkpoint(args.start_checkpoint)
         print(f"Resumed from {args.start_checkpoint} at iteration {tr.iteration}")

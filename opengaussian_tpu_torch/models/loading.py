@@ -1,6 +1,7 @@
-"""Load trained models from saved artifacts (PLY + codebooks).
+"""Load trained models from saved artifacts (PLY + codebooks + lang npz).
 
-Port of opengaussian_tpu/models/loading.py (reference render.py:47-57).
+Port of opengaussian_tpu/models/loading.py (reference render.py:47-57,
+render_lerf_by_text.py:46-63).
 """
 
 from __future__ import annotations
@@ -94,3 +95,10 @@ def load_model(model_path: str, iteration: int = -1, k1: int = 64, k2: int = 5,
                                     dtype=torch.int32, device=dev),
         )
     return state, kms, it
+
+
+def load_cluster_lang(model_path: str) -> dict[str, np.ndarray]:
+    """The arrays of stage 3's cluster_lang.npz (leaf_feat, leaf_score,
+    occu_count, leaf_ind)."""
+    z = np.load(os.path.join(model_path, "cluster_lang.npz"))
+    return {k: z[k] for k in z.files}

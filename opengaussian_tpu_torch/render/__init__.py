@@ -7,7 +7,9 @@ calls per view, one for SH color at true scale and one 6-channel
 instance-feature pass at the (optionally) rescaled scale. `render_clusters`
 renders each of G clusters alone (stage 2.2 and the pseudo-label sweeps)
 through `rasterize_scan_groups`, and `render_clusters_partition` renders G
-disjoint clusters in one pass (stage 3) through `rasterize_partition`. The
+disjoint clusters in one pass (stage 3) through `rasterize_partition`, and
+`render_selection` renders one chosen subset of splats (the text and click
+queries) through `rasterize_scan_groups` with one group. The
 reference's data-dependent `continue` filters (a cluster with too few
 splats, a silhouette below 0.8) become the `cluster_valid` and
 `cluster_occur` flags.
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from opengaussian_tpu_torch.cameras import Camera
@@ -37,6 +40,7 @@ COARSE_SCALE_LIMIT = 0.5  # better_vis coarse cluster scale cull
 LEAF_SCALE_LIMIT = 0.1  # leaf-level scale cull
 MIN_CLUSTER_POINTS = 100  # coarse cluster validity
 OCCUR_SIL_THRESHOLD = 0.8  # silhouette peak for cluster_occur
+SELECTION_MIN_POINTS = 10  # render_selection validity
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,6 +203,59 @@ def render_clusters_partition(
     r = rasterize_partition(camera, gs.means, cov3d, opac, group_of, keep.shape[0],
                             payload, torch.cat([bg, bg]), config, proj=proj, rank=rank)
     return _cluster_outputs(r, keep.sum(dim=-1), min_points)
+
+
+def render_selection(
+    camera: Camera,
+    gs: GaussianState,
+    bg: torch.Tensor,
+    select_mask: torch.Tensor,  # [N] bool, e.g. the union of the matched leaves
+    config: RasterizeConfig = RasterizeConfig(),
+    *,
+    payload_rgb: bool = True,
+    better_vis: bool = True,
+) -> RenderOutputs:
+    """Render one explicit subset of splats (text and click selection;
+    reference gaussian_renderer/__init__.py:276-356 with selected_leaf_id):
+    the alive splats of select_mask (with better_vis, only those that pass
+    the leaf-level scale cull, `passes_scale_cull`), as degree-3 SH color
+    over bg or, with payload_rgb False, as the encoded instance feature over
+    [bg, bg]. The selection is valid with at least SELECTION_MIN_POINTS
+    splats. The caller applies the KNN outlier mask
+    (ops/knn.selection_mask) on the host. -> RenderOutputs with
+    cluster_imgs [H, W, C], cluster_silhouettes [H, W] and 0-d
+    cluster_occur / cluster_valid."""
+    camera = camera.to(gs.device)
+    if payload_rgb:
+        payload = sh_to_rgb(3, gs.sh, gs.means, camera.cam_center)
+        fbg = bg
+    else:
+        payload = encoded_ins_feat(gs)
+        fbg = torch.cat([bg, bg])
+    keep = torch.as_tensor(select_mask, device=gs.device) & gs.alive
+    if better_vis:
+        keep = keep & passes_scale_cull(gs)
+    cov3d = build_cov3d(gs.scales, gs.quats)
+    out = _render_groups(camera, gs, keep[None, :], payload, fbg, cov3d, config,
+                         SELECTION_MIN_POINTS)
+    return dataclasses.replace(
+        out, cluster_imgs=out.cluster_imgs[0],
+        cluster_silhouettes=out.cluster_silhouettes[0],
+        cluster_occur=out.cluster_occur[0], cluster_valid=out.cluster_valid[0])
+
+
+def passes_scale_cull(gs: GaussianState) -> torch.Tensor:
+    """[N] bool: the splats smaller than LEAF_SCALE_LIMIT on every axis, those
+    render_selection's better_vis keeps."""
+    return torch.all(gs.scales < LEAF_SCALE_LIMIT, dim=-1)
+
+
+def save_selection(path: str, img: torch.Tensor) -> None:
+    """An [H, W, 3] render_selection image in [0, 1] as an 8-bit PNG."""
+    from PIL import Image
+
+    arr = np.clip(img.cpu().numpy(), 0, 1)
+    Image.fromarray((arr * 255).astype(np.uint8)).save(path)
 
 
 def _render_groups(camera, gs: GaussianState, keep, payload, fbg, cov3d,

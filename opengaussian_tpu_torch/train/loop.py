@@ -33,8 +33,14 @@ raises max_per_tile past the deepest tile it finds, as the JAX trainer's
 probe does, so that no slot is truncated; group renders use the same cap
 (the JAX package's per-group budgets are not ported). What the port leaves
 out so far raises NotImplementedError: save_memory and lazy view bundles,
-the device mesh, the SAM mask refiner, frozen binning plans, training dumps
-and TensorBoard.
+the device mesh, the SAM mask refiner and frozen binning plans.
+
+Observability as in the JAX trainer: the train_process/ PNG dumps
+(train/observe.py, every 1000 iterations, 100 in stage 2.2, unless
+`save_intermediate` is False), TensorBoard scalars and image grids where
+tensorboard is installed, and the SIBR remote viewer
+(viewer/network_gui.py) when `viewer_port` is set, polled at the top of
+every loop turn.
 """
 
 from __future__ import annotations
@@ -58,10 +64,11 @@ from opengaussian_tpu_torch.ops.projection import build_cov3d
 from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, deepest_tile
 from opengaussian_tpu_torch.render import render, render_clusters
 from opengaussian_tpu_torch.train import checkpoint as ckpt
-from opengaussian_tpu_torch.train import lang, losses
+from opengaussian_tpu_torch.train import lang, losses, observe
 from opengaussian_tpu_torch.train import pseudo as pseudo_mod
 from opengaussian_tpu_torch.utils import codebook as cb
 from opengaussian_tpu_torch.utils import masks as masku
+from opengaussian_tpu_torch.viewer import network_gui
 
 HEADROOM = 1.3  # scenes evolve between probes (the JAX package's ops/budget.py)
 
@@ -342,8 +349,26 @@ class Trainer:
         self._budgets_tuned = False
         self._view_queue: list[int] = []
         self._last_lost: torch.Tensor | None = None
+        self._last_view = 0
         self.losses: list[torch.Tensor] = []  # every step's loss, on the device
         self.history: list[dict] = []
+        # periodic PNG dumps of the training process (reference train.py:503
+        # save_intermediate)
+        self.save_intermediate = True
+        # SIBR remote viewer (reference train.py:235-248): off unless a port
+        # is given, as the reference keeps its init commented out
+        self.viewer_port: int | None = None
+        self.viewer = None  # the viewer/network_gui.ViewerServer, once listening
+        # TensorBoard, like the reference's prepare_output_and_logger
+        # (train.py:637-657, 956-993); history alone where it is missing
+        self._tb_first_eval = True
+        self.tb = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self.tb = SummaryWriter(out_dir)
+        except Exception:
+            print("Tensorboard not available: not logging progress")
 
     # -- helpers --
 
@@ -466,6 +491,7 @@ class Trainer:
         while self.iteration < until:
             if not self._budgets_tuned:
                 self._fit_max_per_tile()
+            self._poll_viewer()
             it = self.iteration + 1
             stage = self._stage(it)
             if stage == "2.2" and (it - o.start_leaf_cb_iter) % o.leaf_update_fr == 0:
@@ -475,6 +501,8 @@ class Trainer:
             self.losses.append(loss)
             self.iteration = it
             self._post_events(it, stage)
+            if self.save_intermediate and it % observe.dump_frequency(stage) == 0:
+                observe.dump_intermediate(self, it, stage, self._last_view)
             if it % log_every == 0 or it >= until:
                 lost = int(self._last_lost)
                 if lost > 0:
@@ -488,12 +516,16 @@ class Trainer:
                 if stage == "2.2":  # one root per step: the loss reads per root
                     rec["root_id"] = self.root_id
                 self.history.append(rec)
+                if self.tb is not None:
+                    self.tb.add_scalar("train_loss_patches/total_loss", rec["loss"], it)
+                    self.tb.add_scalar("total_points", rec["num_alive"], it)
+                    self.tb.add_scalar("iter_time", rec["elapsed"] / max(it, 1), it)
                 print(f"[it {it}] stage {stage} loss {rec['loss']:.5f} "
                       f"pts {rec['num_alive']} ({rec['elapsed']:.0f}s)", flush=True)
 
     def _run_single(self, it: int, stage: str) -> torch.Tensor:
         o = self.cfg.opt
-        vi = self._next_view()
+        vi = self._last_view = self._next_view()
         bg = self._bg_for(stage)
         if stage == "0":
             self.state, self.adam, self.stats, loss, _psnr, self._last_lost = stage0_step(
@@ -535,12 +567,46 @@ class Trainer:
     def evaluate(self, max_views: int = 25) -> dict:
         bundle = self.test_bundle or self.bundle
         n = min(bundle.num_views, max_views)
-        psnrs, l1s = [], []
+        psnrs, l1s, imgs, gts = [], [], [], []
         for i in range(n):
-            _img, p, l1 = eval_view(self.state, bundle, i, self.bg, self.rcfg)
+            img, p, l1 = eval_view(self.state, bundle, i, self.bg, self.rcfg)
             psnrs.append(float(p))
             l1s.append(float(l1))
-        return dict(psnr=float(np.mean(psnrs)), l1=float(np.mean(l1s)), views=n)
+            if len(imgs) < 5:
+                imgs.append(img)
+                gts.append(bundle.gt_images[i])
+        m = dict(psnr=float(np.mean(psnrs)), l1=float(np.mean(l1s)), views=n)
+        if self.tb is not None:
+            split = "test" if self.test_bundle else "train"
+            observe.tb_image_grids(self, imgs, gts, split, self._tb_first_eval)
+            self._tb_first_eval = False
+            self.tb.add_scalar(f"{split}/loss_viewpoint - psnr", m["psnr"], self.iteration)
+            self.tb.add_scalar(f"{split}/loss_viewpoint - l1_loss", m["l1"], self.iteration)
+            op = self.state.opacity[self.state.alive].cpu().numpy()
+            self.tb.add_histogram("scene/opacity_histogram", op, self.iteration)
+        return m
+
+    # -- remote viewer (reference train.py:235-248) --
+
+    def _poll_viewer(self):
+        if self.viewer_port is None:
+            return
+        if self.viewer is None:
+            self.viewer = network_gui.init("127.0.0.1", self.viewer_port)
+        self.viewer.poll_and_render(self._viewer_render,
+                                    self.cfg.model.source_path or self.out_dir)
+
+    @torch.no_grad()
+    def _viewer_render(self, cam: dict, scale_mod: float) -> bytes:
+        """One viewer frame: the color pass through the viewer's camera (a
+        w2c and fields of view), as uint8 H x W x 3 bytes."""
+        w2c = np.asarray(cam["w2c"], np.float32)
+        camera = Camera.from_fov(w2c[:3, :3], w2c[:3, 3], cam["fovx"], cam["fovy"],
+                                 cam["width"], cam["height"], self.device)
+        out = render(camera, self.state, self.bg, 3, self.rcfg,
+                     scale_modifier=float(scale_mod))
+        img = torch.clamp(out.render, 0.0, 1.0).cpu().numpy()
+        return (img * 255).astype(np.uint8).tobytes()
 
     def save(self):
         """The PLY and, past start_root_cb_iter, the root codebook (centers and

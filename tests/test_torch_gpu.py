@@ -599,3 +599,66 @@ def test_dense_rasterize_on_card_matches_stream(cuda):
     assert torch.equal(rs.image, rd.image) and torch.equal(rs.alpha, rd.alpha)
     for a, b in zip(gs, gd):
         torch.testing.assert_close(b, a, atol=1e-5 * float(a.abs().max()), rtol=1e-4)
+
+
+def normalised_err(got, want) -> float:
+    return float((got.cpu() - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("payload_rgb", [True, False])
+def test_render_selection_on_card_matches_cpu(cuda, payload_rgb):
+    """The selection render of the text and click queries (one K1 launch)
+    against the same on the CPU, with the leaf-level scale cull on."""
+    import dataclasses
+
+    from opengaussian_tpu_torch.models.gaussians import create_from_pcd
+    from opengaussian_tpu_torch.render import render_selection
+
+    rng = np.random.default_rng(5)
+    n = 400
+    pts = np.stack([rng.normal(0, 0.5, n), rng.normal(0, 0.4, n),
+                    rng.permutation(np.linspace(2.5, 5.0, n))], -1).astype(np.float32)
+    st = create_from_pcd(pts, rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32),
+                         capacity=512, device="cpu")
+    st = dataclasses.replace(
+        st, log_scales=torch.log(torch.as_tensor(rng.uniform(0.03, 0.16, (512, 3)),
+                                                 dtype=torch.float32)),
+        logit_opacity=torch.where(st.alive, 2.0, -10.0),
+        ins_feat=torch.as_tensor(rng.normal(size=(512, 6)), dtype=torch.float32))
+    st_g = dataclasses.replace(st, **{f.name: getattr(st, f.name).to(cuda)
+                                      for f in dataclasses.fields(st)})
+    select = torch.as_tensor(rng.random(512) < 0.6)
+    cam = Camera.from_fov(np.eye(3), np.zeros(3), 0.9, 0.7, 96, 80)
+    before = blend_stream_fwd.launches
+    got = render_selection(cam, st_g, torch.ones(3, device=cuda), select.to(cuda),
+                           payload_rgb=payload_rgb)
+    torch.cuda.synchronize()
+    assert blend_stream_fwd.launches == before + 1
+    want = render_selection(cam, st, torch.ones(3), select, payload_rgb=payload_rgb)
+    assert got.cluster_imgs.is_cuda
+    for k in ("cluster_imgs", "cluster_silhouettes"):
+        assert normalised_err(getattr(got, k), getattr(want, k)) <= 1e-3, k
+    assert bool(got.cluster_valid) == bool(want.cluster_valid)
+    assert bool(got.cluster_occur) == bool(want.cluster_occur)
+
+
+@pytest.mark.gpu
+def test_lpips_on_card_matches_cpu(cuda):
+    """LPIPS on the card with cuDNN's TF32 at torch's default (allowed): the
+    call pins float32 itself, so it agrees with the CPU."""
+    from opengaussian_tpu_torch.eval.lpips import LPIPS, random_weights
+
+    w = random_weights(seed=3)
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0, 1, (80, 96, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = LPIPS(w, cuda)(a, b)
+        assert torch.backends.cudnn.allow_tf32  # restored after the call
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+    want = LPIPS(w, "cpu")(a, b)
+    assert got == pytest.approx(want, rel=1e-4)

@@ -162,13 +162,33 @@ def test_cli_train_writes_a_ply_that_cli_render_renders(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2"], ["--save_memory"], ["--lazy_load"], ["--port", "6009"],
+    ["--mesh", "2"], ["--save_memory"], ["--lazy_load"],
     ["--enable_multiview_sam_refinement"],
 ])
 def test_cli_train_refuses_what_the_port_lacks(tmp_path, flags):
     with pytest.raises(NotImplementedError):
         tcli_train.main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), *flags],
                         device="cpu")
+
+
+def test_cli_train_port_starts_the_viewer(tmp_path):
+    """--port N trains and leaves the SIBR viewer listening on N (the
+    round trip itself: tests/test_torch_observe.py)."""
+    import socket
+
+    root = str(tmp_path / "scene")
+    make_colmap_scene(root, n_views=2, with_sidecars=False)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tr = tcli_train.main(["-s", root, "-m", str(tmp_path / "m"), "--iterations", "2",
+                          "-r", "2", "--port", str(port)], device="cpu")
+    try:
+        assert tr.iteration == 2 and tr.viewer_port == port and tr.viewer is not None
+        with socket.create_connection(("127.0.0.1", port), timeout=10):
+            pass  # the listener takes the connection
+    finally:
+        tr.viewer.close()
 
 
 def test_trainer_never_truncates_a_tile(tmp_path):
