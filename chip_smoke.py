@@ -29,7 +29,10 @@ Phases, in order; any failure exits non-zero:
      naive oracle on the CPU, and at 160x120 one stage-0 step, one stage-1
      and one stage-2.1 step in each input layout, one stage-2.2 step in the
      stream, dense and compact configurations, one sweep-2 view, one stage-3
-     view and assign_leaf, on the card against the same on the CPU.
+     view and assign_leaf, on the card against the same on the CPU; and the
+     SAM mask refiner on tests/test_refiner.py's two-blob scene, in each
+     layout, on the card against the CPU (votes and weights to a normalised
+     1e-5, refined masks equal).
   4. render path: `opengaussian_tpu_torch.cli.render.main` renders a
      synthetic trained model (written as a PLY) of a 3-view COLMAP scene;
      checks the outputs and that K1 ran on this path. One view rendered
@@ -49,8 +52,18 @@ Phases, in order; any failure exits non-zero:
      the root and leaf codebooks and cluster_lang.npz, that the checkpoint
      reloads bit for bit, and that `cli.render` renders the saved PLY. The
      same schedule runs with RasterizeConfig(pallas_input="dense") (K5, K6,
-     K3) and with bwd_layout="compact" (K1, K4, K3); their first losses
-     equal the stream run's.
+     K3), with bwd_layout="compact" (K1, K4, K3) and, fourth, with
+     --enable_multiview_sam_refinement --lazy_load (host-resident views
+     decoded from disk per step; the refiner, traced, before step 41: one
+     more K1 launch per view; the bundle's SAM ids rewritten); their first
+     losses equal the stream run's. The stage-0 and stage-1 step of the
+     stream and the lazy run, in turns. Then the refiner's fused path at
+     tools/refine_bench.py's shape (100k splats, 60 views at 648x484, 32
+     ids per view, anchor stride 1000), max_per_tile fitted to its
+     binning's deepest tile: one K1 launch per view, K1 bit for bit at
+     C = 2 on view 0's depth stream, the phase seconds, n_gids, the void
+     fraction, the peak device memory and one view's vote and expansion
+     passes by torch.profiler.
   6. queries, on a copy of the stream run's trained model: its
      cluster_lang.npz rewritten with a converged-quality table aimed at the
      two leaves that own the most alive splats under the leaf-level scale
@@ -106,6 +119,9 @@ TRAIN_ITERS = 80
 # stage 2.2 (leaves) runs to TRAIN_ITERS, then stage 3
 STAGE_ENDS = dict(start_ins_feat_iter=40, start_root_cb_iter=50, start_leaf_cb_iter=60)
 LEAF_UPDATE_FR = 5  # stage 2.2 moves to the next root every 5 iterations
+# the refiner phase: tools/refine_bench.py's shape (ScanNet at -r 2)
+REFINE_W, REFINE_H = 648, 484
+REFINE_SPLATS, REFINE_VIEWS, REFINE_IDS, REFINE_STRIDE = 100_000, 60, 32, 1000
 TOL = dict(atol=3e-5, rtol=1e-4)
 # K3 sums a splat's slots in atomic order, so its tolerance is relative to
 # each field's largest magnitude: |kernel - plain| <= 1e-5 * max|plain field|
@@ -888,6 +904,235 @@ def check_stage22_against_cpu(dev):
         f"stage-3 view: {int(vc[2].sum())} of {k1 * k2} leaves matched on both")
 
 
+def refiner_two_blobs():
+    """tests/test_refiner.py's two-blob scene, built by the port on the CPU:
+    two opaque blobs of 40 splats seen by two 64x48 cameras, under per-view
+    SAM ids (left, right) that view 1 swaps and that the rendered silhouette
+    gates. -> (state, [camera, camera], SAM ids [2, 48, 64] int64, config)."""
+    from opengaussian_tpu_torch.cameras import Camera
+    from opengaussian_tpu_torch.models import gaussians as G
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
+
+    cfg = RasterizeConfig(max_per_tile=64, chunk=32)
+    rng = np.random.default_rng(0)
+    pts = np.concatenate([rng.normal(0, 0.05, (40, 3)) + [-0.6, 0.0, 3.0],
+                          rng.normal(0, 0.05, (40, 3)) + [0.6, 0.0, 3.0]]).astype(np.float32)
+    cols = np.concatenate([np.tile([1.0, 0, 0], (40, 1)),
+                           np.tile([0, 0, 1.0], (40, 1))]).astype(np.float32)
+    st = G.create_from_pcd(pts, cols, capacity=128, seed=0, device="cpu")
+    st = dataclasses.replace(st, logit_opacity=torch.where(
+        st.alive, G.inverse_sigmoid(torch.tensor(0.995)), -10.0))
+    cams = [Camera.from_fov(np.eye(3), np.asarray(t), 1.0, 0.8, 64, 48)
+            for t in ([0.0, 0.0, 0.0], [0.05, 0.0, 0.0])]
+    sam = np.zeros((2, 48, 64), np.int64)
+    left = np.arange(64)[None, :] < 32
+    with torch.no_grad():
+        for v, cam in enumerate(cams):
+            r = rasterize(cam, st.means, build_cov3d(st.scales, st.quats), st.opacity,
+                          torch.zeros((st.capacity, 1)), torch.zeros(1), cfg)
+            ids = np.where(left, 1, 2) if v == 0 else np.where(left, 2, 1)
+            sam[v] = np.where(r.alpha.numpy() > 0.3, ids, 0)
+    return st, cams, sam, cfg
+
+
+def check_refiner_against_cpu(dev, layout: str = "stream") -> dict:
+    """On refiner_two_blobs' scene, the SAM refiner on the card against the
+    same on the CPU: each view's votes (splat_id_votes on the CPU's depth
+    map) and its stage-2 weights on seeded inputs to a normalised 1e-5 (the
+    card's index_add_ sums in atomic order), the visibility equal, and
+    refine_sam_masks' refined masks equal, with one depth render per view
+    through the layout's forward kernel (K1, or K5 for "dense").
+    -> {"votes", "weights"}: the largest normalised errors."""
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.ops.rasterize import rasterize
+    from opengaussian_tpu_torch.refine import sam_refiner as sr
+
+    st, cams, sam, cfg = refiner_two_blobs()
+    cfg = dataclasses.replace(cfg, pallas_input=layout)
+    st_g = to_device(st, dev)
+    M = int(sam.max())
+    errs = {"votes": 0.0, "weights": 0.0}
+    rng = np.random.default_rng(4)
+    for v, cam in enumerate(cams):
+        with torch.no_grad():
+            r = rasterize(cam, st.means, build_cov3d(st.scales, st.quats), st.opacity,
+                          torch.zeros((st.capacity, 1)), torch.zeros(1), cfg)
+        depth = r.depth / torch.clamp(r.alpha, min=1e-6)
+        vc, visc = sr.splat_id_votes(st, cam, torch.as_tensor(sam[v]), depth, M, cfg)
+        vg, visg = sr.splat_id_votes(st_g, cam, torch.as_tensor(sam[v], device=dev),
+                                     depth.to(dev), M, cfg)
+        if not torch.equal(visg.cpu(), visc):
+            raise AssertionError(f"refiner view {v}: visibility differs on the card")
+        gid = torch.as_tensor(np.where(st.alive.numpy(), rng.integers(0, M + 3, 128), 0))
+        wargs = (gid, torch.as_tensor(rng.random(128) < 0.7),
+                 torch.as_tensor(np.where(sam[v] > 0, sam[v] + 1, 0)),
+                 torch.as_tensor(rng.integers(0, 5, M + 2).astype(np.float32)), M + 2, cfg)
+        wc = sr.pixel_weight_accumulation(st, cam, *wargs)
+        wg = sr.pixel_weight_accumulation(st_g, cam, *[
+            a.to(dev) if isinstance(a, torch.Tensor) else a for a in wargs])
+        errs["votes"] = max(errs["votes"], normalised_err(vg, vc))
+        errs["weights"] = max(errs["weights"], normalised_err(wg, wc))
+    if max(errs.values()) > 1e-5:
+        raise AssertionError(f"refiner on the card against the CPU, {layout}: normalised "
+                             f"errors {errs}")
+    wrappers = zero_launches()
+    got = sr.refine_sam_masks(st_g, cams, sam, cfg, anchor_stride=1)
+    fwd = {"blend_tiles_fwd": len(cams)} if layout == "dense" else {}
+    read_launches(wrappers, 0 if fwd else len(cams), f"refiner, {layout} layout", **fwd)
+    want = sr.refine_sam_masks(st, cams, sam, cfg, anchor_stride=1)
+    if not np.array_equal(got, want) or not (want > 0).any():
+        raise AssertionError(f"refiner, {layout} layout: the card's refined masks differ "
+                             f"from the CPU's in {int((got != want).sum())} pixels")
+    log(f"refiner, {layout} layout, two-blob scene: votes and weights on the card against "
+        f"the CPU to a normalised {errs['votes']:.2e} and {errs['weights']:.2e}, "
+        f"visibility and refined masks equal ({len(np.unique(want[want > 0]))} ids)")
+    return errs
+
+
+def refine_scene(dev):
+    """tools/refine_bench.py:51-84's scene, built here: REFINE_SPLATS splats
+    filling a room volume, ~40% of them past the 0.99 anchor opacity (a
+    trained scene's top end), REFINE_VIEWS cameras on an arc at
+    REFINE_W x REFINE_H, and per-view blocky SAM grids of REFINE_IDS ids
+    whose numbering shifts per view (so stage 1 has cross-view work), with an
+    invalid border stripe. -> (state, cameras, SAM ids [V, H, W] int16)."""
+    from opengaussian_tpu_torch.cameras import Camera
+    from opengaussian_tpu_torch.models import gaussians as G
+
+    rng = np.random.default_rng(0)
+    n = REFINE_SPLATS
+    pts = np.stack([rng.normal(0, 1.2, n), rng.normal(0, 0.9, n),
+                    rng.uniform(2.0, 9.0, n)], -1).astype(np.float32)
+    cols = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    gs = G.create_from_pcd(pts, cols, capacity=n, seed=0, device=dev)
+    op = np.where(rng.uniform(size=n) < 0.4, 6.0, rng.normal(0.0, 2.0, n))
+    gs = dataclasses.replace(gs, log_scales=gs.log_scales + math.log(0.05),
+                             logit_opacity=torch.as_tensor(op.astype(np.float32), device=dev))
+    W, H, ids = REFINE_W, REFINE_H, REFINE_IDS
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    gh = max(1, int(np.sqrt(ids / 2)))
+    gw = max(1, ids // gh)
+    block = ((yy * gh // H) * gw + (xx * gw // W)) % ids
+    cams, sams = [], []
+    for v in range(REFINE_VIEWS):
+        ang = 0.9 * (v / max(REFINE_VIEWS - 1, 1) - 0.5)
+        R = np.array([[np.cos(ang), 0, -np.sin(ang)], [0, 1, 0],
+                      [np.sin(ang), 0, np.cos(ang)]], np.float32)
+        t = np.array([0.8 * np.sin(2 * ang), 0.1 * np.cos(3 * ang), 0.0], np.float32)
+        cams.append(Camera.from_fov(R, t, 1.1, 0.9, W, H))
+        s = ((block + v * 7) % ids + 1).astype(np.int16)
+        s[:6] = 0
+        sams.append(s)
+    return gs, cams, np.stack(sams)
+
+
+def depth_stream(camera, state, rcfg):
+    """The blend input of the refiner's depth render of one view (payload
+    zeros [N, 1] and depth: C = 2), built by the render path's own _prepare
+    and gather_rows. -> (rows, counts, tstart, toff, grid_x)."""
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.ops.rasterize import _prepare, gather_rows
+
+    camera = camera.to(state.device)
+    proj, bins, (gx, _) = _prepare(camera, state.means, build_cov3d(state.scales, state.quats),
+                                   state.opacity, rcfg)
+    opac = torch.where(proj.valid, state.opacity, 0.0)
+    payload = torch.cat([torch.zeros((state.capacity, 1), device=state.device),
+                         proj.depth[:, None]], dim=-1)
+    rows = gather_rows(proj.mean2d, proj.conic, opac, payload, bins.sorted_gauss)
+    toff = torch.arange(bins.counts.shape[0], dtype=torch.int32, device=state.device)
+    return rows, bins.counts, bins.tile_start, toff, gx
+
+
+def refine_phase(dev, card: str) -> dict:
+    """The refiner's fused path (no trace: the per-pixel argmax stays on the
+    card) at tools/refine_bench.py's shape, through refine_sam_masks, the
+    function the trainer calls. max_per_tile is fitted to the deepest tile of
+    the refiner's own binning (no opacities: the 3-sigma rect), so no slot
+    is truncated. Checks exactly one K1 launch per view and no other kernel,
+    K1 bit for bit with its plain version on view 0's depth stream (C = 2),
+    and refined ids in [-1, n_gids]; logs the phase seconds, n_gids, the
+    void fraction, the peak device memory, and the device time of one
+    view's vote and expansion passes (torch.profiler, every kernel).
+    -> those numbers."""
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, deepest_tile, rasterize
+    from opengaussian_tpu_torch.refine import sam_refiner as sr
+
+    t0 = time.perf_counter()
+    gs, cams, sam = refine_scene(dev)
+    chunk = RasterizeConfig().chunk
+    with torch.no_grad():
+        cov3d = build_cov3d(gs.scales, gs.quats)
+        deep = [deepest_tile(c, gs.means, cov3d, None, RasterizeConfig()) for c in cams]
+        v_deep = int(np.argmax(deep))
+        rcfg = RasterizeConfig(max_per_tile=-(-max(deep) // chunk) * chunk)
+        _, bins, _, _ = sr._footprint_bins(gs, cams[v_deep].to(dev), rcfg)
+    n_trunc = int(bins.n_truncated)
+    log(f"refiner phase: {REFINE_SPLATS} splats, {REFINE_VIEWS} views {REFINE_W}x"
+        f"{REFINE_H}, {REFINE_IDS} ids per view, anchor stride {REFINE_STRIDE}; set up in "
+        f"{time.perf_counter() - t0:.1f} s; the refiner binning's deepest tile {max(deep)} "
+        f"(view {v_deep}; {min(deep)} in the shallowest view), max_per_tile "
+        f"{rcfg.max_per_tile}, n_truncated {n_trunc} in that view")
+    if n_trunc != 0:
+        raise AssertionError("refiner phase: the fitted max_per_tile truncated a tile")
+    with torch.no_grad():
+        k1_err, _ = check_kernel_against_plain({2: depth_stream(cams[0], gs, rcfg)}, chunk)
+
+    expand, first = sr.pixel_weight_expand, {}
+
+    def recording(*args):  # the expansion's inputs: n_gids and view 0's arguments
+        first.setdefault("args", args)
+        return expand(*args)
+
+    sr.pixel_weight_expand = recording
+    try:
+        wrappers = zero_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timings = {}
+        t0 = time.perf_counter()
+        refined = sr.refine_sam_masks(gs, cams, sam, rcfg, anchor_stride=REFINE_STRIDE,
+                                      timings=timings)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = read_launches(wrappers, REFINE_VIEWS, "refiner phase")
+    finally:
+        sr.pixel_weight_expand = expand
+    n_gids = first["args"][6]
+    void = float((refined < 0).mean())
+    if refined.shape != sam.shape or refined.min() < -1 or refined.max() > n_gids or \
+            not (refined > 0).any():
+        raise AssertionError(f"refiner phase: refined {refined.shape}, ids "
+                             f"{refined.min()}..{refined.max()} for {n_gids} global ids")
+    device_s = sum(v for k, v in timings.items() if k.startswith("device"))
+    log(f"refiner phase: {total:.3f} s in all, by phase "
+        + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+        + f" (device phases {device_s:.3f} s, each ending in its copy to the host); "
+        f"n_gids {n_gids}, void fraction {void:.4f}, peak device memory "
+        f"{peak / 2**30:.3f} GiB, launches {launches} [{card}]")
+    # one view's vote and expansion passes alone, every kernel they launch
+    with torch.no_grad():
+        r = rasterize(cams[0], gs.means, cov3d, gs.opacity,
+                      torch.zeros((gs.capacity, 1), device=dev), torch.zeros(1, device=dev),
+                      rcfg)
+        depth = r.depth / torch.clamp(r.alpha, min=1e-6)
+    sam0, M = torch.as_tensor(sam[0], device=dev), int(sam.max())
+    votes_ms = device_ms(lambda: sr.splat_id_votes(gs, cams[0], sam0, depth, M, rcfg), 3)
+    expand_ms = device_ms(lambda: expand(*first["args"]), 3)
+    votes_wall = cuda_ms(lambda: sr.splat_id_votes(gs, cams[0], sam0, depth, M, rcfg), 3)
+    expand_wall = cuda_ms(lambda: expand(*first["args"]), 3)
+    log(f"timing: refiner passes of view 0 ({REFINE_W}x{REFINE_H}, max_per_tile "
+        f"{rcfg.max_per_tile}): votes {votes_ms:.3f} ms device time ({votes_wall:.3f} ms a "
+        f"call), expansion over {n_gids} global ids {expand_ms:.3f} ms device time "
+        f"({expand_wall:.3f} ms a call) [{card}]")
+    return dict(total_s=total, timings=timings, n_gids=n_gids, void=void, peak=peak,
+                launches=launches, k1_err=k1_err, votes_ms=votes_ms, expand_ms=expand_ms,
+                deepest=max(deep), max_per_tile=rcfg.max_per_tile)
+
+
 def profile(fn, n: int, what: str) -> tuple[float, float]:
     """torch.profiler over n calls of fn: device time by kernel.
     -> (device busy ms per call, the union of the kernels' intervals; host
@@ -1013,7 +1258,8 @@ def expected_launches(tr, rcfg) -> dict:
     forward and one backward per step; sweep 1 (one render per view) at the
     entries to stages 2.1 and 2.2; sweep 2 at stage-2.2 entry, one render per
     root and view; stage 3, per view one partition render per root (stream)
-    or one render per leaf (dense)."""
+    or one render per leaf (dense); with the SAM refiner, one depth render
+    per view before stage 1."""
     o, V = tr.cfg.opt, tr.bundle.num_views
     k1, k2 = o.root_node_num, o.leaf_node_num
     dense = rcfg.pallas_input == "dense"
@@ -1022,35 +1268,56 @@ def expected_launches(tr, rcfg) -> dict:
            "blend_stream_bwd_compact" if rcfg.bwd_layout == "compact" else "blend_stream_bwd")
     want = dict.fromkeys(launch_counts(), 0)
     want[fwd] = TRAIN_ITERS + 2 * V + k1 * V + (k1 * k2 if dense else k1) * V
+    if o.enable_multiview_sam_refinement:
+        want[fwd] += V
     want[bwd] = want["segment_reduce"] = TRAIN_ITERS
     return want
 
 
-def train_path(scene_dir: str, root: str, dev, name: str, rcfg) -> tuple:
+def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
+               extra: tuple = ()) -> tuple:
     """The training main path: cli.train.main for TRAIN_ITERS iterations
     through stages 0, 1, 2.1 and 2.2, then stage 3 (rcfg: the rasterizer's
-    settings), every kernel's launches counted around it. Checks the
-    launches, the losses, the geometry across the feature stages, the
-    codebooks, cluster_lang.npz and the checkpoint.
+    settings; extra: more flags of cli.train), every kernel's launches
+    counted around it. Checks the launches, the losses, the geometry across
+    the feature stages, the codebooks, cluster_lang.npz and the checkpoint.
+    With the SAM refiner, the trainer's call of refine_sam_masks is wrapped
+    to keep the SAM ids it was given, its phase seconds and its wall time in
+    the trainer's `refined` attribute.
     -> (trainer, {kernel: launches}, output dir, seconds)."""
     from opengaussian_tpu_torch.cli import train as cli_train
     from opengaussian_tpu_torch.data.ply import load_gaussian_ply
-    from opengaussian_tpu_torch.train import checkpoint
+    from opengaussian_tpu_torch.train import checkpoint, loop
     from opengaussian_tpu_torch.utils.codebook import load_codebook
 
     out = os.path.join(root, f"trained_{name}")
-    wrappers = launch_counts()
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.perf_counter()
-    flags = [x for k, v in STAGE_ENDS.items() for x in (f"--{k}", str(v))]
-    tr = cli_train.main(
-        ["-s", scene_dir, "-m", out, "--iterations", str(TRAIN_ITERS), *flags,
-         "--densify_from_iter", "10", "--densification_interval", "10",
-         "--opacity_reset_interval", "30", "--leaf_update_fr", str(LEAF_UPDATE_FR),
-         "--checkpoint_iterations", str(TRAIN_ITERS)], device=dev, rcfg=rcfg)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    refine, real_refine = {}, loop.refine_sam_masks
+
+    def timed_refine(gs, cams, sam_ids, config, **kw):
+        refine.update(before=sam_ids.copy(), timings={}, capacity=gs.capacity,
+                      config=config)
+        t = time.perf_counter()
+        ids = real_refine(gs, cams, sam_ids, config, timings=refine["timings"], **kw)
+        refine["seconds"] = time.perf_counter() - t
+        return ids
+
+    loop.refine_sam_masks = timed_refine
+    try:
+        wrappers = launch_counts()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        flags = [x for k, v in STAGE_ENDS.items() for x in (f"--{k}", str(v))]
+        tr = cli_train.main(
+            ["-s", scene_dir, "-m", out, "--iterations", str(TRAIN_ITERS), *flags,
+             "--densify_from_iter", "10", "--densification_interval", "10",
+             "--opacity_reset_interval", "30", "--leaf_update_fr", str(LEAF_UPDATE_FR),
+             "--checkpoint_iterations", str(TRAIN_ITERS), *extra], device=dev, rcfg=rcfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        loop.refine_sam_masks = real_refine
+    tr.refined = refine
     launches = {k: w.launches for k, w in wrappers.items()}
     what = f"training path ({name})"
     log(f"{what}: {TRAIN_ITERS} iterations and stage 3 in {seconds:.2f} s (scene load, "
@@ -1125,6 +1392,83 @@ def train_path(scene_dir: str, root: str, dev, name: str, rcfg) -> tuple:
         f"leaves matched in some view (the synthetic scene need not clear stage 3's "
         f"gates); chkpnt{TRAIN_ITERS}.npz reloads bit for bit")
     return tr, launches, out, seconds
+
+
+def check_refined_run(tr, out: str, card: str) -> dict:
+    """The SAM refiner's training run: the refiner ran once, on the state
+    before the first stage-1 step; the bundle's SAM ids were rewritten
+    (changed, none negative), max_masks is a multiple of 8 that holds them,
+    and refine_trace/ holds the trace's artifacts. Logs the refiner's phase
+    seconds, n_gids, the void fraction, and per view the deepest tile of the
+    refiner's own binning (no opacities: the 3-sigma rect) with the slots
+    that max_per_tile, fitted to the training binning, truncated there (the
+    geometry is frozen past stage 0, so the final state bins as the
+    refiner's did). -> those numbers."""
+    from opengaussian_tpu_torch.refine import sam_refiner as sr
+
+    ref = tr.refined
+    if "seconds" not in ref:
+        raise AssertionError("refined run: the trainer did not call the refiner")
+    after = tr.bundle.sam_ids
+    after = after.cpu().numpy() if isinstance(after, torch.Tensor) else np.asarray(after)
+    before, V = ref["before"], tr.bundle.num_views
+    if np.array_equal(before, after) or after.min() < 0 or tr.bundle.max_masks % 8 or \
+            tr.bundle.max_masks < after.max():
+        raise AssertionError(f"refined run: ids {after.min()}..{after.max()}, changed "
+                             f"{not np.array_equal(before, after)}, max_masks "
+                             f"{tr.bundle.max_masks}")
+    trace = os.path.join(out, "refine_trace")
+    want = {"stage1_sync.npz", "summary.json",
+            *(f"{k}_{v}.png" for k in ("depth", "dominant", "refined") for v in range(V))}
+    if not want <= set(os.listdir(trace)):
+        raise AssertionError(f"refined run: {trace} lacks {want - set(os.listdir(trace))}")
+    with open(os.path.join(trace, "summary.json")) as f:
+        n_gids = json.load(f)["n_global_ids"]
+    void = float((after == 0).mean())  # the refiner's void (-1) is the id 0 here
+    with torch.no_grad():
+        bins = [sr._footprint_bins(tr.state, tr.bundle.camera(v).to(tr.device),
+                                   ref["config"])[1] for v in range(V)]
+    log(f"refined run: the refiner's binning at max_per_tile "
+        f"{ref['config'].max_per_tile}: deepest tile per view "
+        f"{[int(b.deepest) for b in bins]}, slots truncated per view "
+        f"{[int(b.n_truncated) for b in bins]}")
+    log(f"refined run: the refiner took {ref['seconds']:.3f} s on capacity "
+        f"{ref['capacity']} before step {STAGE_ENDS['start_ins_feat_iter'] + 1}, by phase "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ref["timings"].items())
+        + f" (traced: the weights go to the host); n_gids {n_gids}, void fraction "
+        f"{void:.4f} (before {float((before == 0).mean()):.4f}), max_masks "
+        f"{tr.bundle.max_masks}, ids {len(np.unique(after))} distinct [{card}]")
+    return dict(seconds=ref["seconds"], timings=ref["timings"], n_gids=n_gids, void=void)
+
+
+def time_view_steps(tr, card: str, name: str) -> dict:
+    """Stage-0 and stage-1 step time from a trained state, through the
+    trainer's own view store (10 steps between two CUDA events, each from the
+    same state) through Trainer.view, as its _run_single takes them: a
+    host-resident trainer first copies each step's view window to the card
+    (and, lazily loaded, decodes it from disk). -> {"0": ms, "1": ms}."""
+    from opengaussian_tpu_torch.train import loop
+
+    o, V = tr.cfg.opt, tr.bundle.num_views
+
+    def s0(i):
+        b, j = tr.view(tr.bundle, i % V)
+        loop.stage0_step(tr.state, tr.adam, tr.stats, b, j, STAGE_ENDS["start_ins_feat_iter"],
+                         tr.bg, tr.spatial_lr_scale, tr.rcfg, o)
+
+    def s1(i):
+        b, j = tr.view(tr.bundle, i % V)
+        loop.stage1_step(tr.state, tr.adam, b, j, o.start_ins_feat_iter + 1, tr.bg, 1.0,
+                         tr.rcfg, o, tr.any_alpha)
+
+    out = {}
+    for stage, fn in (("0", s0), ("1", s1)):
+        i = iter(range(1000))
+        out[stage] = cuda_ms(lambda: fn(next(i)), iters=10)
+    log(f"timing: {name} run, views {'in host memory' if tr.save_memory else 'on the card'}"
+        f": stage-0 step {out['0']:.3f} ms, stage-1 step {out['1']:.3f} ms (capacity "
+        f"{tr.state.capacity}) [{card}]")
+    return out
 
 
 def check_trained_render(out: str, scene_dir: str, dev) -> int:
@@ -2017,6 +2361,7 @@ def main(argv=None) -> int:
         check_feature_steps_against_cpu(dev)
         partition_err = check_partition_against_scan(cam0, state, dev)
         check_stage22_against_cpu(dev)
+        refiner_errs = {lay: check_refiner_against_cpu(dev, lay) for lay in ("stream", "dense")}
 
         # 4. render path, through the CLI a user runs
         for w in launch_counts().values():
@@ -2099,6 +2444,21 @@ def main(argv=None) -> int:
                 leaf_ms[run] = time_leaf_events(tr_r, card, run)
             if run != "stream":
                 del tr_r
+        # the SAM refiner before stage 1, on host-resident, lazily loaded views
+        tr_l, train_launches["lazy_refine"], out_l, _ = train_path(
+            scene_dir, root, dev, "lazy_refine", RasterizeConfig(),
+            ("--enable_multiview_sam_refinement", "--lazy_load"))
+        l_s, l_r = float(tr.losses[0]), float(tr_l.losses[0])
+        if not tr_l.save_memory or not math.isclose(l_r, l_s, rel_tol=1e-5):
+            raise AssertionError(f"first loss: lazy_refine run {l_r!r}, stream {l_s!r}, "
+                                 f"save_memory {tr_l.save_memory}")
+        log(f"training path: first loss {l_r:.7f} (lazy_refine) and {l_s:.7f} (stream)")
+        refined_run = check_refined_run(tr_l, out_l, card)
+        view_steps = [time_view_steps(t, card, nm) for nm, t in (
+            ("stream", tr), ("lazy_refine", tr_l), ("lazy_refine", tr_l), ("stream", tr))]
+        del tr_l
+        # the refiner's fused path at the ScanNet shape
+        refine = refine_phase(dev, card)
 
         # 7. timings
         k_ms, p_ms, k1_dev = {}, {}, {}
@@ -2294,7 +2654,8 @@ def main(argv=None) -> int:
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
-    main_paths = (render_launches, *train_launches.values(), *queries["launches"].values())
+    main_paths = (render_launches, *train_launches.values(), *queries["launches"].values(),
+                  refine["launches"])
     total = {k: sum(p[k] for p in main_paths) for k in render_launches}
     log(f"launches on the main paths: render {render_launches}, "
         + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()) + ", "
@@ -2308,12 +2669,23 @@ def main(argv=None) -> int:
             + ", ".join(f"C={C} {v:.4f} ms" for C, v in render_dev.items()) + f" [{card}]")
     log(f"summary: stage-2.2 step ms {s22_ms}; sweep 2 / stage 3 ms per view {leaf_ms}; "
         f"partition against scan max abs err {partition_err:.3e} [{card}]")
+    log(f"summary: refiner: {REFINE_VIEWS} views {REFINE_W}x{REFINE_H}, {REFINE_SPLATS} "
+        f"splats: {refine['total_s']:.3f} s, n_gids {refine['n_gids']}, void fraction "
+        f"{refine['void']:.4f}, peak device memory {refine['peak'] / 2**30:.3f} GiB, view 0's "
+        f"votes {refine['votes_ms']:.3f} ms and expansion {refine['expand_ms']:.3f} ms device "
+        f"time; in the lazy_refine training run {refined_run['seconds']:.3f} s (n_gids "
+        f"{refined_run['n_gids']}); card against CPU, two blobs: "
+        + ", ".join(f"{lay} votes {e['votes']:.2e} weights {e['weights']:.2e}"
+                    for lay, e in refiner_errs.items())
+        + "; stage-0 / stage-1 step ms in turns stream, lazy_refine, lazy_refine, stream: "
+        + ", ".join(f"{v['0']:.3f} / {v['1']:.3f}" for v in view_steps) + f" [{card}]")
     log(f"summary: queries: render_selection {queries['sel_ms']:.3f} ms, LPIPS "
         f"{queries['lp_ms']:.3f} ms per view, viewer frame {queries['frame_ms']:.3f} ms; "
         f"card against CPU at 160x120, largest normalised error "
         f"{max(queries['errors'].values()):.3e} [{card}]")
     kernels = [
-        row("blend_stream_fwd", total["blend_stream_fwd"], max(k1_err, train["k1"]["err"]),
+        row("blend_stream_fwd", total["blend_stream_fwd"],
+            max(k1_err, train["k1"]["err"], refine["k1_err"]),
             sum(k_ms.values()) / len(k_ms), sum(p_ms.values()) / len(p_ms),
             sum(k1_b) / len(k1_b), max(k1_bound.values())[1], line=562),
         row("blend_stream_bwd", total["blend_stream_bwd"],

@@ -14,7 +14,11 @@ chkpnt<N>.npz at each of --checkpoint_iterations and resumes from
 --start_checkpoint (an .npz of either package or a reference .pth). It
 writes the train_process/ PNG dumps unless --disable_intermediate_dumps, and
 with --port N serves the SIBR remote viewer on 127.0.0.1:N while it trains.
-A flag whose feature the port does not have yet raises NotImplementedError.
+--enable_multiview_sam_refinement refines the SAM masks across views once,
+before the first stage-1 step; --save_memory keeps the views in host memory
+and copies one to the device per step; --lazy_load implies --save_memory and
+decodes each view from disk when it is used. --mesh (multi-GPU training) is
+not in the port yet and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -98,19 +102,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_left_out(args, cfg: Config) -> None:
+def _refuse_left_out(args) -> None:
     """Raise for every flag whose feature this slice of the port lacks."""
-    left_out = {
-        "--mesh": (bool(args.mesh), "multi-GPU training"),
-        "--save_memory": (bool(cfg.opt.save_memory), "host-resident view bundles"),
-        "--lazy_load": (args.lazy_load, "lazily decoded views"),
-        "--enable_multiview_sam_refinement": (
-            bool(cfg.opt.enable_multiview_sam_refinement), "the SAM mask refiner"),
-    }
-    for flag, (given, what) in left_out.items():
-        if given:
-            raise NotImplementedError(
-                f"{flag}: {what} is not in the PyTorch port yet (see ROADMAP.md)")
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh: multi-GPU training is not in the PyTorch port yet (see ROADMAP.md)")
 
 
 def main(argv=None, device="cuda", rcfg: RasterizeConfig | None = None) -> Trainer:
@@ -120,6 +116,8 @@ def main(argv=None, device="cuda", rcfg: RasterizeConfig | None = None) -> Train
     args = build_parser().parse_args(argv)
     cfg = PRESETS.get(args.preset, Config()) if args.preset else Config()
     opt_over = {k: getattr(args, k) for k in OPT_FLAGS if getattr(args, k) is not None}
+    if args.lazy_load:  # lazy views need host-resident bundles
+        opt_over["save_memory"] = True
     cfg = Config(
         model=ModelConfig(source_path=args.source_path, model_path=args.model_path,
                           images=args.images, resolution=args.resolution,
@@ -127,13 +125,13 @@ def main(argv=None, device="cuda", rcfg: RasterizeConfig | None = None) -> Train
         opt=dataclasses.replace(cfg.opt, **opt_over),
         pipe=cfg.pipe,
     )
-    _refuse_left_out(args, cfg)
+    _refuse_left_out(args)
     dev = resolve_device(device)
     out_dir = args.model_path or os.path.join("output", os.path.basename(args.source_path))
 
     print(f"Loading scene {args.source_path} ...", flush=True)
     scene = load_scene(args.source_path, args.images, args.white_background, args.eval,
-                       args.resolution)
+                       args.resolution, lazy=args.lazy_load)
     print(f"{len(scene.train_views)} train / {len(scene.test_views)} test views, "
           f"{len(scene.points)} init points, extent {scene.cameras_extent:.2f}",
           flush=True)

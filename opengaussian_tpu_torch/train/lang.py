@@ -92,12 +92,15 @@ def associate_language(state, kms, bundle, pseudo, clip_tables: list, bg, k1: in
     match_id = np.zeros((k1 * k2, V), np.int64)
     match_score = np.zeros((k1 * k2, V), np.float32)
     match_ok = np.zeros((k1 * k2, V), bool)
+    dev = state.device
     for v in range(V):
-        occur_row = (pseudo.cluster_occur[v] if pseudo.cluster_occur is not None
-                     else torch.ones((k1,), dtype=torch.bool, device=state.device))
+        occur_row = (pseudo.cluster_occur[v].to(dev) if pseudo.cluster_occur is not None
+                     else torch.ones((k1,), dtype=torch.bool, device=dev))
+        # the pseudo labels are in host memory under save_memory
         mid, sc, ok = _associate_view(state, kms.leaf_cls_ids, bundle.camera(v),
-                                      pseudo.feat[v], pseudo.mask_ids[v], occur_row, bg,
-                                      k1, k2, bundle.max_masks, config)
+                                      pseudo.feat[v].to(dev, non_blocking=True),
+                                      pseudo.mask_ids[v].to(dev, non_blocking=True),
+                                      occur_row, bg, k1, k2, bundle.max_masks, config)
         match_id[:, v] = mid.cpu().numpy()
         match_score[:, v] = sc.cpu().numpy()
         match_ok[:, v] = ok.cpu().numpy()

@@ -23,8 +23,13 @@ zero, so it stays as it was, bit for bit. The blend's backward is K2 + K3
 (ops/rasterize.py:StreamBlend), K4 + K3 with RasterizeConfig(bwd_layout=
 "compact"), or, with RasterizeConfig(pallas_input="dense"), K6 + K3
 (DenseBlend). Every view's ground truth and camera sits on the device in
-stacked tensors (`ViewBundle`). Checkpoints (`save_checkpoint`,
-`restore_checkpoint`) use train/checkpoint.py.
+stacked tensors (`ViewBundle`), or, with save_memory, in host memory, from
+which each step copies its view's window to the device (`bundle_window`;
+a lazily loaded scene decodes that view alone). With
+enable_multiview_sam_refinement the SAM mask refiner (refine/sam_refiner.py)
+rewrites the bundle's SAM ids once, before the first stage-1 step.
+Checkpoints (`save_checkpoint`, `restore_checkpoint`) use
+train/checkpoint.py.
 
 The port runs eagerly: a step is one Python function, with no jit and no
 scanned blocks of steps. Its binning sizes the slot buffer per frame, so of
@@ -32,8 +37,8 @@ the JAX trainer's budget probe only the per-tile cap is left: the trainer
 raises max_per_tile past the deepest tile it finds, as the JAX trainer's
 probe does, so that no slot is truncated; group renders use the same cap
 (the JAX package's per-group budgets are not ported). What the port leaves
-out so far raises NotImplementedError: save_memory and lazy view bundles,
-the device mesh, the SAM mask refiner and frozen binning plans.
+out so far raises NotImplementedError: the device mesh. Frozen binning
+plans and scanned blocks of steps are not ported.
 
 Observability as in the JAX trainer: the train_process/ PNG dumps
 (train/observe.py, every 1000 iterations, 100 in stage 2.2, unless
@@ -55,6 +60,7 @@ import torch
 from opengaussian_tpu_torch.cameras import Camera
 from opengaussian_tpu_torch.config import Config, OptimizationConfig
 from opengaussian_tpu_torch.data.dataset import Scene, View
+from opengaussian_tpu_torch.data.lazy import LazyStack, is_lazy
 from opengaussian_tpu_torch.data.ply import save_gaussian_ply
 from opengaussian_tpu_torch.device import resolve_device
 from opengaussian_tpu_torch.models import gaussians as G
@@ -62,6 +68,8 @@ from opengaussian_tpu_torch.models import optimizer as opt_mod
 from opengaussian_tpu_torch.ops import kmeans as km
 from opengaussian_tpu_torch.ops.projection import build_cov3d
 from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, deepest_tile
+from opengaussian_tpu_torch.refine.introspect import RefinerTrace
+from opengaussian_tpu_torch.refine.sam_refiner import refine_sam_masks
 from opengaussian_tpu_torch.render import render, render_clusters
 from opengaussian_tpu_torch.train import checkpoint as ckpt
 from opengaussian_tpu_torch.train import lang, losses, observe
@@ -75,7 +83,9 @@ HEADROOM = 1.3  # scenes evolve between probes (the JAX package's ops/budget.py)
 
 @dataclasses.dataclass(frozen=True)
 class ViewBundle:
-    """Every training view, stacked on one device."""
+    """Every training view, stacked on one device, or in host memory
+    (`bundle_views(..., host=True)`), where a lazily loaded scene's images,
+    alpha masks and SAM ids are data/lazy.LazyStack stacks."""
 
     R: torch.Tensor  # [V,3,3]
     t: torch.Tensor  # [V,3]
@@ -101,8 +111,24 @@ class ViewBundle:
         return self.gt_images.shape[0]
 
 
-def bundle_views(views: list[View], sam_level: int, device="cuda") -> ViewBundle:
-    """Stack `views` on `device` (the JAX package's device-resident bundle)."""
+def _host_tensor(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """x in host memory, pinned when `dev` is a GPU, so that its copies to
+    the card can be asynchronous."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    return t.pin_memory() if dev.type == "cuda" else t
+
+
+def bundle_views(views: list[View], sam_level: int, device="cuda",
+                 host: bool = False) -> ViewBundle:
+    """Stack `views` for training on `device`. host=False: every array on
+    the device (the JAX package's device-resident bundle). host=True, the
+    save_memory mode: the images, alpha masks and SAM ids stay in host memory
+    (pinned when `device` is a GPU) and the trainer copies one view's window
+    to the device per step (`bundle_window`; the reference's --save_memory
+    to_gpu/to_cpu shuffling, scene/cameras.py:94-107). A lazily loaded
+    scene (data/lazy.py) needs host=True: its stacks stay lazy, so host
+    memory holds one decoded view, and a full-stack read (the SAM refiner)
+    decodes them all at a transient peak."""
     if not views:
         raise ValueError("no views")
     dev = resolve_device(device)
@@ -110,20 +136,47 @@ def bundle_views(views: list[View], sam_level: int, device="cuda") -> ViewBundle
     for v in views:
         if v.gt_image.shape[:2] != (h, w):
             raise ValueError("views must share a resolution")
+    lazy = any(is_lazy(v.gt_image) for v in views)
+    if lazy and not host:
+        raise ValueError("lazily loaded views need a host-resident bundle (save_memory)")
+
+    def ids_of(v):
+        if v.sam_mask is None:
+            return np.zeros((h, w), np.int32)
+        return masku.decode_sam_level(np.asarray(v.sam_mask), sam_level).astype(np.int32)
+
     ids = []
     max_masks = 8
     for v in views:
-        if v.sam_mask is not None:
-            m = masku.decode_sam_level(np.asarray(v.sam_mask), sam_level)
-            max_masks = max(max_masks, int(m.max()))
-            ids.append(m.astype(np.int32))
-        else:
-            ids.append(np.zeros((h, w), np.int32))
+        m = ids_of(v)  # lazy views decode here once (streaming: not retained)
+        max_masks = max(max_masks, int(m.max()))
+        if not lazy:
+            ids.append(m)
     max_masks = int(np.ceil(max_masks / 8) * 8)
 
-    def t(x, dtype=np.float32):
-        return torch.as_tensor(np.asarray(x, dtype), device=dev)
+    small_dev = torch.device("cpu") if host else dev
 
+    def t(x, dtype=np.float32):
+        return torch.as_tensor(np.asarray(x, dtype), device=small_dev)
+
+    def big(x, dtype=np.float32):
+        return _host_tensor(np.asarray(x, dtype), dev) if host else t(x, dtype)
+
+    def alpha_of(v):
+        if v.gt_alpha_mask is None:
+            return np.ones((h, w), np.float32)
+        return np.asarray(v.gt_alpha_mask, np.float32)
+
+    if lazy:
+        gt_images = LazyStack([lambda v=v: np.asarray(v.gt_image, np.float32)
+                               for v in views], (h, w, 3), np.float32)
+        alpha_masks = LazyStack([lambda v=v: alpha_of(v) for v in views], (h, w),
+                                np.float32)
+        sam_ids = LazyStack([lambda v=v: ids_of(v) for v in views], (h, w), np.int32)
+    else:
+        gt_images = big(np.stack([np.asarray(v.gt_image, np.float32) for v in views]))
+        alpha_masks = big(np.stack([alpha_of(v) for v in views]))
+        sam_ids = big(np.stack(ids), np.int32)
     return ViewBundle(
         R=t(np.stack([v.camera.R_w2c.cpu().numpy() for v in views])),
         t=t(np.stack([v.camera.t_w2c.cpu().numpy() for v in views])),
@@ -131,14 +184,31 @@ def bundle_views(views: list[View], sam_level: int, device="cuda") -> ViewBundle
         fy=t([float(v.camera.fy) for v in views]),
         cx=t([float(v.camera.cx) for v in views]),
         cy=t([float(v.camera.cy) for v in views]),
-        gt_images=t(np.stack([np.asarray(v.gt_image, np.float32) for v in views])),
-        alpha_masks=t(np.stack([
-            np.asarray(v.gt_alpha_mask, np.float32) if v.gt_alpha_mask is not None
-            else np.ones((h, w), np.float32) for v in views])),
+        gt_images=gt_images, alpha_masks=alpha_masks,
         has_alpha=t([v.gt_alpha_mask is not None for v in views], bool),
-        sam_ids=t(np.stack(ids), np.int32),
-        width=w, height=h, max_masks=max_masks,
+        sam_ids=sam_ids, width=w, height=h, max_masks=max_masks,
     )
+
+
+def bundle_window(bundle: ViewBundle, vi: int, device) -> ViewBundle:
+    """View vi of a host-resident bundle as a one-view bundle on `device`
+    (the save_memory mode's per-step window, the JAX package's
+    bundle_window). Pinned arrays copy asynchronously; a lazy stack decodes
+    that view alone."""
+    dev = resolve_device(device)
+
+    def sl(x):
+        x = x[vi:vi + 1]
+        if not isinstance(x, torch.Tensor):  # a LazyStack's decoded view
+            x = torch.from_numpy(x)
+        return x.to(dev, non_blocking=True)
+
+    return ViewBundle(
+        R=sl(bundle.R), t=sl(bundle.t), fx=sl(bundle.fx), fy=sl(bundle.fy),
+        cx=sl(bundle.cx), cy=sl(bundle.cy), gt_images=sl(bundle.gt_images),
+        alpha_masks=sl(bundle.alpha_masks), has_alpha=sl(bundle.has_alpha),
+        sam_ids=sl(bundle.sam_ids), width=bundle.width, height=bundle.height,
+        max_masks=bundle.max_masks)
 
 
 def _mask_sh(gs: G.GaussianState, iteration: int) -> G.GaussianState:
@@ -308,10 +378,6 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "training over a device mesh arrives with the port's multi-GPU slice")
-        if cfg.opt.save_memory:
-            raise NotImplementedError(
-                "save_memory (host-resident bundles) arrives with a later slice "
-                "of the port; the port keeps every view on the device")
         self.device = resolve_device(device)
         self.scene = scene
         self.cfg = cfg
@@ -322,10 +388,13 @@ class Trainer:
 
         # sorted order is load-bearing for pseudo labels (reference train.py:673)
         self.train_views = sorted(scene.train_views, key=lambda v: v.image_name)
-        self.bundle = bundle_views(self.train_views, cfg.opt.sam_level, self.device)
+        # save_memory keeps the test views in host memory too
+        self.save_memory = bool(cfg.opt.save_memory)
+        self.bundle = bundle_views(self.train_views, cfg.opt.sam_level, self.device,
+                                   host=self.save_memory)
         self.test_bundle = (
             bundle_views(sorted(scene.test_views, key=lambda v: v.image_name),
-                         cfg.opt.sam_level, self.device)
+                         cfg.opt.sam_level, self.device, host=self.save_memory)
             if scene.test_views else None)
         self.rcfg = rcfg or RasterizeConfig()
         self.bg = torch.tensor(
@@ -440,16 +509,19 @@ class Trainer:
         self.pseudo = pseudo_mod.construct_pseudo_labels(
             self.state, cams, self.bundle.sam_ids, self.bg, self.bundle.max_masks,
             self.rcfg, mode=mode, cls_ids=self.kms.cls_ids, k1=o.root_node_num,
-            k2=o.leaf_node_num)
+            k2=o.leaf_node_num, to_host=self.save_memory)
         if mode == "leaf":
             self.kms = dataclasses.replace(self.kms, leaf_sub_num=self.pseudo.leaf_sub_num)
 
     def _pre_events(self, it: int, stage: str):
         """Events BEFORE step `it` (reference train.py:265-355, 393-426):
-        sweep 1 at stage-2.1 entry, and the root k-means there and every 200
+        the SAM mask refinement before the first stage-1 step; sweep 1 at
+        stage-2.1 entry, and the root k-means there and every 200
         iterations; sweeps 1 and 2 at stage-2.2 entry, and the leaf k-means
         of the current root there and every 50 iterations."""
         o = self.cfg.opt
+        if o.enable_multiview_sam_refinement and it == o.start_ins_feat_iter + 1:
+            self.refine_sam_masks()
         if it == o.start_root_cb_iter + 1:
             self._ensure_pseudo("root")
         if it == o.start_leaf_cb_iter + 1:
@@ -527,27 +599,59 @@ class Trainer:
         o = self.cfg.opt
         vi = self._last_view = self._next_view()
         bg = self._bg_for(stage)
+        bundle, svi = self.view(self.bundle, vi)
         if stage == "0":
             self.state, self.adam, self.stats, loss, _psnr, self._last_lost = stage0_step(
-                self.state, self.adam, self.stats, self.bundle, vi, it, bg,
+                self.state, self.adam, self.stats, bundle, svi, it, bg,
                 self.spatial_lr_scale, self.rcfg, o)
         elif stage == "1":
             self.state, self.adam, loss, self._last_lost = stage1_step(
-                self.state, self.adam, self.bundle, vi, it, bg, self._rescale_factor(it),
+                self.state, self.adam, bundle, svi, it, bg, self._rescale_factor(it),
                 self.rcfg, o, self.any_alpha)
         elif stage == "2.1":
             self.state, self.adam, loss, self._last_lost = stage21_step(
-                self.state, self.adam, self.kms, self.bundle, vi, it, bg,
-                self._rescale_factor(it), self.pseudo.feat[vi], self.rcfg, o,
+                self.state, self.adam, self.kms, bundle, svi, it, bg,
+                self._rescale_factor(it), self._pseudo_feat(vi), self.rcfg, o,
                 self.any_alpha)
         else:
             occur = self.pseudo.cluster_occur if self.pseudo is not None else None
             root_vis = occur[vi, self.root_id] if occur is not None else True
             self.state, self.adam, loss, _ok, self._last_lost = stage22_step(
-                self.state, self.adam, self.kms, self.bundle, vi, it, bg,
-                self._rescale_factor(it), self.pseudo.feat[vi], self.root_id, root_vis,
+                self.state, self.adam, self.kms, bundle, svi, it, bg,
+                self._rescale_factor(it), self._pseudo_feat(vi), self.root_id, root_vis,
                 self.rcfg, o, self.any_alpha)
         return loss
+
+    def view(self, bundle: ViewBundle, i: int) -> tuple[ViewBundle, int]:
+        """View i of `bundle` as (bundle, index) on the device: under
+        save_memory its one-view window, copied from host memory."""
+        if self.save_memory:
+            return bundle_window(bundle, i, self.device), 0
+        return bundle, i
+
+    def _pseudo_feat(self, vi: int) -> torch.Tensor:
+        """View vi's pseudo features on the device (a copy from host memory
+        under save_memory)."""
+        return self.pseudo.feat[vi].to(self.device, non_blocking=True)
+
+    def refine_sam_masks(self):
+        """One-shot cross-view SAM mask refinement (refine/sam_refiner.py);
+        rewrites the bundle's SAM ids (void -1 becomes the invalid id 0) and
+        raises max_masks to the refined ids, rounded up to a multiple of 8.
+        With save_intermediate the refiner's trace writes refine_trace/ into
+        the output directory."""
+        print("Applying multi-view SAM mask refinement...", flush=True)
+        cams = [self.bundle.camera(i) for i in range(self.bundle.num_views)]
+        trace = RefinerTrace(self.out_dir) if self.save_intermediate else None
+        sam = self.bundle.sam_ids
+        sam = sam.cpu().numpy() if isinstance(sam, torch.Tensor) else np.asarray(sam)
+        refined = refine_sam_masks(self.state, cams, sam, self.rcfg, trace=trace)
+        ids = np.maximum(refined, 0).astype(np.int32)
+        new_max = int(np.ceil(max(int(ids.max()), 8) / 8) * 8)
+        ids = (_host_tensor(ids, self.device) if self.save_memory
+               else torch.as_tensor(ids, device=self.device))
+        self.bundle = dataclasses.replace(self.bundle, sam_ids=ids, max_masks=new_max)
+        print("Multi-view SAM mask refinement completed", flush=True)
 
     def run_stage3(self) -> dict:
         """The language association (reference train.py:622-631) with the
@@ -569,12 +673,13 @@ class Trainer:
         n = min(bundle.num_views, max_views)
         psnrs, l1s, imgs, gts = [], [], [], []
         for i in range(n):
-            img, p, l1 = eval_view(self.state, bundle, i, self.bg, self.rcfg)
+            b, j = self.view(bundle, i)
+            img, p, l1 = eval_view(self.state, b, j, self.bg, self.rcfg)
             psnrs.append(float(p))
             l1s.append(float(l1))
             if len(imgs) < 5:
                 imgs.append(img)
-                gts.append(bundle.gt_images[i])
+                gts.append(b.gt_images[j])
         m = dict(psnr=float(np.mean(psnrs)), l1=float(np.mean(l1s)), views=n)
         if self.tb is not None:
             split = "test" if self.test_bundle else "train"

@@ -50,17 +50,17 @@ def dump_intermediate(trainer, it: int, stage: str, view_idx: int):
     from opengaussian_tpu_torch.ops import kmeans as km
     from opengaussian_tpu_torch.render import render
 
-    b = trainer.bundle
+    b, bi = trainer.view(trainer.bundle, view_idx)  # pseudo labels keep view_idx
     base = os.path.join(trainer.out_dir, "train_process")
     quant = None
     if stage == "2.1":
         quant = km.quantize(trainer.kms, trainer.state.ins_feat, "root")
     elif stage == "2.2":
         quant = km.quantize(trainer.kms, trainer.state.ins_feat, "leaf")
-    out = render(b.camera(view_idx), trainer.state, trainer.bg, 3, trainer.rcfg,
+    out = render(b.camera(bi), trainer.state, trainer.bg, 3, trainer.rcfg,
                  render_color=True, render_feat_map=stage != "0", quantized_feat=quant)
     tag = f"{it:05d}"
-    _save_png(os.path.join(base, "gt", tag + ".png"), b.gt_images[view_idx])
+    _save_png(os.path.join(base, "gt", tag + ".png"), b.gt_images[bi])
     _save_png(os.path.join(base, "renders", tag + ".png"), out.render)
     if stage == "0":
         return
@@ -70,7 +70,7 @@ def dump_intermediate(trainer, it: int, stage: str, view_idx: int):
     _save_png(os.path.join(base, sub, "ins_feat2", tag + ".png"), feat[..., 3:6])
     if stage != "1":
         _save_png(os.path.join(base, sub, "silhouette", tag + ".png"), out.silhouette)
-    sam = b.sam_ids[view_idx].cpu().numpy()
+    sam = b.sam_ids[bi].cpu().numpy()
     if sam.max() > 0:
         pal = mask_palette(int(sam.max()))
         lvl = trainer.cfg.opt.sam_level

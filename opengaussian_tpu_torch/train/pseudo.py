@@ -119,30 +119,53 @@ def _sweep2_view(gs: GaussianState, camera, pseudo_feat, pseudo_ids, cls_ids, bg
                        pseudo_feat, pseudo_ids, max_masks)
 
 
-def construct_pseudo_labels(gs: GaussianState, cameras, sam_ids: torch.Tensor, bg,
+def _view_on(x, i: int, dev: torch.device) -> torch.Tensor:
+    """View i of a [V, ...] stack on `dev`: a device tensor, a host tensor
+    (copied) or a data/lazy.LazyStack (decoded, then copied)."""
+    x = x[i]
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(x)
+    return x.to(dev, non_blocking=True)
+
+
+def _host_stack(xs) -> torch.Tensor:
+    """Stack device tensors in host memory, pinned when they come from a
+    GPU."""
+    out = torch.stack([x.cpu() for x in xs])
+    return out.pin_memory() if xs[0].device.type == "cuda" else out
+
+
+def construct_pseudo_labels(gs: GaussianState, cameras, sam_ids, bg,
                             max_masks: int, config: RasterizeConfig,
                             mode: str = "root", cls_ids: torch.Tensor | None = None,
-                            k1: int = 64, k2: int = 5) -> PseudoLabels:
+                            k1: int = 64, k2: int = 5,
+                            to_host: bool = False) -> PseudoLabels:
     """Sweep 1 over `cameras` (sorted by image name, as reference
-    train.py:673) with their decoded SAM ids [V, H, W]; in leaf mode also
-    sweep 2 with the root assignment cls_ids [N], which gives each view's
-    cluster_occur [V, k1] and leaf_sub_num = min(max matched count + 1, k2)
-    (reference train.py:835)."""
+    train.py:673) with their decoded SAM ids [V, H, W] (on the device, in
+    host memory or lazy); in leaf mode also sweep 2 with the root assignment
+    cls_ids [N], which gives each view's cluster_occur [V, k1] and
+    leaf_sub_num = min(max matched count + 1, k2) (reference train.py:835).
+    to_host=True (the save_memory mode) keeps the per-view results, the
+    pseudo-feature images above all ([V, H, W, 6] f32, the largest buffer
+    of training), in host memory; the trainer copies one view per step."""
     if mode not in ("root", "leaf"):
         raise ValueError(f"mode must be 'root' or 'leaf', got {mode!r}")
-    feats, ids = zip(*(_sweep1_view(gs, cam, sam_ids[i], bg, max_masks, config)
+    stack = _host_stack if to_host else torch.stack
+    feats, ids = zip(*(_sweep1_view(gs, cam, _view_on(sam_ids, i, gs.device), bg,
+                                    max_masks, config)
                        for i, cam in enumerate(cameras)))
-    feat, mask_ids = torch.stack(feats), torch.stack(ids)
+    feat, mask_ids = stack(feats), stack(ids)
     if mode == "root":
         return PseudoLabels(feat=feat, mask_ids=mask_ids)
     if cls_ids is None:
         raise ValueError("leaf mode needs the root assignment cls_ids")
-    counts = torch.ones((k1,), dtype=torch.int32, device=feat.device)
+    counts = torch.ones((k1,), dtype=torch.int32, device=gs.device)
     occ = []
     for i, cam in enumerate(cameras):
-        c, o = _sweep2_view(gs, cam, feat[i], mask_ids[i], cls_ids, bg, max_masks, k1,
+        c, o = _sweep2_view(gs, cam, _view_on(feat, i, gs.device),
+                            _view_on(mask_ids, i, gs.device), cls_ids, bg, max_masks, k1,
                             config)
         counts = torch.maximum(counts, c)
         occ.append(o)
-    return PseudoLabels(feat=feat, mask_ids=mask_ids, cluster_occur=torch.stack(occ),
+    return PseudoLabels(feat=feat, mask_ids=mask_ids, cluster_occur=stack(occ),
                         leaf_sub_num=torch.clamp(counts + 1, max=k2))

@@ -662,3 +662,23 @@ def test_lpips_on_card_matches_cpu(cuda):
         torch.backends.cudnn.allow_tf32 = old
     want = LPIPS(w, "cpu")(a, b)
     assert got == pytest.approx(want, rel=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["stream", "dense"])
+def test_refiner_on_card_matches_cpu(cuda, layout):
+    """chip_smoke.py's check of the SAM refiner on the card against the CPU
+    (two blobs, tests/test_refiner.py's scene): votes and weights to a
+    normalised 1e-5, refined masks equal, one depth render per view through
+    the layout's forward kernel. TF32 is allowed around it: the refiner pins
+    float32 for its products and gives the caller's setting back."""
+    from chip_smoke import check_refiner_against_cpu
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        errs = check_refiner_against_cpu(cuda, layout)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert max(errs.values()) <= 1e-5

@@ -161,10 +161,7 @@ def test_cli_train_writes_a_ply_that_cli_render_renders(tmp_path):
     assert os.path.exists(os.path.join(out, "train/ours/renders/00000.png"))
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh", "2"], ["--save_memory"], ["--lazy_load"],
-    ["--enable_multiview_sam_refinement"],
-])
+@pytest.mark.parametrize("flags", [["--mesh", "2"]])
 def test_cli_train_refuses_what_the_port_lacks(tmp_path, flags):
     with pytest.raises(NotImplementedError):
         tcli_train.main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), *flags],
