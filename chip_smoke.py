@@ -57,7 +57,13 @@ Phases, in order; any failure exits non-zero:
      decoded from disk per step; the refiner, traced, before step 41: one
      more K1 launch per view; the bundle's SAM ids rewritten); their first
      losses equal the stream run's. The stage-0 and stage-1 step of the
-     stream and the lazy run, in turns. Then the refiner's fused path at
+     stream and the lazy run, in turns. A fifth run takes the same schedule
+     with the JAX package's options for fixed shapes switched on
+     (`blocked_trainer`: autotune_budgets, use_frozen_plans, BLOCK_SIZES =
+     (50, 10, 5), so every step but a few runs as a replay of its stage's
+     CUDA graph): the same launches (the replays count what the captures
+     launched), checks and first loss, its first 20 losses those of the
+     stream run. Then the refiner's fused path at
      tools/refine_bench.py's shape (100k splats, 60 views at 648x484, 32
      ids per view, anchor stride 1000), max_per_tile fitted to its
      binning's deepest tile: one K1 launch per view, K1 bit for bit at
@@ -93,7 +99,27 @@ Phases, in order; any failure exits non-zero:
      1 and 2 and stage 3 per view, the root and leaf k-means, and
      torch.profiler's device time by kernel over one render of each view and
      over one step of each stage, which give the card's idle share in each.
-Then a JSON line of per-kernel numbers, the nvidia-smi line, and last the
+  8. fixed shapes: at 160x120 on a trainer over two blobs (`blob_trainer`,
+     roots that pass the gates), in the stream, dense and compact
+     configurations, each stage's eager step at fixed budgets under
+     torch.cuda.set_sync_debug_mode("error") and its captured step
+     (Trainer._captured_step, a CUDA graph) against the eager one to K3's
+     tolerance, the stage-2.2 step with `ok` true; on the stream run's
+     trained state the budget probe and the tuned budgets (every view
+     lossless; a stage-1 step at them against the stream sized per frame),
+     frozen plans (build time, bytes; stage-1 and stage-2.1 steps through a
+     plan against the fresh binning, the render at rescale 0.55 within the
+     JAX package's bound, the stage-1 step with and without, in turns),
+     each stage's captured step in the three configurations against the
+     eager one and, in turns, their wall times, busy times, idle shares and
+     kernels per step; the group entries of K5 and K6 bit for bit with
+     their plain versions on the training frame's block at G = 1 and 5,
+     rasterize_groups against rasterize_scan_groups, and the dense-group
+     path (sweep 2 and stage 3 of view 0, 5 captured stage-2.2 steps of
+     the blocked trainer) with its launches, and sweep 2 and stage 3 per
+     view with group_render="dense".
+Then a JSON line of per-kernel numbers (K5's and K6's rows count their
+group entries' launches and errors), the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}.
 """
 
@@ -1133,10 +1159,11 @@ def refine_phase(dev, card: str) -> dict:
                 deepest=max(deep), max_per_tile=rcfg.max_per_tile)
 
 
-def profile(fn, n: int, what: str) -> tuple[float, float]:
+def profile(fn, n: int, what: str, counts: dict | None = None) -> tuple[float, float]:
     """torch.profiler over n calls of fn: device time by kernel.
     -> (device busy ms per call, the union of the kernels' intervals; host
-    wall ms per call of the same profiled calls, to the last kernel's end)."""
+    wall ms per call of the same profiled calls, to the last kernel's end).
+    counts: receives "launches", the kernels per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1156,6 +1183,8 @@ def profile(fn, n: int, what: str) -> tuple[float, float]:
         by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
     busy_ms = busy / 1e3 / n
     span_ms = (end - kernels[0].time_range.start) / 1e3 / n
+    if counts is not None:
+        counts["launches"] = round(len(kernels) / n)
     log(f"profile {what}: device busy {busy_ms:.3f} ms, first kernel start to last "
         f"kernel end {span_ms:.3f} ms, host wall {wall_ms:.3f} ms, "
         f"{len(kernels) / n:.0f} kernel launches (per {what})")
@@ -1248,9 +1277,7 @@ def launch_counts() -> dict:
     """{wrapper: the module attribute whose .launches it counts}."""
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 
-    return {w: getattr(rk, w) for w in ("blend_stream_fwd", "blend_stream_bwd",
-                                        "blend_stream_bwd_compact", "segment_reduce",
-                                        "blend_tiles_fwd", "blend_tiles_bwd")}
+    return {w.__name__: w for w in rk.KERNEL_WRAPPERS}
 
 
 def expected_launches(tr, rcfg) -> dict:
@@ -1275,7 +1302,7 @@ def expected_launches(tr, rcfg) -> dict:
 
 
 def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
-               extra: tuple = ()) -> tuple:
+               extra: tuple = (), trainer=None) -> tuple:
     """The training main path: cli.train.main for TRAIN_ITERS iterations
     through stages 0, 1, 2.1 and 2.2, then stage 3 (rcfg: the rasterizer's
     settings; extra: more flags of cli.train), every kernel's launches
@@ -1283,7 +1310,8 @@ def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
     the feature stages, the codebooks, cluster_lang.npz and the checkpoint.
     With the SAM refiner, the trainer's call of refine_sam_masks is wrapped
     to keep the SAM ids it was given, its phase seconds and its wall time in
-    the trainer's `refined` attribute.
+    the trainer's `refined` attribute. trainer: what cli.train constructs in
+    place of its Trainer (`blocked_trainer`).
     -> (trainer, {kernel: launches}, output dir, seconds)."""
     from opengaussian_tpu_torch.cli import train as cli_train
     from opengaussian_tpu_torch.data.ply import load_gaussian_ply
@@ -1302,6 +1330,8 @@ def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
         return ids
 
     loop.refine_sam_masks = timed_refine
+    real_trainer = cli_train.Trainer
+    cli_train.Trainer = trainer or real_trainer
     try:
         wrappers = launch_counts()
         for w in wrappers.values():
@@ -1317,6 +1347,7 @@ def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
         seconds = time.perf_counter() - t0
     finally:
         loop.refine_sam_masks = real_refine
+        cli_train.Trainer = real_trainer
     tr.refined = refine
     launches = {k: w.launches for k, w in wrappers.items()}
     what = f"training path ({name})"
@@ -1635,7 +1666,7 @@ def time_leaf_events(tr, card: str, name: str) -> dict:
         tr.rcfg), iters=2)
     log(f"timing: sweep 2, {name} run: {s2:.3f} ms per view ({k1} single-root renders); "
         f"stage 3: {s3:.3f} ms per view ({k1} roots x {k2} leaves, "
-        f"{'one render per leaf' if tr.rcfg.pallas_input == 'dense' else 'one partition render per root'}"
+        f"{'one partition render per root' if tr.rcfg.pallas_input == 'stream' else 'one group render per root' if tr.rcfg.group_render == 'dense' else 'one render per leaf'}"
         f") [{card}]")
     out = dict(sweep2=s2, stage3=s3)
     if name == "stream":
@@ -1648,6 +1679,510 @@ def time_leaf_events(tr, card: str, name: str) -> dict:
                 f"{ms:.3f} ms [{card}]")
             out[f"assign_leaf_{init}"] = ms
     return out
+
+
+# --- fixed budgets, frozen plans, captured steps and dense group renders ---
+
+BLOCKS = (50, 10, 5)  # Trainer.BLOCK_SIZES of the blocked training run
+K3_TOL = 1e-5  # normalised: K3's atomic order changes from run to run
+STAGES = ("0", "1", "2.1", "2.2")
+# an iteration of each stage: the step's learning rates and SH degree
+STEP_ITS = {"0": 5, "1": STAGE_ENDS["start_ins_feat_iter"] + 5,
+            "2.1": STAGE_ENDS["start_root_cb_iter"] + 5,
+            "2.2": STAGE_ENDS["start_leaf_cb_iter"] + 5}
+LAYOUTS = {"stream": {}, "dense": {"pallas_input": "dense"},
+           "compact": {"bwd_layout": "compact"}}
+
+
+def blob_trainer(dev, rcfg, out_dir: str):
+    """A Trainer at 160x120 over blob_scene (one view, its two blobs roots 0
+    and 1 under two SAM masks), set up as at stage-2.2 entry: both roots'
+    leaves clustered, leaf-mode pseudo labels in which both roots occur, so
+    a stage-2.2 step of root 1 has `ok` true and a nonzero gradient; fixed
+    budgets (autotune_budgets) tuned to the state. -> the Trainer."""
+    from opengaussian_tpu_torch.config import Config, OptimizationConfig
+    from opengaussian_tpu_torch.data.dataset import Scene, View
+    from opengaussian_tpu_torch.models import gaussians as G
+    from opengaussian_tpu_torch.models import optimizer as opt_mod
+    from opengaussian_tpu_torch.ops import kmeans as km
+    from opengaussian_tpu_torch.train import loop
+    from opengaussian_tpu_torch.train import pseudo as pseudo_mod
+
+    W, H, k1, k2 = 160, 120, 2, 3
+    base, roots, cam, sam = blob_scene(W, H)
+    n = int(base.num_alive)
+    view = View(camera=cam, image_name="blob", gt_image=np.full((H, W, 3), 0.5, np.float32),
+                sam_mask=np.stack([sam - 1] * 4))
+    scene = Scene([view], [], base.means[:n].numpy(), np.full((n, 3), 0.5, np.float32),
+                  1.0, out_dir)
+    opt = OptimizationConfig(sam_level=0, root_node_num=k1, leaf_node_num=k2,
+                             leaf_update_fr=LEAF_UPDATE_FR, **STAGE_ENDS)
+    tr = loop.Trainer(scene, Config(opt=opt), out_dir, rcfg=rcfg, device=dev,
+                      autotune_budgets=True)
+    tr.save_intermediate = False
+    st = to_device(base, dev)
+    tr.state, tr.adam = st, opt_mod.init(st.params())
+    tr.stats = G.DensifyStats.zeros(st.capacity, dev)
+    kms = dataclasses.replace(km.KMeansState.create(st.capacity, k1, k2, dev),
+                              cls_ids=roots.to(dev))
+    tr.pseudo = pseudo_mod.construct_pseudo_labels(
+        st, [cam], tr.bundle.sam_ids, tr.bg, tr.bundle.max_masks, rcfg, mode="leaf",
+        cls_ids=kms.cls_ids, k1=k1, k2=k2)
+    kms = dataclasses.replace(kms, leaf_sub_num=tr.pseudo.leaf_sub_num)
+    for r in range(k1):
+        member = (kms.cls_ids == r) & st.alive
+        kms = km.assign_leaf(kms, st.ins_feat, st.alive, r, k2, init=True,
+                             init_centers=st.ins_feat[member][:k2])
+    tr.kms = kms
+    tr.iteration = STAGE_ENDS["start_leaf_cb_iter"]
+    tr._tune_budgets()  # the frame's and, past stage 2.1's entry, the roots' budgets
+    if not bool(tr.pseudo.cluster_occur.all()):
+        raise AssertionError(f"blob trainer: roots occurring {tr.pseudo.cluster_occur}")
+    return tr
+
+
+def eager_step(tr, stage: str, vi: int = 0, rescale: float = 1.0, root: int = 1,
+               rcfg=None, frozen=None):
+    """One eager step of `stage` from the trainer's state (which it does not
+    change), at STEP_ITS[stage], view vi, the trainer's background; the root
+    as a device tensor (no host copy). -> (state, adam, stats or None, loss,
+    n_lost, ok or None)."""
+    from opengaussian_tpu_torch.train import loop
+
+    o, it, rcfg = tr.cfg.opt, STEP_ITS[stage], rcfg or tr.rcfg
+    if stage == "0":
+        st, ad, sa, loss, _p, lost = loop.stage0_step(
+            tr.state, tr.adam, tr.stats, tr.bundle, vi, it, tr.bg, tr.spatial_lr_scale,
+            rcfg, o)
+        return st, ad, sa, loss, lost, None
+    if stage == "1":
+        st, ad, loss, lost = loop.stage1_step(tr.state, tr.adam, tr.bundle, vi, it, tr.bg,
+                                              rescale, rcfg, o, tr.any_alpha, frozen=frozen)
+        return st, ad, None, loss, lost, None
+    feat = tr.pseudo.feat[vi]
+    if stage == "2.1":
+        st, ad, loss, lost = loop.stage21_step(tr.state, tr.adam, tr.kms, tr.bundle, vi, it,
+                                               tr.bg, rescale, feat, rcfg, o, tr.any_alpha,
+                                               frozen=frozen)
+        return st, ad, None, loss, lost, None
+    root_t = torch.full((1,), root, dtype=torch.int64, device=tr.device)
+    st, ad, loss, ok, lost = loop.stage22_step(
+        tr.state, tr.adam, tr.kms, tr.bundle, vi, it, tr.bg, rescale, feat, root_t,
+        tr.pseudo.cluster_occur[vi, root], rcfg, o, tr.any_alpha)
+    return st, ad, None, loss, lost, ok
+
+
+def step_error(tr, got: tuple, want: tuple, what: str) -> float:
+    """The largest normalised difference of two steps' results (the new
+    parameters that learn, their Adam moments, the densification statistics
+    in stage 0) and their losses; raise past K3_TOL or on a lost slot."""
+    (st_g, mu_g, nu_g, sa_g, l_g, lost_g), (st_w, ad_w, sa_w, l_w, lost_w) = got, want
+    keys = [k for k in st_w.params() if sa_w is not None or k == "ins_feat"]
+    pairs = ([(k, getattr(st_g, k), getattr(st_w, k)) for k in keys]
+             + [(f"mu {k}", mu_g[k], ad_w.mu[k]) for k in keys]
+             + [(f"nu {k}", nu_g[k], ad_w.nu[k]) for k in keys])
+    if sa_w is not None:
+        pairs += [(f"stats {f.name}", getattr(sa_g, f.name), getattr(sa_w, f.name))
+                  for f in dataclasses.fields(sa_w)]
+    worst = abs(float(l_g) - float(l_w)) / max(abs(float(l_w)), 1e-12)
+    for name, a, b in pairs:
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: {name} is not finite")
+        worst = max(worst, normalised_err(a, b.cpu()) if bool(b.any()) else float(a.abs().max()))
+    if worst > K3_TOL or int(lost_g) != 0 or int(lost_w) != 0:
+        raise AssertionError(f"{what}: captured against eager {worst:.3e} (K3's tolerance "
+                             f"{K3_TOL}), slots lost {int(lost_g)} / {int(lost_w)}")
+    return worst
+
+
+def check_captured_step(tr, stage: str, vi: int = 0, rescale: float = 1.0,
+                        root: int = 1) -> dict:
+    """One step of `stage` captured as the trainer's blocks capture it
+    (Trainer._captured_step: static buffers, a CUDA graph on the card) and
+    replayed once, against the same step run eagerly from the same state, to
+    K3's tolerance. -> {"err", "loss", "ok"}."""
+    e = eager_step(tr, stage, vi, rescale, root)
+    step = tr._captured_step(stage, False, None)
+    row = tr._step_row(stage, STEP_ITS[stage], vi, tr._bg_values(stage), rescale, root,
+                       tr.adam.count + 1)
+    loss = step.run(row.to(tr.device))
+    io = step.io
+    got = (io["state"], io["mu"], io["nu"], io["stats"], loss, io["lost"])
+    err = step_error(tr, got, (e[0], e[1], e[2], e[3], e[4]), f"captured stage-{stage} step")
+    return dict(err=err, loss=float(e[3]), ok=None if e[5] is None else bool(e[5]))
+
+
+def check_sync_free_step(tr, stage: str, rcfg=None) -> None:
+    """One eager step of `stage` at the trainer's fixed budgets under
+    torch.cuda.set_sync_debug_mode("error"): any host sync raises. A step
+    runs first without it, which builds the kernels and fills the caches a
+    first step fills (SSIM's band matrices)."""
+    eager_step(tr, stage, rcfg=rcfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager_step(tr, stage, rcfg=rcfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def check_blob_steps(dev, root: str) -> dict:
+    """At 160x120 on the blob trainer, in the stream, dense and compact
+    configurations: each stage's eager step at fixed budgets with no host
+    sync, and its captured step against the eager one; the stage-2.2 step
+    of root 1 has `ok` true and a nonzero loss (ROADMAP Queue 3, check a,
+    where the full-width run's roots fail the gates). -> {layout: {stage:
+    err}}."""
+    from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig
+
+    out = {}
+    for layout, upd in LAYOUTS.items():
+        tr = blob_trainer(dev, RasterizeConfig(**upd), os.path.join(root, f"blob_{layout}"))
+        errs = {}
+        for stage in STAGES:
+            check_sync_free_step(tr, stage)
+            r = check_captured_step(tr, stage)
+            errs[stage] = r["err"]
+            if stage == "2.2" and not (r["ok"] and r["loss"] > 0):
+                raise AssertionError(f"blob trainer ({layout}): the stage-2.2 step of root 1 "
+                                     f"has ok {r['ok']}, loss {r['loss']}")
+        log(f"captured steps at 160x120 ({layout}), budgets P={tr.rcfg.intersection_budget} "
+            f"K={tr.rcfg.max_per_tile} (groups P={tr.rcfg.group_intersection_budget} "
+            f"K={tr.rcfg.group_max_per_tile}): each stage's eager step ran with no host "
+            f"sync; captured against eager " + ", ".join(f"{s} {e:.2e}" for s, e in errs.items())
+            + " (stage 2.2: root 1, ok true, loss > 0)")
+        out[layout] = errs
+    return out
+
+
+def budgets_phase(tr, card: str):
+    """Fixed budgets on the stream run's trained state: the probe, the
+    tuned frame and group budgets (ops/budget.py against RasterizeConfig()),
+    every view's render at them with nothing dropped or truncated, and a
+    stage-1 step at them against the same step with the stream sized per
+    frame, to K3's tolerance. -> the tuned config."""
+    from opengaussian_tpu_torch.ops import budget
+    from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig
+    from opengaussian_tpu_torch.render import render
+
+    o, V = tr.cfg.opt, tr.bundle.num_views
+    cams = [tr.bundle.camera(v) for v in range(V)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    total, cnt = budget.probe(tr.state, cams)
+    tuned = budget.tuned_config(RasterizeConfig(), tr.state, cams)
+    tuned = budget.tuned_group_config(tuned, tr.state, cams, tr.kms.cls_ids, o.root_node_num)
+    probe_s = time.perf_counter() - t0
+    n = tr.state.capacity
+    for v, cam in enumerate(cams):
+        with torch.no_grad():
+            out = render(cam, tr.state, tr.bg, 3, tuned, render_color=True,
+                         render_feat_map=True)
+        if int(out.n_lost) != 0:
+            raise AssertionError(f"view {v} at the tuned budgets lost {int(out.n_lost)} slots")
+    e = eager_step(tr, "1", rcfg=dataclasses.replace(tr.rcfg, intersection_budget=0))
+    f = eager_step(tr, "1", rcfg=tuned)
+    err = step_error(tr, (f[0], f[1].mu, f[1].nu, None, f[3], f[4]), e[:5],
+                     "stage-1 step at fixed budgets")
+    log(f"budgets: probe (largest total {total}, deepest tile {cnt}) and tuning "
+        f"{probe_s:.3f} s; P = {tuned.max_intersections(n)} ({tuned.max_intersections(n) / n:.2f}"
+        f" N against the JAX package's 8 N), K = {tuned.max_per_tile}, group P = "
+        f"{tuned.group_intersection_budget}, group K = {tuned.group_max_per_tile}; every view "
+        f"renders at them with n_dropped = n_truncated = 0; the stage-1 step at them against "
+        f"the stream sized per frame {err:.2e} [{card}]")
+    return tuned
+
+
+def frozen_phase(tr, tuned, card: str) -> dict:
+    """Frozen plans on the trained state at the tuned budgets: every view's
+    plan (the build time and bytes), a stage-1 and stage-2.1 step through
+    the plan against the fresh binning at rescale 1 (K3's tolerance) and
+    the feature render through it at rescale 0.55 (within 0.02, at most 3%
+    of pixels past 1e-5: the JAX package's bound), and the stage-1 step
+    with and without the plan, in turns."""
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.ops.rasterize import build_frozen_plan, stack_plans
+    from opengaussian_tpu_torch.render import render
+
+    V, n = tr.bundle.num_views, tr.state.capacity
+    cov3d = build_cov3d(tr.state.scales, tr.state.quats)
+    build = lambda: stack_plans([build_frozen_plan(tr.bundle.camera(v), tr.state.means,  # noqa: E731
+                                                   cov3d, tr.state.opacity, tuned)
+                                 for v in range(V)], n)
+    build_ms = cuda_ms(build, iters=2)
+    plans = build()
+    lost = int((plans.n_dropped + plans.n_truncated).sum())
+    if lost:
+        raise AssertionError(f"frozen plans at the tuned budgets lost {lost} slots")
+    errs = {}
+    for stage in ("1", "2.1"):
+        e = eager_step(tr, stage, rcfg=tuned)
+        f = eager_step(tr, stage, rcfg=tuned, frozen=plans.select(0))
+        errs[stage] = step_error(tr, (f[0], f[1].mu, f[1].nu, None, f[3], f[4]), e[:5],
+                                 f"stage-{stage} step through the frozen plan")
+    with torch.no_grad():
+        kw = dict(render_color=False, render_feat_map=True, rescale_factor=0.55)
+        fresh = render(tr.bundle.camera(0), tr.state, tr.bg, 3, tuned, **kw)
+        fz = render(tr.bundle.camera(0), tr.state, tr.bg, 3, tuned, frozen=plans.select(0), **kw)
+    diff = (fz.ins_feat - fresh.ins_feat).abs()
+    dmax, frac = float(diff.max()), float((diff > 1e-5).float().mean())
+    if dmax > 0.02 or frac > 0.03:
+        raise AssertionError(f"frozen plan at rescale 0.55: max {dmax}, share past 1e-5 {frac}")
+    fns = {"fresh": lambda: eager_step(tr, "1", rcfg=tuned),
+           "frozen": lambda: eager_step(tr, "1", rcfg=tuned, frozen=plans.select(0))}
+    turns = [(k, cuda_ms(fns[k], iters=10)) for k in ("fresh", "frozen", "frozen", "fresh")]
+    # the same step captured (the blocks' step), with and without the plans:
+    # what the plan saves on the card once the host no longer sets the pace
+    saved = (tr.rcfg, tr.autotune_budgets)
+    tr.autotune_budgets = True
+    tr._set_rcfg(tuned)
+    try:
+        row = tr._step_row("1", STEP_ITS["1"], 0, tr._bg_values("1"), 1.0, 0,
+                           tr.adam.count + 1).to(tr.device)
+        steps = {"fresh": tr._captured_step("1", False, None)}
+        tr._captured.clear()  # one graph per stage: keep the fresh one aside
+        steps["frozen"] = tr._captured_step("1", False, plans)
+        steps["fresh"].copy_in(tr)
+        cap = [(k, cuda_ms(lambda k=k: steps[k].run(row), iters=10))
+               for k in ("fresh", "frozen", "frozen", "fresh")]
+        busy = {k: profile(lambda k=k: steps[k].run(row), 3,
+                           f"captured stage-1 step ({k} binning)")[0] for k in steps}
+    finally:
+        tr._set_rcfg(saved[0])
+        tr.autotune_budgets = saved[1]
+    log(f"frozen plans: {V} views built in {build_ms:.3f} ms, {plans.nbytes() / 2**20:.1f} MiB "
+        f"(P = {plans.g_sorted.shape[1]}), lossless; stage-1 / stage-2.1 step through the plan "
+        f"against the fresh binning {errs['1']:.2e} / {errs['2.1']:.2e}; the feature render at "
+        f"rescale 0.55 within {dmax:.3e}, {frac:.4f} of its values past 1e-5; stage-1 step ms "
+        f"in turns, eager " + ", ".join(f"{k} {v:.3f}" for k, v in turns) + "; captured "
+        + ", ".join(f"{k} {v:.3f}" for k, v in cap) + f"; captured busy fresh "
+        f"{busy['fresh']:.3f}, frozen {busy['frozen']:.3f} [{card}]")
+    return dict(build_ms=build_ms, mib=plans.nbytes() / 2**20, turns=turns, cap=cap,
+                busy=busy)
+
+
+def captured_phase(tr, tuned, card: str) -> dict:
+    """Captured steps at full width from the trained state, in the stream,
+    dense and compact configurations at the tuned budgets: each stage's
+    eager step with no host sync, its captured step against it to K3's
+    tolerance, then, in turns (eager, captured, captured, eager), the wall
+    ms per step (10 steps between CUDA events, each from the same state),
+    and torch.profiler's busy time, idle share and kernel launches over one
+    step of each (over 3 steps). -> {(layout, stage): {"err", "eager",
+    "captured": (ms, busy, idle, launches)}}."""
+    out = {}
+    saved = (tr.rcfg, tr.autotune_budgets)
+    tr.autotune_budgets = True
+    try:
+        for layout, upd in LAYOUTS.items():
+            rcfg = dataclasses.replace(tuned, **upd)
+            tr._set_rcfg(rcfg)
+            for stage in STAGES:
+                check_sync_free_step(tr, stage)
+                r = check_captured_step(tr, stage, root=0)
+                step = tr._captured_step(stage, False, None)
+                row = tr._step_row(stage, STEP_ITS[stage], 0, tr._bg_values(stage), 1.0, 0,
+                                   tr.adam.count + 1).to(tr.device)
+                fns = {"eager": lambda s=stage: eager_step(tr, s, root=0),
+                       "captured": lambda: step.run(row)}
+                ms = {k: [] for k in fns}
+                for k in ("eager", "captured", "captured", "eager"):
+                    ms[k].append(cuda_ms(fns[k], iters=10))
+                prof = {}
+                for k in fns:
+                    counts = {}
+                    busy, wall = profile(fns[k], 3, f"{k} stage-{stage} step ({layout})",
+                                         counts=counts)
+                    prof[k] = (sum(ms[k]) / 2, busy, 1.0 - busy / wall, counts["launches"])
+                out[(layout, stage)] = dict(err=r["err"], **prof)
+                log(f"captured stage-{stage} step ({layout}): against eager {r['err']:.2e}; "
+                    f"ms in turns eager, captured, captured, eager: {ms['eager'][0]:.3f}, "
+                    f"{ms['captured'][0]:.3f}, {ms['captured'][1]:.3f}, {ms['eager'][1]:.3f}; "
+                    f"profiled busy / idle share / kernels per step: eager "
+                    f"{prof['eager'][1]:.3f} / {prof['eager'][2]:.3f} / {prof['eager'][3]}, "
+                    f"captured {prof['captured'][1]:.3f} / {prof['captured'][2]:.3f} / "
+                    f"{prof['captured'][3]} [{card}]")
+    finally:
+        tr._set_rcfg(saved[0])
+        tr.autotune_budgets = saved[1]
+    return out
+
+
+def blocked_trainer(*args, **kw):
+    """cli.train's Trainer with the JAX package's options for fixed shapes
+    switched on, as a user sets them: autotune_budgets, use_frozen_plans and
+    BLOCK_SIZES = BLOCKS."""
+    from opengaussian_tpu_torch.train import loop
+
+    tr = loop.Trainer(*args, autotune_budgets=True, **kw)
+    tr.use_frozen_plans = True
+    tr.BLOCK_SIZES = BLOCKS
+    return tr
+
+
+def check_blocked_run(tr_b, out_b: str, tr_s, out_s: str, seconds: dict, card: str) -> dict:
+    """The blocked run (fixed budgets, frozen plans, captured blocks) against
+    the stream run of the same schedule, at the same draws: the same first
+    loss, and the losses of the steps before the first densification (1-20)
+    to 1e-4; the geometry of the iteration-40 PLYs is logged, not held bit
+    for bit: K3's atomic order changes the last bits of every gradient from
+    run to run, and a densification threshold then splits or prunes a
+    splat in one run and not in the other. No slot lost at the tuned
+    budgets, the plans built, and the wall time of each run."""
+    from opengaussian_tpu_torch.data.ply import load_gaussian_ply
+
+    l_b, l_s = float(tr_b.losses[0]), float(tr_s.losses[0])
+    if not math.isclose(l_b, l_s, rel_tol=1e-5):
+        raise AssertionError(f"first loss: blocked run {l_b!r}, stream {l_s!r}")
+    first = [np.array([float(x) for x in t.losses[:20]]) for t in (tr_b, tr_s)]
+    d20 = float(np.max(np.abs(first[0] - first[1]) / np.abs(first[1])))
+    if d20 > 1e-4:
+        raise AssertionError(f"blocked run: steps 1-20 differ from the stream run's by {d20}")
+    it0 = STAGE_ENDS["start_ins_feat_iter"]
+    ply = [load_gaussian_ply(os.path.join(d, "point_cloud", f"iteration_{it0}",
+                                          "point_cloud.ply")) for d in (out_b, out_s)]
+    same = len(ply[0]["means"]) == len(ply[1]["means"])
+    geo = {k: (float(np.abs(ply[0][k] - ply[1][k]).max()) if same else float("nan"))
+           for k in ("means", "log_scales", "logit_opacity")}
+    bitwise = same and all(np.array_equal(ply[0][k], ply[1][k]) for k in geo)
+    from opengaussian_tpu_torch.ops.rasterize import FrozenPlan
+
+    if int(tr_b._last_lost) != 0 or not isinstance(tr_b._frozen_plans, FrozenPlan):
+        raise AssertionError(f"blocked run: lost {int(tr_b._last_lost)} slots, plans "
+                             f"{tr_b._frozen_plans!r}")
+    n = tr_b.state.capacity
+    log(f"blocked run: first loss {l_b:.7f} (stream {l_s:.7f}), steps 1-20 within {d20:.2e}; "
+        f"at iteration {it0} "
+        f"{len(ply[0]['means'])} splats (stream {len(ply[1]['means'])}), geometry bit for "
+        f"bit {bitwise}, largest differences " + ", ".join(f"{k} {v:.3e}" for k, v in geo.items())
+        + f"; budgets P = {tr_b.rcfg.max_intersections(n)}, K = {tr_b.rcfg.max_per_tile}, "
+        f"groups P = {tr_b.rcfg.group_intersection_budget}, K = {tr_b.rcfg.group_max_per_tile}"
+        f"; the run {seconds['blocked']:.2f} s against the stream run's "
+        f"{seconds['stream']:.2f} s (each with its setup, sweeps, stage 3 and saves) [{card}]")
+    return dict(bitwise=bitwise, geo=geo)
+
+
+def group_block(tr, K: int, G: int):
+    """The training frame's dense block (view 0's feature pass, C = 7, at
+    max_per_tile K) with its splat ids and the alive opacities of roots
+    0..G-1 as a [G, N] table. -> (gdata, gauss_idx, opac_g, counts,
+    tile_start, P, grid_x)."""
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, _prepare, gather_rows
+    from opengaussian_tpu_torch.render import encoded_ins_feat
+
+    st, cam = tr.state, tr.bundle.camera(0)
+    cfg = RasterizeConfig(max_per_tile=K, pallas_input="dense")
+    with torch.no_grad():
+        proj, bins, (gx, _) = _prepare(cam, st.means, build_cov3d(st.scales, st.quats),
+                                       st.opacity, cfg)
+        payload = torch.cat([encoded_ins_feat(st, origin_feat=True), proj.depth[:, None]], -1)
+        gdata = gather_rows(proj.mean2d, proj.conic, torch.zeros_like(st.opacity), payload,
+                            bins.gauss_idx)
+        opac = torch.where(proj.valid & st.alive, st.opacity, 0.0)
+        gids = torch.arange(G, device=st.device)
+        opac_g = torch.where(tr.kms.cls_ids[None, :] == gids[:, None], opac[None, :], 0.0)
+    return (gdata, bins.gauss_idx, opac_g.contiguous(), bins.counts, bins.tile_start,
+            bins.sorted_gauss.shape[0], gx)
+
+
+def dense_groups_phase(tr, tr_b, chunk: int, card: str) -> dict:
+    """group_render="dense" at full width. The group entries of K5 and K6
+    on the training frame's block at G = 1 and G = 5 (roots 0-4) against
+    their plain versions, bit for bit, and their times; rasterize_groups
+    against rasterize_scan_groups over roots 0-4; then the path a user of
+    the option runs, its launches counted: sweep 2 and stage 3 of view 0
+    (stage 3 in the dense layout, which renders each root's leaves as
+    groups) and 5 stage-2.2 steps of the blocked trainer, one captured
+    block; and sweep 2 and stage 3 per view beside the stream numbers.
+    -> {"errs", "launches", "leaf_ms"}."""
+    from opengaussian_tpu_torch.ops import rasterize_kernels as rk
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.ops.rasterize import rasterize_groups, rasterize_scan_groups
+    from opengaussian_tpu_torch.render import encoded_ins_feat
+    from opengaussian_tpu_torch.train import lang
+    from opengaussian_tpu_torch.train import pseudo as pseudo_mod
+
+    K = tr.rcfg.max_per_tile
+    errs = {}
+    for G in (1, 5):
+        gdata, gidx, opac_g, counts, tstart, P, gx = group_block(tr, K, G)
+        fargs = (gdata, gidx, opac_g, counts, gx, chunk)
+        acc, tf = rk.blend_tiles_fwd_groups(*fargs)
+        torch.cuda.synchronize()
+        acc_p, tf_p = rk.blend_tiles_fwd_groups_plain(*fargs)
+        e = max(compare(f"blend_tiles_fwd_groups G={G} training frame {nm}", x, y, 0.0, 0.0)
+                for nm, x, y in (("accum", acc, acc_p), ("t_final", tf, tf_p)))
+        gen = torch.Generator(device=gdata.device).manual_seed(G)
+        cot = [torch.randn(x.shape, generator=gen, device=x.device) * 0.1 for x in (acc, tf)]
+        bargs = (gdata, gidx, opac_g, counts, tstart, P, acc, tf, *cot, gx, chunk)
+        d = rk.blend_tiles_bwd_groups(*bargs)
+        torch.cuda.synchronize()
+        d_p = rk.blend_tiles_bwd_groups_plain(*bargs)
+        e = max(e, compare(f"blend_tiles_bwd_groups G={G} training frame d_rows", d, d_p,
+                           0.0, 0.0))
+        if float(d_p.abs().max()) == 0.0:
+            raise AssertionError(f"blend_tiles_bwd_groups G={G}: no gradient")
+        errs[G] = e
+        fwd_dev = device_ms(lambda: rk.blend_tiles_fwd_groups(*fargs), 5,
+                            "blend_tiles_fwd_groups_kernel")
+        bwd_dev = device_ms(lambda: rk.blend_tiles_bwd_groups(*bargs), 5,
+                            "blend_tiles_bwd_groups_kernel")
+        k5 = device_ms(lambda: rk.blend_tiles_fwd(gdata, counts, gx, chunk), 5,
+                       "blend_tiles_fwd_kernel")
+        log(f"timing: group entries G={G} on the training frame's block {list(gdata.shape)}: "
+            f"forward kernel {fwd_dev:.4f} ms, backward kernel {bwd_dev:.4f} ms (K5 on the "
+            f"block's own opacities {k5:.4f} ms), bit for bit with their plain versions "
+            f"[{card}]")
+    # the dense group render against the scan of per-group renders, roots 0-4
+    st, cam = tr.state, tr.bundle.camera(0)
+    cov3d = build_cov3d(st.scales, st.quats)
+    gids = torch.arange(5, device=st.device)
+    opac_g = torch.where((tr.kms.cls_ids[None, :] == gids[:, None]) & st.alive[None, :],
+                         st.opacity[None, :], 0.0)
+    payload = encoded_ins_feat(st, origin_feat=True)
+    bg6 = torch.cat([tr.bg, tr.bg])
+    with torch.no_grad():
+        a = rasterize_groups(cam, st.means, cov3d, opac_g, payload, bg6, tr.rcfg)
+        b = rasterize_scan_groups(cam, st.means, cov3d, opac_g, payload, bg6, tr.rcfg)
+    g_err = max(compare(f"rasterize_groups against rasterize_scan_groups {k}",
+                        getattr(a, k), getattr(b, k), TOL["atol"], TOL["rtol"])
+                for k in ("image", "alpha"))
+    # the path a user of the option runs, its launches counted
+    o, bdl = tr_b.cfg.opt, tr_b.bundle
+    k1, k2 = o.root_node_num, o.leaf_node_num
+    dense = dataclasses.replace(tr_b.rcfg, group_render="dense")
+    wrappers = zero_launches()
+    pseudo_mod._sweep2_view(tr_b.state, bdl.camera(0), tr_b.pseudo.feat[0],
+                            tr_b.pseudo.mask_ids[0], tr_b.kms.cls_ids, tr_b.bg, bdl.max_masks,
+                            k1, dense)
+    lang._associate_view(tr_b.state, tr_b.kms.leaf_cls_ids, bdl.camera(0), tr_b.pseudo.feat[0],
+                         tr_b.pseudo.mask_ids[0], tr_b.pseudo.cluster_occur[0], tr_b.bg, k1,
+                         k2, bdl.max_masks, dataclasses.replace(dense, pallas_input="dense"))
+    tr_b.rcfg = dense
+    it0 = tr_b.iteration
+    tr_b.train(until=it0 + 5, log_every=200)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    want = dict.fromkeys(launches, 0)
+    want.update(blend_tiles_fwd_groups=1 + k1 + 5, blend_tiles_bwd_groups=5,
+                segment_reduce=5, blend_stream_fwd=5 if tr_b.any_alpha else 0)
+    if launches != want:
+        raise AssertionError(f"dense group path: launches {launches}, expected {want}")
+    losses = [float(x) for x in tr_b.losses[-5:]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"dense group steps: losses {losses}")
+    log(f"dense group path: sweep 2 and stage 3 of view 0 and stage-2.2 steps {it0 + 1}-"
+        f"{it0 + 5} (one captured block, losses {losses}), launches {launches}; "
+        f"rasterize_groups against rasterize_scan_groups (roots 0-4) {g_err:.3e}")
+    saved = tr.rcfg
+    tr.rcfg = dataclasses.replace(saved, pallas_input="dense", group_render="dense")
+    try:
+        leaf_ms = time_leaf_events(tr, card, "dense groups")
+    finally:
+        tr.rcfg = saved
+    return dict(errs=errs, launches=launches, leaf_ms=leaf_ms, group_err=g_err)
 
 
 def time_on_frame(name: str, kernel: str, full, alone, bound: float, by: str,
@@ -2419,9 +2954,10 @@ def main(argv=None) -> int:
         # events are timed from its own trained state
         runs = {"stream": RasterizeConfig(), "dense": RasterizeConfig(pallas_input="dense"),
                 "compact": RasterizeConfig(bwd_layout="compact")}
-        train_launches, s22_ms, leaf_ms = {}, {}, {}
+        train_launches, s22_ms, leaf_ms, train_s = {}, {}, {}, {}
         for run, rcfg in runs.items():
-            tr_r, train_launches[run], out_r, _ = train_path(scene_dir, root, dev, run, rcfg)
+            tr_r, train_launches[run], out_r, train_s[run] = train_path(scene_dir, root, dev,
+                                                                        run, rcfg)
             if run == "stream":
                 tr, out = tr_r, out_r
                 check_trained_render(out, scene_dir, dev)
@@ -2457,6 +2993,11 @@ def main(argv=None) -> int:
         view_steps = [time_view_steps(t, card, nm) for nm, t in (
             ("stream", tr), ("lazy_refine", tr_l), ("lazy_refine", tr_l), ("stream", tr))]
         del tr_l
+        # the JAX package's options for fixed shapes, as a user switches them on:
+        # fixed budgets, frozen plans and captured blocks of steps
+        tr_b, train_launches["blocked"], out_b, train_s["blocked"] = train_path(
+            scene_dir, root, dev, "blocked", RasterizeConfig(), trainer=blocked_trainer)
+        blocked = check_blocked_run(tr_b, out_b, tr, out, train_s, card)
         # the refiner's fused path at the ScanNet shape
         refine = refine_phase(dev, card)
 
@@ -2645,6 +3186,13 @@ def main(argv=None) -> int:
             f"(device time) at {k6_b / k6_dev:.3f} of it, the call at {k6_b / k6_ms:.3f} "
             f"[{card}]")
 
+        # 8. fixed budgets, frozen plans, captured steps and dense group renders
+        blob = check_blob_steps(dev, root)
+        tuned = budgets_phase(tr, card)
+        frozen = frozen_phase(tr, tuned, card)
+        captured = captured_phase(tr, tuned, card)
+        groups = dense_groups_phase(tr, tr_b, chunk, card)
+
     k1_b = [b for b, _ in k1_bound.values()]
 
     def row(name, launches, err, ms, plain, bound, by, lib=None, line=None):
@@ -2655,11 +3203,12 @@ def main(argv=None) -> int:
                 "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
     main_paths = (render_launches, *train_launches.values(), *queries["launches"].values(),
-                  refine["launches"])
+                  refine["launches"], groups["launches"])
     total = {k: sum(p[k] for p in main_paths) for k in render_launches}
     log(f"launches on the main paths: render {render_launches}, "
         + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()) + ", "
-        + ", ".join(f"{q} {v}" for q, v in queries["launches"].items()))
+        + ", ".join(f"{q} {v}" for q, v in queries["launches"].items())
+        + f", refiner {refine['launches']}, dense groups {groups['launches']}")
     for k, kname, render_dev in (("k1", "K1", k1_dev), ("k2", "K2", {4: k2_dev}),
                                  ("k4", "K4", {4: k4_dev}), ("k6", "K6", {7: k6_dev})):
         t = train[k]
@@ -2683,6 +3232,23 @@ def main(argv=None) -> int:
         f"{queries['lp_ms']:.3f} ms per view, viewer frame {queries['frame_ms']:.3f} ms; "
         f"card against CPU at 160x120, largest normalised error "
         f"{max(queries['errors'].values()):.3e} [{card}]")
+    log(f"summary: fixed shapes: blob trainer captured against eager "
+        + "; ".join(f"{lay} " + ", ".join(f"{s} {e:.1e}" for s, e in errs.items())
+                    for lay, errs in blob.items())
+        + f"; full width tuned P = {tuned.intersection_budget}, K = {tuned.max_per_tile}; "
+        f"frozen plans {frozen['build_ms']:.3f} ms, {frozen['mib']:.1f} MiB; blocked run "
+        f"geometry bit for bit with the stream run at iteration 40: {blocked['bitwise']} [{card}]")
+    for (lay, stage), r in captured.items():
+        log(f"summary: stage-{stage} step ({lay}) eager / captured: ms {r['eager'][0]:.3f} / "
+            f"{r['captured'][0]:.3f}, busy {r['eager'][1]:.3f} / {r['captured'][1]:.3f}, idle "
+            f"share {r['eager'][2]:.3f} / {r['captured'][2]:.3f}, kernels per step "
+            f"{r['eager'][3]} / {r['captured'][3]}, captured against eager {r['err']:.1e} "
+            f"[{card}]")
+    log(f"summary: dense groups: group entries bit for bit at G = 1, 5; sweep 2 / stage 3 "
+        f"ms per view stream {leaf_ms['stream']['sweep2']:.3f} / "
+        f"{leaf_ms['stream']['stage3']:.3f}, dense layout {leaf_ms['dense']['sweep2']:.3f} / "
+        f"{leaf_ms['dense']['stage3']:.3f}, dense groups {groups['leaf_ms']['sweep2']:.3f} / "
+        f"{groups['leaf_ms']['stage3']:.3f} [{card}]")
     kernels = [
         row("blend_stream_fwd", total["blend_stream_fwd"],
             max(k1_err, train["k1"]["err"], refine["k1_err"]),
@@ -2697,11 +3263,12 @@ def main(argv=None) -> int:
         row("segment_reduce", total["segment_reduce"],
             max(grad["k3_err"], dense["k3_err"], compact["k43_err"]),
             k3_dev, k3_plain, k3_b, k3_by, lib=lib_dev, line=1196),
-        row("blend_tiles_fwd", total["blend_tiles_fwd"], dense["k5_err"], k5_ms, k5_plain,
-            k5_b, k5_by, line=322),
-        row("blend_tiles_bwd", total["blend_tiles_bwd"],
-            max(dense["k6_err"], train["k6"]["err"]), k6_ms, k6_plain, k6_b, k6_by,
-            line=413),
+        row("blend_tiles_fwd", total["blend_tiles_fwd"] + total["blend_tiles_fwd_groups"],
+            max(dense["k5_err"], *groups["errs"].values()), k5_ms, k5_plain, k5_b, k5_by,
+            line=322),
+        row("blend_tiles_bwd", total["blend_tiles_bwd"] + total["blend_tiles_bwd_groups"],
+            max(dense["k6_err"], train["k6"]["err"], *groups["errs"].values()), k6_ms,
+            k6_plain, k6_b, k6_by, line=413),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -236,14 +236,20 @@ __device__ __forceinline__ void stage_chunk(const Staging& s,
 // turn the tests into one bit per (warp, slot), 32 slots to a word. A slot
 // whose box misses a warp's rectangle has none of that warp's pixels at
 // alpha >= 1/255, so the warp may skip it. tx, ty: the tile's first pixel.
-template <bool kBulk>
+// kGroup (the group entries of the dense kernels): thread k first writes
+// slot k's opacity into its staged row, gopac[ids[k]] (the group's opacity
+// of the slot's splat), so the box and the walk see the group's opacity;
+// the next barrier of the walk publishes the write to every thread.
+template <bool kBulk, bool kGroup = false>
 __device__ __forceinline__ void cull_chunk(const Staging& s, int n_fields,
                                            int cnt, int chunk, int i, int tx,
-                                           int ty) {
+                                           int ty,
+                                           const int* __restrict__ ids = nullptr,
+                                           const float* __restrict__ gopac = nullptr) {
   const int lane = threadIdx.x;
   const int warp = lane / 32;
   const int n = min(chunk, cnt - i * chunk);
-  const float* srow = s.sbuf + (i & 1) * chunk * n_fields;
+  float* srow = s.sbuf + (i & 1) * chunk * n_fields;
   if constexpr (kBulk) {
     mbar_wait(&s.bar[i & 1], (i >> 1) & 1);
   } else {
@@ -257,6 +263,7 @@ __device__ __forceinline__ void cull_chunk(const Staging& s, int n_fields,
     const int k = k0 + lane;
     unsigned meets = 0;  // bit w: warp w's rectangle meets slot k's box
     if (k < n) {
+      if constexpr (kGroup) srow[k * n_fields + 5] = gopac[ids[i * chunk + k]];
       const float4 b = slot_box(srow + k * n_fields);
       if (!(rx1 < b.x || rx0 > b.y)) {
 #pragma unroll
@@ -302,12 +309,15 @@ inline size_t fwd_smem_bytes(int chunk, int n_fields) {
 // thread) orders the staging, the masks and the walk. KC: the accumulators
 // a thread holds, C <= KC <= kMaxC. tile: the image tile whose pixels this
 // CTA shades. accum: this tile's [C, 256] block; t_final: its [256] row.
-// Dynamic shared memory: fwd_smem_bytes.
-template <int KC, bool kBulk>
+// kGroup, ids, gopac: the run's splat ids and a group's opacity by splat id,
+// which replace the rows' opacity (cull_chunk). Dynamic shared memory:
+// fwd_smem_bytes.
+template <int KC, bool kBulk, bool kGroup = false>
 __device__ __forceinline__ void blend_run_fwd(
     const float* __restrict__ run, int n_fields, int cnt, int tile,
     int grid_x, int chunk, float* __restrict__ accum,
-    float* __restrict__ t_final) {
+    float* __restrict__ t_final, const int* __restrict__ ids = nullptr,
+    const float* __restrict__ gopac = nullptr) {
   static_assert(KC > 0 && KC <= kMaxC, "KC is at most kMaxC");
   extern __shared__ __align__(16) float smem[];
   const Staging st = staging_of(smem, chunk);
@@ -329,7 +339,7 @@ __device__ __forceinline__ void blend_run_fwd(
 
   if (cnt > 0) {
     stage_chunk<kBulk>(st, run, n_fields, cnt, chunk, 0);
-    cull_chunk<kBulk>(st, n_fields, cnt, chunk, 0, tx, ty);
+    cull_chunk<kBulk, kGroup>(st, n_fields, cnt, chunk, 0, tx, ty, ids, gopac);
   }
   int i = 0;
   for (int base = 0; base < cnt; base += chunk, ++i) {
@@ -369,7 +379,9 @@ __device__ __forceinline__ void blend_run_fwd(
         if (done) break;
       }
     }
-    if (next) cull_chunk<kBulk>(st, n_fields, cnt, chunk, i + 1, tx, ty);
+    if (next)
+      cull_chunk<kBulk, kGroup>(st, n_fields, cnt, chunk, i + 1, tx, ty, ids,
+                                gopac);
   }
 
 #pragma unroll
@@ -438,13 +450,16 @@ constexpr int fwd_min_blocks(int kc) { return kc == kMaxC ? 4 : 5; }
 // [0, return) of d_run hold the walk's rows, rows [return, cnt) are the
 // caller's to fill. KC: the payload channels a thread holds, C <= KC
 // (bwd_channels). accum/g_accum: this tile's [C, 256] blocks; t_final/g_t:
-// its [256] rows. Dynamic shared memory: bwd_smem_bytes.
-template <int KC, bool kBulk>
+// its [256] rows. kGroup, ids, gopac: as for blend_run_fwd. Dynamic shared
+// memory: bwd_smem_bytes.
+template <int KC, bool kBulk, bool kGroup = false>
 __device__ __forceinline__ int blend_run_bwd(
     const float* __restrict__ run, int n_fields, int cnt, int tile,
     int grid_x, int chunk, const float* __restrict__ accum,
     const float* __restrict__ t_final, const float* __restrict__ g_accum,
-    const float* __restrict__ g_t, float* __restrict__ d_run) {
+    const float* __restrict__ g_t, float* __restrict__ d_run,
+    const int* __restrict__ ids = nullptr,
+    const float* __restrict__ gopac = nullptr) {
   static_assert(KC > 0 && KC <= kMaxC, "KC is at most kMaxC");
   constexpr int NV = bwd_values(KC);  // values per lane in the butterfly
   constexpr int kF = 6 + KC;          // fields a lane computes
@@ -480,7 +495,7 @@ __device__ __forceinline__ int blend_run_bwd(
   int done = 0;
   if (cnt > 0) {
     stage_chunk<kBulk>(st, run, n_fields, cnt, chunk, 0);
-    cull_chunk<kBulk>(st, n_fields, cnt, chunk, 0, tx, ty);
+    cull_chunk<kBulk, kGroup>(st, n_fields, cnt, chunk, 0, tx, ty, ids, gopac);
   }
   int i = 0;
   int base = 0;
@@ -592,7 +607,9 @@ __device__ __forceinline__ int blend_run_bwd(
       }
       dst[e] = s;
     }
-    if (next) cull_chunk<kBulk>(st, n_fields, cnt, chunk, i + 1, tx, ty);
+    if (next)
+      cull_chunk<kBulk, kGroup>(st, n_fields, cnt, chunk, i + 1, tx, ty, ids,
+                                gopac);
   }
   return min(base, cnt);
 }

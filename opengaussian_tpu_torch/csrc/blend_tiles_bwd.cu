@@ -35,6 +35,14 @@
 // TPU kernel's GROUP unroll and lane padding are not carried over.
 // Left for later work: the reduce fused into the walk's epilogue.
 //
+// The group entry (og_blend_tiles_bwd_groups) replays the group entry of
+// the forward (blend_tiles_fwd.cu): CTA (t, g) walks tile t's rows with the
+// opacity of group g, opac_g[g, gauss_idx[t, k]], and writes slot k's row
+// at row g P + tstart[t] + k of d_rows [G, P, 6 + C]: K6's output on the
+// block whose opacity column is the group's, one [P, 6 + C] slab per group.
+// The caller reduces the G P rows with ids g n + sorted_gauss, so the
+// opacity gradient stays per group and the others sum over the groups.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // (no --use_fast_math and no fused multiply-adds: the replay must take the
 // forward's branches at the 1/255 and 1e-4 thresholds).
@@ -68,6 +76,31 @@ blend_tiles_bwd_kernel(const float* __restrict__ gdata, int K, int n_fields,
       static_cast<int>(t) + tile_offset, grid_x, chunk, accum + t * C * kPix,
       t_final + t * kPix, g_accum + t * C * kPix, g_t + t * kPix,
       d_rows + static_cast<long long>(tstart[t]) * n_fields);
+}
+
+// The group entry's kernel: blockIdx.y is the group. gauss_idx: [T, K]
+// int32 splat ids of the block's rows; opac_g: [G, n_splats] f32; d_rows:
+// [G, n_rows, n_fields], zeroed by the caller.
+template <int KC, bool kBulk>
+__global__ void __launch_bounds__(kPix, og_blend::bwd_min_blocks(KC))
+blend_tiles_bwd_groups_kernel(
+    const float* __restrict__ gdata, int K, int n_fields,
+    const int* __restrict__ counts, const int* __restrict__ tstart,
+    const int* __restrict__ gauss_idx, const float* __restrict__ opac_g,
+    int n_splats, int n_rows, int tile_offset, int grid_x, int chunk,
+    const float* __restrict__ accum, const float* __restrict__ t_final,
+    const float* __restrict__ g_accum, const float* __restrict__ g_t,
+    float* __restrict__ d_rows) {
+  const long long t = blockIdx.x;
+  const long long g = blockIdx.y;
+  const long long gt = g * gridDim.x + t;
+  const long long C = n_fields - 6;
+  og_blend::blend_run_bwd<KC, kBulk, true>(
+      gdata + t * K * n_fields, n_fields, min(counts[t], K),
+      static_cast<int>(t) + tile_offset, grid_x, chunk, accum + gt * C * kPix,
+      t_final + gt * kPix, g_accum + gt * C * kPix, g_t + gt * kPix,
+      d_rows + (g * n_rows + tstart[t]) * n_fields, gauss_idx + t * K,
+      opac_g + g * n_splats);
 }
 
 template <int KC, bool kBulk>
@@ -118,6 +151,54 @@ cudaError_t launch_by_channels(const float* gdata, int n_tiles, int K,
   }
 }
 
+template <int KC, bool kBulk>
+cudaError_t launch_groups(const float* gdata, int n_tiles, int K, int n_fields,
+                          const int* counts, const int* tstart,
+                          const int* gauss_idx, const float* opac_g,
+                          int n_groups, int n_splats, int n_rows,
+                          int tile_offset, int grid_x, int chunk,
+                          const float* accum, const float* t_final,
+                          const float* g_accum, const float* g_t,
+                          float* d_rows, cudaStream_t stream) {
+  const size_t smem = og_blend::bwd_smem_bytes(chunk, n_fields);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blend_tiles_bwd_groups_kernel<KC, kBulk>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  blend_tiles_bwd_groups_kernel<KC, kBulk>
+      <<<dim3(n_tiles, n_groups), kPix, smem, stream>>>(
+          gdata, K, n_fields, counts, tstart, gauss_idx, opac_g, n_splats,
+          n_rows, tile_offset, grid_x, chunk, accum, t_final, g_accum, g_t,
+          d_rows);
+  return cudaSuccess;
+}
+
+template <bool kBulk>
+cudaError_t launch_groups_by_channels(
+    const float* gdata, int n_tiles, int K, int n_fields, const int* counts,
+    const int* tstart, const int* gauss_idx, const float* opac_g,
+    int n_groups, int n_splats, int n_rows, int tile_offset, int grid_x,
+    int chunk, const float* accum, const float* t_final, const float* g_accum,
+    const float* g_t, float* d_rows, cudaStream_t stream) {
+#define OG_GROUPS_ARGS                                                      \
+  gdata, n_tiles, K, n_fields, counts, tstart, gauss_idx, opac_g, n_groups, \
+      n_splats, n_rows, tile_offset, grid_x, chunk, accum, t_final, g_accum, \
+      g_t, d_rows, stream
+  switch (og_blend::bwd_channels(n_fields - 6)) {
+    case 4:
+      return launch_groups<4, kBulk>(OG_GROUPS_ARGS);
+    case 8:
+      return launch_groups<8, kBulk>(OG_GROUPS_ARGS);
+    case 10:
+      return launch_groups<10, kBulk>(OG_GROUPS_ARGS);
+    default:
+      return launch_groups<og_blend::kMaxC, kBulk>(OG_GROUPS_ARGS);
+  }
+#undef OG_GROUPS_ARGS
+}
+
 // Whether the block's chunks can arrive by bulk copy (as in
 // blend_tiles_fwd.cu): with chunk % 4 == 0 (K is a multiple of chunk) every
 // chunk starts and, rounded up to 4 rows, ends on a 16-byte boundary when
@@ -147,6 +228,33 @@ int og_blend_tiles_bwd(const float* gdata, int n_tiles, int K, int n_fields,
                                         tstart, tile_offset, grid_x, chunk,
                                         accum, t_final, g_accum, g_t, d_rows,
                                         s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The group entry: d_rows [G, n_rows, n_fields], zeroed by the caller.
+// Launches on `stream` and returns the first CUDA error (0 on success).
+int og_blend_tiles_bwd_groups(const float* gdata, int n_tiles, int K,
+                              int n_fields, const int* counts,
+                              const int* tstart, const int* gauss_idx,
+                              const float* opac_g, int n_groups, int n_splats,
+                              int n_rows, int tile_offset, int grid_x,
+                              int chunk, const float* accum,
+                              const float* t_final, const float* g_accum,
+                              const float* g_t, float* d_rows, void* stream) {
+  if (n_tiles > 0 && n_groups > 0) {
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const cudaError_t err =
+        bulk_ok(gdata, chunk)
+            ? launch_groups_by_channels<true>(
+                  gdata, n_tiles, K, n_fields, counts, tstart, gauss_idx,
+                  opac_g, n_groups, n_splats, n_rows, tile_offset, grid_x,
+                  chunk, accum, t_final, g_accum, g_t, d_rows, s)
+            : launch_groups_by_channels<false>(
+                  gdata, n_tiles, K, n_fields, counts, tstart, gauss_idx,
+                  opac_g, n_groups, n_splats, n_rows, tile_offset, grid_x,
+                  chunk, accum, t_final, g_accum, g_t, d_rows, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

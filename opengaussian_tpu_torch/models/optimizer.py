@@ -10,6 +10,13 @@ number.
 
 Torch-Adam semantics: beta=(0.9, 0.999), eps=1e-15 added OUTSIDE the sqrt,
 bias correction by one step count shared by all leaves.
+
+A captured step (a CUDA graph, train/loop.py) cannot take the step count and
+the learning rates as Python numbers, which the graph would keep as the
+constants of its capture: `apply` then takes the bias corrections as 0-d
+device tensors (`bias_tensors`) and the learning rates as 0-d tensors, which
+the trainer writes before each replay, computed on the host in the same
+float32 arithmetic as the eager step's (`bias_corrections`).
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from opengaussian_tpu_torch.config import OptimizationConfig
@@ -36,19 +44,54 @@ def init(params: dict) -> AdamState:
                      count=0)
 
 
-def apply(params: dict, grads: dict, state: AdamState, lrs: dict) -> tuple[dict, AdamState]:
-    """One Adam step. -> (new params, new state); the inputs are not changed."""
-    count = state.count + 1
-    # the bias corrections in float32, as the JAX package computes them
+def bias_corrections(count: int) -> tuple[float, float]:
+    """(1 - beta1^count, 1 - beta2^count) in float32, as the JAX package
+    computes them."""
     t = torch.tensor(float(count), dtype=torch.float32)
     c1 = float(1.0 - torch.tensor(BETA1, dtype=torch.float32) ** t)
     c2 = float(1.0 - torch.tensor(BETA2, dtype=torch.float32) ** t)
+    return c1, c2
+
+
+def bias_values(count: int) -> list[float]:
+    """The host values behind `bias_tensors` for step `count`: c1, c2 and
+    their float32 reciprocals."""
+    c1, c2 = bias_corrections(count)
+    one = np.float32(1.0)
+    return [c1, c2, float(one / np.float32(c1)), float(one / np.float32(c2))]
+
+
+def bias_tensors(row: torch.Tensor) -> dict:
+    """The 0-d views c1, c2, 1/c1, 1/c2 of a [4] f32 device tensor that holds
+    `bias_values`."""
+    return dict(zip(("c1", "c2", "inv_c1", "inv_c2"), row.unbind(0)))
+
+
+def _div(x: torch.Tensor, bias: dict | None, c, key: str) -> torch.Tensor:
+    """x / c as the eager step computes it. PyTorch divides a CUDA tensor by
+    a Python number as a product with the number's float32 reciprocal, and a
+    CPU tensor by true division; with device tensors each device does the
+    same, so a captured step rounds as the eager one."""
+    if bias is None:
+        return x / c
+    return x * bias["inv_" + key] if x.is_cuda else x / bias[key]
+
+
+def apply(params: dict, grads: dict, state: AdamState, lrs: dict,
+          bias: dict | None = None) -> tuple[dict, AdamState]:
+    """One Adam step. -> (new params, new state); the inputs are not changed.
+    bias: the bias corrections of this step as device tensors
+    (`bias_tensors`), for a captured step; the returned count then is the
+    caller's to keep."""
+    count = state.count + 1
+    c1, c2 = bias_corrections(count) if bias is None else (None, None)
     new_p, mu, nu = {}, {}, {}
     for k, p in params.items():
         g = grads[k]
         m = BETA1 * state.mu[k] + (1.0 - BETA1) * g
         v = BETA2 * state.nu[k] + (1.0 - BETA2) * g * g
-        new_p[k] = p - lrs[k] * (m / c1) / (torch.sqrt(v / c2) + EPS)
+        new_p[k] = p - lrs[k] * _div(m, bias, c1, "c1") / (
+            torch.sqrt(_div(v, bias, c2, "c2")) + EPS)
         mu[k], nu[k] = m, v
     return new_p, AdamState(mu=mu, nu=nu, count=count)
 

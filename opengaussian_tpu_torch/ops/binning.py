@@ -12,12 +12,20 @@ binning (`group_of`, `num_groups` = G, stream layout) puts each slot in the
 virtual tile group_of * T + tile, so G disjoint groups bin in one sort and
 counts / tile_start span G * T virtual tiles.
 
-Unlike the JAX package, the slot buffer is sized from this frame's exact
-intersection total (as the reference CUDA rasterizer sizes its key buffer
-per frame), so no slot is ever dropped and `n_dropped` is always 0. The
-per-tile cap `max_per_tile` and its `n_truncated` count are kept exactly as
-the JAX package applies them, so both packages produce the same stream
-whenever the JAX package drops nothing.
+The slot buffer has one of two sizes. With a fixed budget P
+(`max_intersections` > 0, the JAX package's static intersection budget),
+every splat expands into its rect's slots in splat order and the slots past
+P are dropped and counted in `n_dropped`, as the JAX package drops them;
+the stream is then [P] long whatever the frame, no step reads a count back
+to the host, and the slots that are culled or dropped sort past the last
+tile with splat id n, so the per-splat reduce skips them. With 0 (the
+default) the buffer is sized from this frame's exact intersection total, as
+the reference CUDA rasterizer sizes its key buffer per frame, so no slot is
+dropped and the culled slots keep their splat ids; this costs one host sync
+per frame. The per-tile cap `max_per_tile` and its `n_truncated` count are
+applied exactly as the JAX package applies them, so both packages produce
+the same stream whenever the JAX package drops nothing (and, at a fixed P,
+also when it does).
 """
 
 from __future__ import annotations
@@ -34,9 +42,11 @@ class TileBins:
     counts: torch.Tensor  # [T] int32 slots each tile blends (<= max_per_tile);
     # [G * T] under partition binning
     tile_start: torch.Tensor  # [T] int32 offset of each tile's run
-    sorted_gauss: torch.Tensor  # [P] int32 splat index per sorted slot
+    sorted_gauss: torch.Tensor  # [P] int32 splat index per sorted slot (n for
+    # the slots past the last tile under a fixed budget)
     total: torch.Tensor  # [] int32 intersections (rect slots before the cull)
-    n_dropped: torch.Tensor  # [] int32, always 0 (P is sized per frame)
+    n_dropped: torch.Tensor  # [] int32 slots lost to the fixed budget P (0
+    # when P is sized per frame)
     n_truncated: torch.Tensor  # [] int32 slots lost to max_per_tile
     deepest: torch.Tensor  # [] int32 slots in the deepest tile, before the cap
     gauss_idx: torch.Tensor | None = None  # [T, K] int32 splat per dense slot
@@ -53,7 +63,7 @@ def depth_rank(depth: torch.Tensor) -> torch.Tensor:
 def bin_gaussians(
     proj: Projected, grid_x: int, grid_y: int, max_per_tile: int, dense: bool = False,
     rank: torch.Tensor | None = None, group_of: torch.Tensor | None = None,
-    num_groups: int = 1,
+    num_groups: int = 1, max_intersections: int = 0,
 ) -> TileBins:
     """Sort the frame's (splat, tile) slots by (tile, depth rank); with
     dense, also build the [T, max_per_tile] splat-index matrix.
@@ -62,7 +72,8 @@ def bin_gaussians(
     (group renders share one across their groups). group_of [N] int: each
     splat's group, 0..num_groups-1 (partition binning, stream only); splats
     in no group must have num_tiles 0. Counts and tile starts then span
-    num_groups * T virtual tiles."""
+    num_groups * T virtual tiles. max_intersections: the fixed slot budget P
+    (0: sized per frame, with one host sync)."""
     if group_of is not None and dense:
         raise ValueError("partition binning is stream-only")
     num_tiles = grid_x * grid_y
@@ -73,9 +84,17 @@ def bin_gaussians(
 
     # expand: slot p belongs to splat g[p]; a splat's slots are contiguous
     # and splat indices ascend, as in the JAX package's scatter+cummax
-    g = torch.repeat_interleave(torch.arange(n, device=dev), nt)  # [P]
-    starts = torch.cumsum(nt, 0) - nt
-    r = torch.arange(g.shape[0], device=dev) - starts[g]
+    ends = torch.cumsum(nt, 0)
+    starts = ends - nt
+    P = max_intersections
+    if P > 0:  # slot p < total lies in the first splat whose end passes p
+        slot = torch.arange(P, device=dev)
+        live = slot < ends[-1] if n else torch.zeros(P, dtype=torch.bool, device=dev)
+        g = torch.clamp(torch.searchsorted(ends, slot, right=True), max=max(n - 1, 0))
+    else:
+        g = torch.repeat_interleave(torch.arange(n, device=dev), nt)  # [total]
+        slot, live = torch.arange(g.shape[0], device=dev), None
+    r = slot - starts[g]
     rect_min = proj.rect_min.to(torch.int64)[g]
     w = torch.clamp(proj.rect_max[:, 0].to(torch.int64) - proj.rect_min[:, 0], min=1)[g]
     tx = rect_min[:, 0] + r % w
@@ -97,7 +116,7 @@ def bin_gaussians(
     tid = ty * grid_x + tx
     if group_of is not None:
         tid = tid + torch.clamp(group_of.to(torch.int64), 0, num_groups - 1)[g] * num_tiles
-    tile_id = torch.where(hits, tid, vt_total)
+    tile_id = torch.where(hits if live is None else hits & live, tid, vt_total)
 
     # one int64 key: tile major, depth rank minor (unique for live slots)
     if rank is None:
@@ -106,6 +125,8 @@ def bin_gaussians(
     key_s, order = torch.sort(key, stable=True)
     g_sorted = g[order]
     tile_s = key_s // (n + 1)
+    if live is not None:  # the slots past the last tile reach no reduce
+        g_sorted = torch.where(tile_s < vt_total, g_sorted, n)
     edges = torch.searchsorted(
         tile_s, torch.arange(vt_total + 1, device=dev), side="left")
     tstart = edges[:-1]
@@ -116,15 +137,17 @@ def bin_gaussians(
     if dense:  # slot k of tile t is stream slot tstart[t] + k while k < counts[t]
         k = torch.arange(max_per_tile, device=dev)
         pos = torch.clamp(tstart[:, None] + k[None, :], max=max(g_sorted.shape[0] - 1, 0))
-        live = k[None, :] < counts[:, None]
         src = g_sorted if g_sorted.numel() else torch.zeros(1, dtype=g.dtype, device=dev)
-        gauss_idx = i32(torch.where(live, src[pos], 0))
+        gauss_idx = i32(torch.where(k[None, :] < counts[:, None], src[pos], 0))
+    total = nt.sum()
+    n_dropped = (torch.clamp(total - P, min=0) if P > 0
+                 else torch.zeros((), dtype=torch.int64, device=dev))
     return TileBins(
         counts=i32(counts),
         tile_start=i32(tstart),
         sorted_gauss=i32(g_sorted),
-        total=i32(nt.sum()),
-        n_dropped=torch.zeros((), dtype=torch.int32, device=dev),
+        total=i32(total),
+        n_dropped=i32(n_dropped),
         n_truncated=i32((full_counts - counts).sum()),
         deepest=i32(full_counts.max()),
         gauss_idx=gauss_idx,

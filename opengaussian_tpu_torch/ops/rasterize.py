@@ -22,8 +22,20 @@ plain PyTorch version.
 Group renders (stage 2.2, the pseudo-label sweeps, stage 3) render G subsets
 of one scene: `rasterize_scan_groups` re-bins each group with its own masked
 opacities under one shared projection and depth rank (any layout, with
-gradients); `rasterize_partition` renders G disjoint groups with one
-binning over G x T virtual tiles and one K1 launch (stream layout).
+gradients), under the group budgets of `RasterizeConfig.group_config`;
+`rasterize_partition` renders G disjoint groups with one binning over G x T
+virtual tiles and one K1 launch (stream layout); `rasterize_groups`
+(group_render="dense") bins the union once, densely, and blends it once per
+group with the group entries of K5 and K6 (`GroupDenseBlend`).
+
+Budgets (`RasterizeConfig.intersection_budget` and friends, sized by
+ops/budget.py) fix the slot stream's length P, as the JAX package's static
+budgets do: no step then reads a count back to the host, and slots past P
+are dropped and counted in `n_dropped`. With the budget 0 (the default) the
+stream is sized per frame and nothing is dropped, where the JAX package
+would drop the slots past 8N: that is the port's one deviation from it.
+A `FrozenPlan` (`build_frozen_plan`) caches a view's binning for frozen
+geometry, so that a step's whole binning is one row gather.
 
 Gradients by means3d, cov3d, opacities, payload and the screen tap flow
 through `project` by ordinary autograd; only the blend has its own backward.
@@ -44,22 +56,34 @@ from opengaussian_tpu_torch.ops.rasterize_kernels import (
     blend_stream_bwd_compact,
     blend_stream_fwd,
     blend_tiles_bwd,
+    blend_tiles_bwd_groups,
     blend_tiles_fwd,
+    blend_tiles_fwd_groups,
     segment_reduce,
 )
 
 LAYOUTS = ("stream", "dense")
 BWD_LAYOUTS = ("auto", "dense", "compact")
-GROUP_RENDERS = ("auto", "scan")
+GROUP_RENDERS = ("auto", "scan", "dense")
 
 
 @dataclasses.dataclass(frozen=True)
 class RasterizeConfig:
     """Rasterizer settings the port reads (same defaults as the JAX
-    package's RasterizeConfig)."""
+    package's RasterizeConfig). The JAX package's tile windows and band
+    budget are not ported."""
 
     max_per_tile: int = 1024  # K: depth-ordered slots kept per tile
     chunk: int = 64  # slots staged per step of the blend
+    # the slot budget P: with intersection_budget > 0 the stream has
+    # max(intersection_budget, min_intersections) slots whatever the frame
+    # (the JAX package's static budget, set by ops/budget.py:tuned_config)
+    # and slots past it are dropped; with 0 the port sizes the stream per
+    # frame (one host sync), where the JAX package would fix it at
+    # max(intersection_multiple * N, min_intersections)
+    intersection_multiple: int = 8
+    min_intersections: int = 65536
+    intersection_budget: int = 0
     # opacity-aware cutoff radius (pixel-exact, touches fewer tiles than the
     # classic 3-sigma rect; radii shrink for translucent splats)
     tight_radius: bool = True
@@ -72,10 +96,15 @@ class RasterizeConfig:
     # same per-splat sums); "compact" = K4, rows compacted by chunk with
     # their splat ids
     bwd_layout: str = "auto"
-    # group renders: "auto" and "scan" = rasterize_scan_groups. The JAX
-    # package's "dense" (one union binning, the blend batched over groups)
-    # is not ported
+    # group renders: "auto" and "scan" = rasterize_scan_groups (each group
+    # re-binned under group_config()); "dense" = rasterize_groups (one dense
+    # union binning at the frame budgets, the blend and its replay batched
+    # over the groups by the group entries of K5 and K6)
     group_render: str = "auto"
+    # the budgets of one group's binning under "scan" (0: the frame's), set
+    # by ops/budget.py:tuned_group_config
+    group_intersection_budget: int = 0
+    group_max_per_tile: int = 0
 
     def __post_init__(self):
         if self.chunk <= 0 or self.max_per_tile % self.chunk:
@@ -86,14 +115,29 @@ class RasterizeConfig:
         if self.bwd_layout not in BWD_LAYOUTS:
             raise ValueError(f"bwd_layout must be one of {BWD_LAYOUTS}, got "
                              f"{self.bwd_layout!r}")
-        if self.group_render == "dense":
-            raise NotImplementedError(
-                "group_render='dense' (rasterize_groups, the blend batched over "
-                "groups on the dense layout) arrives with a later slice of the "
-                "port; see ROADMAP.md")
         if self.group_render not in GROUP_RENDERS:
             raise ValueError(f"group_render must be one of {GROUP_RENDERS}, got "
                              f"{self.group_render!r}")
+
+    def group_config(self) -> "RasterizeConfig":
+        """The config one group's binning runs under (group_render "scan")."""
+        upd = {}
+        if self.group_intersection_budget:
+            upd["intersection_budget"] = self.group_intersection_budget
+        if self.group_max_per_tile:
+            upd["max_per_tile"] = self.group_max_per_tile
+        return dataclasses.replace(self, **upd) if upd else self
+
+    def max_intersections(self, n: int) -> int:
+        """The slot budget P of a scene of n splats (the JAX package's)."""
+        if self.intersection_budget:
+            return max(self.intersection_budget, self.min_intersections)
+        return max(self.intersection_multiple * n, self.min_intersections)
+
+    def fixed_budget(self, n: int) -> int:
+        """The stream length bin_gaussians is given: P under a fixed budget,
+        0 (sized per frame) without one."""
+        return self.max_intersections(n) if self.intersection_budget else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,8 +146,8 @@ class RasterOut:
     alpha: torch.Tensor  # [H,W] 1 - final transmittance
     depth: torch.Tensor  # [H,W] premultiplied expected depth
     radii: torch.Tensor  # [N] int32, 0 => culled (visibility filter)
-    n_dropped: torch.Tensor  # [] int32 budget diagnostics (always 0 here)
-    n_truncated: torch.Tensor  # [] int32
+    n_dropped: torch.Tensor  # [] int32 slots lost to the fixed budget P
+    n_truncated: torch.Tensor  # [] int32 slots lost to max_per_tile
 
 
 def _grids(camera: Camera) -> tuple[int, int]:
@@ -117,15 +161,94 @@ def _project(camera: Camera, means3d, cov3d, opacities, config: RasterizeConfig,
                    screen_tap=screen_tap)
 
 
+@dataclasses.dataclass(frozen=True)
+class FrozenPlan:
+    """One view's binning for frozen geometry (the JAX package's FrozenPlan).
+
+    Past stage 0 only ins_feat trains, so a view's projected rects, depth
+    ranks and sorted slot stream do not change from step to step: the plan
+    keeps the stream's integer plumbing, and a step's whole binning (the
+    expansion, the cull, the key sort, the tile ranges) becomes the one row
+    gather by `g_sorted` that the blend makes anyway. The port's reduce
+    (K3) sums by atomics and sorts nothing, so, as with the JAX package's
+    "scatter" reduce backend, the plan carries no reduce plan.
+
+    Exactness, when the plan lost no slot (n_dropped == n_truncated == 0):
+    at the covariance it was built with, the step sees the same stream bit
+    for bit; at a smaller covariance (the trainer's rescale factor < 1) the
+    plan's pairs are a superset of a fresh binning's, and the extra ones
+    stay below 1/255 where the opacity-aware radius binds, or composite a
+    little more of the 3-sigma tail where that radius binds (the JAX
+    package's bound: <= 0.02 of the image, <= 3% of pixels above 1e-5).
+    Stream layout only. Fields may carry a leading view axis [V, ...]
+    (`stack_plans`), from which `select` takes one view."""
+
+    g_sorted: torch.Tensor  # [P] int32 splat per sorted slot
+    tstart: torch.Tensor  # [T] int32
+    counts: torch.Tensor  # [T] int32
+    total: torch.Tensor  # [] int32 (diagnostics, from the build)
+    n_dropped: torch.Tensor
+    n_truncated: torch.Tensor
+
+    def select(self, i) -> "FrozenPlan":
+        """View i of stacked plans; i an int or a 1-element int64 tensor on
+        the plans' device (a view index a captured step reads at replay)."""
+        if isinstance(i, torch.Tensor):
+            pick = lambda x: x.index_select(0, i)[0]  # noqa: E731
+        else:
+            pick = lambda x: x[i]  # noqa: E731
+        return FrozenPlan(*(pick(getattr(self, f.name))
+                            for f in dataclasses.fields(self)))
+
+    def nbytes(self) -> int:
+        return sum(getattr(self, f.name).nbytes for f in dataclasses.fields(self))
+
+
+def stack_plans(plans: list[FrozenPlan], n: int) -> FrozenPlan:
+    """Per-view plans stacked along a leading view axis; streams of unequal
+    length (sized per frame) are padded with slots of id n, past every
+    tile."""
+    P = max(p.g_sorted.shape[0] for p in plans)
+    pad = lambda x: torch.nn.functional.pad(x, (0, P - x.shape[0]), value=n)  # noqa: E731
+    return FrozenPlan(torch.stack([pad(p.g_sorted) for p in plans]),
+                      *(torch.stack([getattr(p, f.name) for p in plans])
+                        for f in dataclasses.fields(FrozenPlan)[1:]))
+
+
+@torch.no_grad()
+def build_frozen_plan(camera: Camera, means3d, cov3d, opacities,
+                      config: RasterizeConfig) -> FrozenPlan:
+    """A view's FrozenPlan: the binning of this camera, geometry and config
+    (at rescale factor 1, the superset the rescaled steps ride)."""
+    if config.pallas_input != "stream":
+        raise ValueError("frozen plans need pallas_input='stream'")
+    camera = camera.to(means3d.device)
+    _, bins, _ = _prepare(camera, means3d, cov3d, opacities, config)
+    return FrozenPlan(g_sorted=bins.sorted_gauss, tstart=bins.tile_start,
+                      counts=bins.counts, total=bins.total, n_dropped=bins.n_dropped,
+                      n_truncated=bins.n_truncated)
+
+
 def _prepare(camera: Camera, means3d, cov3d, opacities, config: RasterizeConfig,
              screen_tap=None, proj: Projected | None = None,
-             rank: torch.Tensor | None = None) -> tuple[Projected, TileBins, tuple[int, int]]:
-    """Project (unless proj is given) and bin."""
+             rank: torch.Tensor | None = None,
+             frozen: FrozenPlan | None = None) -> tuple[Projected, TileBins, tuple[int, int]]:
+    """Project (unless proj is given) and bin, or take the bins of a
+    FrozenPlan."""
     grid_x, grid_y = _grids(camera)
     if proj is None:
         proj = _project(camera, means3d, cov3d, opacities, config, screen_tap)
-    bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile,
-                         dense=config.pallas_input == "dense", rank=rank)
+    if frozen is not None:
+        if config.pallas_input != "stream":
+            raise ValueError("frozen plans apply to pallas_input='stream' only")
+        bins = TileBins(counts=frozen.counts, tile_start=frozen.tstart,
+                        sorted_gauss=frozen.g_sorted, total=frozen.total,
+                        n_dropped=frozen.n_dropped, n_truncated=frozen.n_truncated,
+                        deepest=frozen.counts.max())
+    else:
+        bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile,
+                             dense=config.pallas_input == "dense", rank=rank,
+                             max_intersections=config.fixed_budget(means3d.shape[0]))
     return proj, bins, (grid_x, grid_y)
 
 
@@ -143,9 +266,10 @@ def gather_rows(mean2d, conic, opac, payload, idx) -> torch.Tensor:
     mean2d (2), conic (3), opacity (1) and payload (C). -> [*idx.shape, 6 + C].
     With the stream's sorted_gauss [P] these are the sorted slot rows; with
     the dense gauss_idx [T, K] the block `gdata` (the JAX package's
-    rasterize_pallas.py:_make_gdata)."""
+    rasterize_pallas.py:_make_gdata). A slot of id n (past the last tile of
+    a fixed-budget stream) takes splat n - 1's row, which no kernel reads."""
     table = torch.cat([mean2d, conic, opac[:, None], payload], dim=-1)
-    return table[idx.to(torch.int64)]
+    return table[torch.clamp(idx.to(torch.int64), max=table.shape[0] - 1)]
 
 
 class StreamBlend(torch.autograd.Function):
@@ -221,6 +345,53 @@ class DenseBlend(torch.autograd.Function):
                 None, None, None, None, None, None)
 
 
+class GroupDenseBlend(torch.autograd.Function):
+    """The dense blend once per group of opacities, with a per-splat backward
+    (the JAX package's vmap of its dense blend over the groups, in
+    rasterize_groups).
+
+    forward(mean2d [N,2], conic [N,3], opac_g [G,N], payload [N,C],
+    gauss_idx [T,K], sorted_gauss [P], tile_start [T], counts [T], grid_x,
+    chunk) -> (accum [G, T, C, 256], t_final [G, T, 256]). One block
+    [T, K, 6+C] is gathered for all groups (its opacity column is unused),
+    and the group entry of K5 blends it with each group's opacity by splat
+    id. The backward's group entry of K6 gives each group's live rows at
+    their stream positions, [G, P, 6+C]; K3 sums them by g n + sorted_gauss
+    into [G, n, 6+C]: the opacity gradient stays per group, the others are
+    summed over the groups."""
+
+    @staticmethod
+    def forward(ctx, mean2d, conic, opac_g, payload, gauss_idx, sorted_gauss,
+                tile_start, counts, grid_x: int, chunk: int):
+        n = mean2d.shape[0]
+        opac_g = opac_g.contiguous()
+        gdata = gather_rows(mean2d, conic, mean2d.new_zeros(n), payload, gauss_idx)
+        accum, t_final = blend_tiles_fwd_groups(gdata, gauss_idx, opac_g, counts,
+                                                grid_x, chunk)
+        ctx.save_for_backward(gdata, gauss_idx, opac_g, sorted_gauss, tile_start,
+                              counts, accum, t_final)
+        ctx.grid_x, ctx.chunk = grid_x, chunk
+        return accum, t_final
+
+    @staticmethod
+    def backward(ctx, g_accum, g_t):
+        gdata, gauss_idx, opac_g, sorted_gauss, tile_start, counts, accum, t_final = (
+            ctx.saved_tensors)
+        G, n = opac_g.shape
+        P = sorted_gauss.shape[0]
+        d_rows = blend_tiles_bwd_groups(gdata, gauss_idx, opac_g, counts, tile_start, P,
+                                        accum, t_final, g_accum.contiguous(),
+                                        g_t.contiguous(), ctx.grid_x, ctx.chunk)
+        sg = sorted_gauss.to(torch.int64)
+        base = torch.arange(G, device=sg.device)[:, None] * n
+        ids = torch.where((sg >= 0) & (sg < n), base + sg, G * n).to(torch.int32)
+        per = segment_reduce(d_rows.reshape(G * P, -1), ids.reshape(-1), G * n)
+        per = per.reshape(G, n, -1)
+        rest = per.sum(dim=0)
+        return (rest[:, 0:2], rest[:, 2:5], per[:, :, 5], rest[:, N_GEOM:],
+                None, None, None, None, None, None)
+
+
 def _untile(x: torch.Tensor, grid_x: int, grid_y: int, H: int, W: int) -> torch.Tensor:
     """[G * T, 256, ch] tiles -> [G, H, W, ch] (G = 1 for [T, ...]); crops the
     ragged last tile row and column."""
@@ -280,15 +451,18 @@ def rasterize(
     screen_tap: torch.Tensor | None = None,
     proj: Projected | None = None,
     rank: torch.Tensor | None = None,
+    frozen: FrozenPlan | None = None,
 ) -> RasterOut:
     """Render a per-splat payload [N, C] to an [H, W, C] image, plus alpha,
     premultiplied depth and per-splat radii. screen_tap [N, 2]: zeros added
     to the NDC position, whose gradient is the densification signal.
     proj / rank: a projection and depth rank computed once outside, which
-    group renders share across their groups."""
+    group renders share across their groups. frozen: this view's
+    FrozenPlan, built under the same camera, geometry and config, in place
+    of the binning (stream layout)."""
     camera = camera.to(means3d.device)
     proj, bins, grids = _prepare(camera, means3d, cov3d, opacities, config,
-                                 screen_tap, proj, rank)
+                                 screen_tap, proj, rank, frozen)
     image, alpha, depth = _composite(camera, proj, bins, grids, opacities,
                                      payload, bg, config)
     return RasterOut(image=image, alpha=alpha, depth=depth, radii=proj.radius,
@@ -321,15 +495,16 @@ def rasterize_scan_groups(
     rank serve every group: a member's masked opacity is its real opacity,
     so its projected fields are what a per-group projection would give, and
     a non-member is culled (`cull_outside`). Each group then bins only its own
-    splats and blends them in any layout; gradients flow as through
-    `rasterize`. -> RasterOut with image [G, H, W, C], alpha and depth
-    [G, H, W]; radii the maximum over groups, n_dropped / n_truncated the
-    sums."""
+    splats, under the group budgets (`config.group_config()`), and blends them
+    in any layout; gradients flow as through `rasterize`. -> RasterOut with
+    image [G, H, W, C], alpha and depth [G, H, W]; radii the maximum over
+    groups, n_dropped / n_truncated the sums."""
     camera = camera.to(means3d.device)
+    gcfg = config.group_config()
     union = opacities.max(dim=0).values
     proj_u = _project(camera, means3d, cov3d, union, config)
     rank = depth_rank(proj_u.depth.detach())
-    outs = [rasterize(camera, means3d, cov3d, opac_g, payload, bg, config,
+    outs = [rasterize(camera, means3d, cov3d, opac_g, payload, bg, gcfg,
                       proj=cull_outside(proj_u, opac_g > 0.0), rank=rank)
             for opac_g in opacities]
     return RasterOut(
@@ -339,6 +514,42 @@ def rasterize_scan_groups(
         radii=torch.stack([r.radii for r in outs]).max(dim=0).values,
         n_dropped=sum(r.n_dropped for r in outs),
         n_truncated=sum(r.n_truncated for r in outs))
+
+
+def rasterize_groups(
+    camera: Camera,
+    means3d: torch.Tensor,
+    cov3d: torch.Tensor,
+    opacities: torch.Tensor,  # [G, N] per-group masked opacities
+    payload: torch.Tensor,
+    bg: torch.Tensor,
+    config: RasterizeConfig = RasterizeConfig(),
+) -> RasterOut:
+    """Render G subsets of one scene over one shared binning
+    (group_render="dense"; the JAX package's rasterize_groups,
+    rasterize.py:842).
+
+    The union of the groups (the maximum opacity over them) is projected
+    and binned once, in the dense layout, at the frame budgets; the group
+    entries of K5 and K6 then blend that one block once per group, each
+    group at its own opacities (`GroupDenseBlend`). A splat of opacity 0
+    composites nothing, so each group's image is that of its subset. Every
+    group walks the whole union: this pays where the groups overlap and G is
+    small. -> RasterOut with image [G, H, W, C], alpha and depth [G, H, W];
+    the union's radii, n_dropped and n_truncated."""
+    camera = camera.to(means3d.device)
+    dense = dataclasses.replace(config, pallas_input="dense")
+    proj, bins, grids = _prepare(camera, means3d, cov3d, opacities.max(dim=0).values,
+                                 dense)
+    opac_g = torch.where(proj.valid[None, :], opacities, 0.0)
+    full_payload = torch.cat([payload, proj.depth[:, None]], dim=-1)
+    accum, t_final = GroupDenseBlend.apply(
+        proj.mean2d, proj.conic, opac_g, full_payload, bins.gauss_idx, bins.sorted_gauss,
+        bins.tile_start, bins.counts, grids[0], config.chunk)
+    image, alpha, depth = _images(camera, grids, accum.flatten(0, 1), t_final.flatten(0, 1),
+                                  bg)
+    return RasterOut(image=image, alpha=alpha, depth=depth, radii=proj.radius,
+                     n_dropped=bins.n_dropped, n_truncated=bins.n_truncated)
 
 
 def rasterize_partition(
@@ -373,7 +584,8 @@ def rasterize_partition(
     if proj is None:
         proj = _project(camera, means3d, cov3d, opacities, config)
     bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile, rank=rank,
-                         group_of=group_of, num_groups=num_groups)
+                         group_of=group_of, num_groups=num_groups,
+                         max_intersections=config.fixed_budget(means3d.shape[0]))
     opac, full_payload = _blend_inputs(proj, opacities, payload)
     toff = (torch.arange(num_groups * T, device=bins.counts.device) % T).to(torch.int32)
     accum, t_final = StreamBlend.apply(

@@ -21,6 +21,12 @@
     plain versions are the stream plain versions over that strided stream.
     The dense backward writes its rows at the stream positions the block
     was gathered from, so its output is the stream backward's.
+  * `blend_tiles_fwd_groups` and `blend_tiles_bwd_groups` are the group
+    entries of the same two sources: the dense blend and its replay once
+    per group of a [G, N] opacity table, the group a grid axis, each row's
+    opacity read by splat id (the JAX package's rasterize_groups, which
+    vmaps the dense blend over the groups' opacities). Their launches count
+    with K5's and K6's in chip_smoke.py.
 
 Each source notes the bound on the card and what its design does about it.
 Each wrapper dispatches on the device of its inputs: a CPU tensor runs the
@@ -73,6 +79,11 @@ _ENTRIES = {
                                                _p]),
     "og_blend_tiles_bwd": ("blend_tiles_bwd", [_p, _i, _i, _i, _p, _p, _i, _i, _i,
                                                _p, _p, _p, _p, _p, _p]),
+    "og_blend_tiles_fwd_groups": ("blend_tiles_fwd", [_p, _i, _i, _i, _p, _p, _p, _i, _i,
+                                                      _i, _i, _i, _p, _p, _p]),
+    "og_blend_tiles_bwd_groups": ("blend_tiles_bwd", [_p, _i, _i, _i, _p, _p, _p, _p, _i,
+                                                      _i, _i, _i, _i, _i, _p, _p, _p, _p,
+                                                      _p, _p]),
 }
 
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -824,3 +835,160 @@ def blend_tiles_bwd(gdata, counts, tstart, n_rows: int, accum, t_final, g_accum,
 
 
 blend_tiles_bwd.launches = 0
+
+
+def _check_groups(gdata, gauss_idx, opac_g) -> None:
+    T, K, _ = gdata.shape
+    if gauss_idx.dtype != torch.int32 or tuple(gauss_idx.shape) != (T, K):
+        raise ValueError(f"gauss_idx must be int32 [{T}, {K}], got {gauss_idx.dtype} "
+                         f"{tuple(gauss_idx.shape)}")
+    if opac_g.dtype != torch.float32 or opac_g.dim() != 2:
+        raise ValueError(f"opac_g must be float32 [G, N], got {opac_g.dtype} "
+                         f"{tuple(opac_g.shape)}")
+    for nm, x in (("gauss_idx", gauss_idx), ("opac_g", opac_g)):
+        if x.device != gdata.device or not x.is_contiguous():
+            raise ValueError(f"{nm} must be contiguous, on gdata's device")
+
+
+def _group_block(gdata, gauss_idx, opac_g, g: int):
+    """The block whose opacity column is group g's: opac_g[g, gauss_idx]."""
+    block = gdata.clone()
+    block[..., 5] = opac_g[g][gauss_idx.to(torch.int64)]
+    return block
+
+
+def blend_tiles_fwd_groups_plain(gdata, gauss_idx, opac_g, counts, grid_x: int,
+                                 chunk: int, tile_offset: int = 0):
+    """Plain PyTorch version of the group entry of the dense forward kernel:
+    `blend_tiles_fwd_plain` once per group, on the block whose opacity
+    column is that group's. Arguments and outputs as for
+    `blend_tiles_fwd_groups`."""
+    _check_dense(gdata, counts, chunk)
+    _check_groups(gdata, gauss_idx, opac_g)
+    outs = [blend_tiles_fwd_plain(_group_block(gdata, gauss_idx, opac_g, g), counts,
+                                  grid_x, chunk, tile_offset)
+            for g in range(opac_g.shape[0])]
+    T, _, F = gdata.shape
+    if not outs:
+        return (gdata.new_zeros((0, T, F - N_GEOM, NPIX)), gdata.new_zeros((0, T, NPIX)))
+    return torch.stack([a for a, _ in outs]), torch.stack([t for _, t in outs])
+
+
+def blend_tiles_fwd_groups(gdata, gauss_idx, opac_g, counts, grid_x: int, chunk: int,
+                           tile_offset: int = 0):
+    """Forward blend of one dense block once per group of opacities.
+
+    gdata [T, K, 6+C], counts [T], grid_x, chunk, tile_offset: as for
+    `blend_tiles_fwd`; gdata's opacity column is not read. gauss_idx [T, K]
+    int32: the splat of each row (`TileBins.gauss_idx`); opac_g [G, N] f32:
+    each group's opacity by splat. Group g blends the block with row k of
+    tile t at opacity opac_g[g, gauss_idx[t, k]]. -> (accum [G, T, C, 256],
+    t_final [G, T, 256]).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    `blend_tiles_fwd_groups.launches` counts kernel launches."""
+    if gdata.device.type == "cpu":
+        return blend_tiles_fwd_groups_plain(gdata, gauss_idx, opac_g, counts, grid_x,
+                                            chunk, tile_offset)
+    if gdata.device.type != "cuda":
+        raise ValueError(f"blend_tiles_fwd_groups runs on cpu or cuda, not {gdata.device}")
+    _check_dense(gdata, counts, chunk)
+    _check_groups(gdata, gauss_idx, opac_g)
+    T, K, F = gdata.shape
+    G, N = opac_g.shape
+    if F - N_GEOM > MAX_C:
+        raise ValueError(f"the kernel blends at most {MAX_C} channels, got {F - N_GEOM}")
+    if G > 65535:
+        raise ValueError(f"at most 65535 groups, got {G}")
+    _check_fwd_smem(chunk, F)
+    accum = torch.empty((G, T, F - N_GEOM, NPIX), dtype=torch.float32, device=gdata.device)
+    t_final = torch.empty((G, T, NPIX), dtype=torch.float32, device=gdata.device)
+    if T == 0 or G == 0:
+        return accum, t_final
+    _launch("og_blend_tiles_fwd_groups", gdata.device, gdata.data_ptr(), T, K, F,
+            counts.data_ptr(), gauss_idx.data_ptr(), opac_g.data_ptr(), G, N, tile_offset,
+            grid_x, chunk, accum.data_ptr(), t_final.data_ptr())
+    blend_tiles_fwd_groups.launches += 1
+    return accum, t_final
+
+
+blend_tiles_fwd_groups.launches = 0
+
+
+def blend_tiles_bwd_groups_plain(gdata, gauss_idx, opac_g, counts, tstart, n_rows: int,
+                                 accum, t_final, g_accum, g_t, grid_x: int, chunk: int,
+                                 tile_offset: int = 0):
+    """Plain PyTorch version of the group entry of the dense backward kernel:
+    `blend_tiles_bwd_plain` once per group, on the block whose opacity
+    column is that group's. Arguments and output as for
+    `blend_tiles_bwd_groups`."""
+    _check_dense(gdata, counts, chunk)
+    _check_groups(gdata, gauss_idx, opac_g)
+    outs = [blend_tiles_bwd_plain(_group_block(gdata, gauss_idx, opac_g, g), counts,
+                                  tstart, n_rows, accum[g], t_final[g], g_accum[g], g_t[g],
+                                  grid_x, chunk, tile_offset)
+            for g in range(opac_g.shape[0])]
+    if not outs:
+        return gdata.new_zeros((0, n_rows, gdata.shape[2]))
+    return torch.stack(outs)
+
+
+def blend_tiles_bwd_groups(gdata, gauss_idx, opac_g, counts, tstart, n_rows: int, accum,
+                           t_final, g_accum, g_t, grid_x: int, chunk: int,
+                           tile_offset: int = 0):
+    """Per-slot gradient rows of `blend_tiles_fwd_groups`, one slab of the
+    stream per group.
+
+    gdata, gauss_idx, opac_g, counts, grid_x, chunk, tile_offset: the
+    forward's inputs; tstart, n_rows: as for `blend_tiles_bwd`; accum
+    [G, T, C, 256], t_final [G, T, 256]: the forward's outputs; g_accum,
+    g_t: their cotangents. -> d_rows [G, P, 6 + C] f32: slab g is
+    `blend_tiles_bwd`'s output for group g's block (its opacity column
+    opac_g[g, gauss_idx]); its opacity column is the gradient by the group's
+    opacity.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    `blend_tiles_bwd_groups.launches` counts kernel launches."""
+    if gdata.device.type == "cpu":
+        return blend_tiles_bwd_groups_plain(gdata, gauss_idx, opac_g, counts, tstart,
+                                            n_rows, accum, t_final, g_accum, g_t, grid_x,
+                                            chunk, tile_offset)
+    if gdata.device.type != "cuda":
+        raise ValueError(f"blend_tiles_bwd_groups runs on cpu or cuda, not {gdata.device}")
+    _check_dense(gdata, counts, chunk)
+    _check_groups(gdata, gauss_idx, opac_g)
+    _check_starts(tstart, counts, n_rows)
+    T, K, F = gdata.shape
+    G, N = opac_g.shape
+    for nm, x, shape in (("accum", accum, (G, T, F - N_GEOM, NPIX)),
+                         ("t_final", t_final, (G, T, NPIX)),
+                         ("g_accum", g_accum, (G, T, F - N_GEOM, NPIX)),
+                         ("g_t", g_t, (G, T, NPIX))):
+        if (x.dtype != torch.float32 or tuple(x.shape) != shape or x.device != gdata.device
+                or not x.is_contiguous()):
+            raise ValueError(f"{nm} must be contiguous float32 {list(shape)} on gdata's "
+                             f"device, got {x.dtype} {tuple(x.shape)}")
+    if F - N_GEOM > MAX_C:
+        raise ValueError(f"the kernel takes at most {MAX_C} channels, got {F - N_GEOM}")
+    if G > 65535:
+        raise ValueError(f"at most 65535 groups, got {G}")
+    _check_bwd_smem(chunk, F)
+    d_rows = torch.zeros((G, n_rows, F), dtype=torch.float32, device=gdata.device)
+    if T == 0 or G == 0:
+        return d_rows
+    _launch("og_blend_tiles_bwd_groups", gdata.device, gdata.data_ptr(), T, K, F,
+            counts.data_ptr(), tstart.data_ptr(), gauss_idx.data_ptr(), opac_g.data_ptr(),
+            G, N, n_rows, tile_offset, grid_x, chunk, accum.data_ptr(), t_final.data_ptr(),
+            g_accum.data_ptr(), g_t.data_ptr(), d_rows.data_ptr())
+    blend_tiles_bwd_groups.launches += 1
+    return d_rows
+
+
+blend_tiles_bwd_groups.launches = 0
+
+
+# every kernel wrapper, with its launch counter (a captured training step
+# adds its launches to these on each replay)
+KERNEL_WRAPPERS = (blend_stream_fwd, blend_stream_bwd, blend_stream_bwd_compact,
+                   segment_reduce, blend_tiles_fwd, blend_tiles_bwd,
+                   blend_tiles_fwd_groups, blend_tiles_bwd_groups)

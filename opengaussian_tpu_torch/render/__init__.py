@@ -9,7 +9,10 @@ renders each of G clusters alone (stage 2.2 and the pseudo-label sweeps)
 through `rasterize_scan_groups`, and `render_clusters_partition` renders G
 disjoint clusters in one pass (stage 3) through `rasterize_partition`, and
 `render_selection` renders one chosen subset of splats (the text and click
-queries) through `rasterize_scan_groups` with one group. The
+queries) through `rasterize_scan_groups` with one group. With
+group_render="dense" the group renders go through `rasterize_groups` (one
+union binning, the group entries of K5 and K6); with a view's FrozenPlan
+(`frozen=`) `render` and `render_clusters` skip the binning. The
 reference's data-dependent `continue` filters (a cluster with too few
 splats, a silhouette below 0.8) become the `cluster_valid` and
 `cluster_occur` flags.
@@ -26,9 +29,12 @@ from opengaussian_tpu_torch.cameras import Camera
 from opengaussian_tpu_torch.models.gaussians import GaussianState
 from opengaussian_tpu_torch.ops.projection import build_cov3d
 from opengaussian_tpu_torch.ops.rasterize import (
+    FrozenPlan,
     RasterizeConfig,
-    rasterize,
+    RasterOut,
     cull_outside,
+    rasterize,
+    rasterize_groups,
     rasterize_partition,
     rasterize_scan_groups,
 )
@@ -85,10 +91,13 @@ def render(
     rescale_factor: torch.Tensor | float = 1.0,
     scale_modifier: float = 1.0,
     screen_tap: torch.Tensor | None = None,
+    frozen: FrozenPlan | None = None,
 ) -> RenderOutputs:
     """Render one view: the color pass and/or the instance-feature pass.
     screen_tap [N,2] (zeros) joins the color pass's NDC positions and comes
-    back as `screen_grad_tap`."""
+    back as `screen_grad_tap`. frozen: the view's FrozenPlan, built at
+    scale_modifier and rescale_factor 1 under this camera and geometry; it
+    serves both passes (a rescaled feature pass rides the superset plan)."""
     camera = camera.to(gs.device)
     scales = gs.scales * scale_modifier
     opac = gs.opacity
@@ -97,7 +106,8 @@ def render(
     if render_color:
         cov3d = build_cov3d(scales, gs.quats)
         rgb = sh_to_rgb(active_sh_degree, gs.sh, gs.means, camera.cam_center)
-        r = rasterize(camera, gs.means, cov3d, opac, rgb, bg, config, screen_tap)
+        r = rasterize(camera, gs.means, cov3d, opac, rgb, bg, config, screen_tap,
+                      frozen=frozen)
         out = dataclasses.replace(
             out, render=r.image, alpha=r.alpha, depth=r.depth, radii=r.radii,
             visibility_filter=r.radii > 0, n_lost=r.n_dropped + r.n_truncated,
@@ -108,7 +118,7 @@ def render(
         feat = encoded_ins_feat(gs, quantized_feat, origin_feat)
         cov3d_f = build_cov3d(scales * rescale_factor, gs.quats)
         fbg = torch.cat([bg, bg])  # the reference applies the same 3-ch bg
-        rf = rasterize(camera, gs.means, cov3d_f, opac, feat, fbg, config)
+        rf = rasterize(camera, gs.means, cov3d_f, opac, feat, fbg, config, frozen=frozen)
         lost = rf.n_dropped + rf.n_truncated
         out = dataclasses.replace(
             out, ins_feat=rf.image, silhouette=rf.alpha,
@@ -124,7 +134,10 @@ def _cluster_keep(gs: GaussianState, cluster_ids, group_ids, better_vis: bool,
                   scale_limit: float) -> torch.Tensor:
     """[G, N] bool: the alive splats of each group's cluster (with the
     better_vis scale cull)."""
-    group_ids = torch.as_tensor(group_ids, device=gs.device)
+    if not isinstance(group_ids, torch.Tensor):  # a host list: copied, no sync
+        group_ids = torch.as_tensor(group_ids, dtype=torch.int64).to(gs.device,
+                                                                     non_blocking=True)
+    group_ids = group_ids.reshape(-1)
     keep = (cluster_ids[None, :] == group_ids[:, None]) & gs.alive[None, :]
     if better_vis:
         keep = keep & torch.all(gs.scales < scale_limit, dim=-1)[None, :]
@@ -154,19 +167,23 @@ def render_clusters(
     better_vis: bool = False,
     scale_limit: float = COARSE_SCALE_LIMIT,  # 0.5 coarse / 0.1 leaf
     min_points: int = MIN_CLUSTER_POINTS,
+    frozen: FrozenPlan | None = None,
 ) -> RenderOutputs:
     """Per-cluster feature and silhouette renders (reference
     gaussian_renderer/__init__.py:174-356): group g renders the alive
     splats with cluster_ids == group_ids[g] (with better_vis, only those
     smaller than scale_limit on every axis). A group is valid when it kept
     at least min_points splats, occurs when its silhouette peaks above 0.8.
-    -> RenderOutputs with the cluster_* fields, radii and n_lost."""
+    group_ids: a sequence of ints, or an int64 tensor on the device (a
+    captured step's root id). frozen: the view's full-frame FrozenPlan; each
+    group is then a masked-opacity blend over its stream, at the frame
+    budgets. -> RenderOutputs with the cluster_* fields, radii and n_lost."""
     camera = camera.to(gs.device)
     cov3d = build_cov3d(gs.scales * rescale_factor, gs.quats)
     payload = encoded_ins_feat(gs, quantized_feat, origin_feat)
     keep = _cluster_keep(gs, cluster_ids, group_ids, better_vis, scale_limit)
     return _render_groups(camera, gs, keep, payload, torch.cat([bg, bg]), cov3d, config,
-                          min_points)
+                          min_points, frozen)
 
 
 def render_clusters_partition(
@@ -201,7 +218,8 @@ def render_clusters_partition(
     if proj is not None:
         proj = cull_outside(proj, union)
     r = rasterize_partition(camera, gs.means, cov3d, opac, group_of, keep.shape[0],
-                            payload, torch.cat([bg, bg]), config, proj=proj, rank=rank)
+                            payload, torch.cat([bg, bg]), config.group_config(), proj=proj,
+                            rank=rank)
     return _cluster_outputs(r, keep.sum(dim=-1), min_points)
 
 
@@ -259,9 +277,24 @@ def save_selection(path: str, img: torch.Tensor) -> None:
 
 
 def _render_groups(camera, gs: GaussianState, keep, payload, fbg, cov3d,
-                   config: RasterizeConfig, min_points: int) -> RenderOutputs:
-    """The groups of `keep` [G, N] rendered one after the other
-    (group_render "auto"/"scan"), over the background fbg."""
+                   config: RasterizeConfig, min_points: int,
+                   frozen: FrozenPlan | None = None) -> RenderOutputs:
+    """The groups of `keep` [G, N] over the background fbg: one after the
+    other (group_render "auto"/"scan"), over one union binning ("dense"),
+    or, with a FrozenPlan, one masked-opacity blend per group over the
+    plan's stream."""
     opac = torch.where(keep, gs.opacity[None, :], 0.0)
-    r = rasterize_scan_groups(camera, gs.means, cov3d, opac, payload, fbg, config)
+    if frozen is not None:
+        outs = [rasterize(camera, gs.means, cov3d, o, payload, fbg, config, frozen=frozen)
+                for o in opac]
+        r = RasterOut(
+            image=torch.stack([x.image for x in outs]),
+            alpha=torch.stack([x.alpha for x in outs]),
+            depth=torch.stack([x.depth for x in outs]),
+            radii=torch.stack([x.radii for x in outs]).max(dim=0).values,
+            n_dropped=sum(x.n_dropped for x in outs),
+            n_truncated=sum(x.n_truncated for x in outs))
+    else:
+        groups = rasterize_groups if config.group_render == "dense" else rasterize_scan_groups
+        r = groups(camera, gs.means, cov3d, opac, payload, fbg, config)
     return _cluster_outputs(r, keep.sum(dim=-1), min_points)

@@ -31,14 +31,26 @@ rewrites the bundle's SAM ids once, before the first stage-1 step.
 Checkpoints (`save_checkpoint`, `restore_checkpoint`) use
 train/checkpoint.py.
 
-The port runs eagerly: a step is one Python function, with no jit and no
-scanned blocks of steps. Its binning sizes the slot buffer per frame, so of
-the JAX trainer's budget probe only the per-tile cap is left: the trainer
-raises max_per_tile past the deepest tile it finds, as the JAX trainer's
-probe does, so that no slot is truncated; group renders use the same cap
-(the JAX package's per-group budgets are not ported). What the port leaves
-out so far raises NotImplementedError: the device mesh. Frozen binning
-plans and scanned blocks of steps are not ported.
+By default a step is one eager Python function and the binning sizes the
+slot stream per frame; the trainer then only raises max_per_tile past the
+deepest tile it finds (`_fit_max_per_tile`), so that no slot is truncated.
+The JAX trainer's options for fixed shapes are there, switched on one by
+one under its names:
+  * `Trainer(autotune_budgets=True)`: the budget probe of ops/budget.py
+    fixes the slot budget P and max_per_tile (`_tune_budgets`), and the
+    group budgets of the group renders at stage-2.1 and stage-2.2 entry
+    (`_tune_group_budgets`); re-tuned after a capacity growth and after a
+    logged step that lost slots;
+  * `use_frozen_plans = True`: stages 1 and 2.1 take each view's binning
+    from a cached FrozenPlan (`_ensure_frozen_plans`), stage 2.2 re-bins;
+  * `BLOCK_SIZES = (50, 10, 5)` (with fixed budgets): runs of steps with no
+    event between them go as one block (`_block_len`, `_run_block`). On a
+    GPU each stage's step is a CUDA graph over static buffers, captured once
+    and replayed for every step of the block with that step's view,
+    iteration, learning rates, background, rescale factor and root written
+    into a device buffer before the replay; on the CPU the same step runs
+    eagerly. The counterpart of the JAX package's scanned stage*_block.
+What the port leaves out so far raises NotImplementedError: the device mesh.
 
 Observability as in the JAX trainer: the train_process/ PNG dumps
 (train/observe.py, every 1000 iterations, 100 in stage 2.2, unless
@@ -65,9 +77,17 @@ from opengaussian_tpu_torch.data.ply import save_gaussian_ply
 from opengaussian_tpu_torch.device import resolve_device
 from opengaussian_tpu_torch.models import gaussians as G
 from opengaussian_tpu_torch.models import optimizer as opt_mod
+from opengaussian_tpu_torch.ops import budget
 from opengaussian_tpu_torch.ops import kmeans as km
+from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 from opengaussian_tpu_torch.ops.projection import build_cov3d
-from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, deepest_tile
+from opengaussian_tpu_torch.ops.rasterize import (
+    FrozenPlan,
+    RasterizeConfig,
+    build_frozen_plan,
+    deepest_tile,
+    stack_plans,
+)
 from opengaussian_tpu_torch.refine.introspect import RefinerTrace
 from opengaussian_tpu_torch.refine.sam_refiner import refine_sam_masks
 from opengaussian_tpu_torch.render import render, render_clusters
@@ -78,7 +98,25 @@ from opengaussian_tpu_torch.utils import codebook as cb
 from opengaussian_tpu_torch.utils import masks as masku
 from opengaussian_tpu_torch.viewer import network_gui
 
-HEADROOM = 1.3  # scenes evolve between probes (the JAX package's ops/budget.py)
+HEADROOM = budget.HEADROOM
+
+
+def _at(x: torch.Tensor, i):
+    """x[i] for an int i, or for a 1-element int64 tensor on x's device (the
+    view index of a captured step, read at replay)."""
+    return x.index_select(0, i)[0] if isinstance(i, torch.Tensor) else x[i]
+
+
+@dataclasses.dataclass(frozen=True)
+class StepHyper:
+    """The per-step numbers a captured step reads from device memory: the
+    learning rates (0-d tensors by leaf), Adam's bias corrections
+    (`optimizer.bias_tensors`) and, in stage 0, the SH mask of the
+    iteration [S] (1.0 for an active coefficient)."""
+
+    lrs: dict
+    bias: dict
+    sh_mask: torch.Tensor | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,10 +139,11 @@ class ViewBundle:
     height: int
     max_masks: int
 
-    def camera(self, i: int) -> Camera:
-        return Camera(R_w2c=self.R[i], t_w2c=self.t[i], fx=self.fx[i], fy=self.fy[i],
-                      cx=self.cx[i], cy=self.cy[i], width=self.width,
-                      height=self.height)
+    def camera(self, i) -> Camera:
+        """View i's camera; i an int or a 1-element int64 tensor (`_at`)."""
+        return Camera(R_w2c=_at(self.R, i), t_w2c=_at(self.t, i), fx=_at(self.fx, i),
+                      fy=_at(self.fy, i), cx=_at(self.cx, i), cy=_at(self.cy, i),
+                      width=self.width, height=self.height)
 
     @property
     def num_views(self) -> int:
@@ -211,27 +250,43 @@ def bundle_window(bundle: ViewBundle, vi: int, device) -> ViewBundle:
         max_masks=bundle.max_masks)
 
 
-def _mask_sh(gs: G.GaussianState, iteration: int) -> G.GaussianState:
-    """SH-degree warmup: the degree rises every 1000 iterations (reference
-    train.py:255-256); inactive coefficients are multiplied by 0, which also
-    blocks their gradients, as rendering at a lower degree would."""
-    n_active = (min(iteration // 1000, 3) + 1) ** 2
-    idx = torch.arange(gs.sh_rest.shape[1], device=gs.device) + 1
-    mask = (idx < n_active).to(gs.sh_rest.dtype)
+def _sh_active(iteration: int) -> int:
+    """SH coefficients in use at `iteration`, the DC one included: the degree
+    rises every 1000 iterations (reference train.py:255-256)."""
+    return (min(iteration // 1000, 3) + 1) ** 2
+
+
+def sh_mask_values(iteration: int, n_rest: int) -> list[float]:
+    """The SH mask of `iteration`: 1.0 for each of the n_rest higher-order
+    coefficients in use, else 0.0."""
+    return [1.0 if i + 1 < _sh_active(iteration) else 0.0 for i in range(n_rest)]
+
+
+def _mask_sh(gs: G.GaussianState, iteration: int, mask=None) -> G.GaussianState:
+    """SH-degree warmup: inactive coefficients are multiplied by 0, which also
+    blocks their gradients, as rendering at a lower degree would. mask: the
+    iteration's mask as a device tensor (a captured step's)."""
+    if mask is None:
+        idx = torch.arange(gs.sh_rest.shape[1], device=gs.device) + 1
+        mask = (idx < _sh_active(iteration)).to(gs.sh_rest.dtype)
     return dataclasses.replace(gs, sh_rest=gs.sh_rest * mask[None, :, None])
 
 
 def stage0_step(state: G.GaussianState, adam: opt_mod.AdamState, stats: G.DensifyStats,
                 bundle: ViewBundle, view_idx: int, iteration: int, bg: torch.Tensor,
                 spatial_lr_scale: float, rcfg: RasterizeConfig,
-                ocfg: OptimizationConfig):
+                ocfg: OptimizationConfig, hyper: StepHyper | None = None):
     """One stage-0 step (the JAX package's _stage0_body): render the color
     pass with the screen tap, loss, gradients, Adam, densify statistics.
+    view_idx: an int, or a 1-element int64 tensor on the device; hyper: the
+    iteration's learning rates, bias corrections and SH mask as device
+    tensors (a captured step), else computed from `iteration`.
     -> (state, adam, stats, loss, psnr, n_lost), the last three 0-d tensors."""
-    gt = bundle.gt_images[view_idx]
+    gt = _at(bundle.gt_images, view_idx)
     params = {k: v.detach().requires_grad_(True) for k, v in state.params().items()}
     tap = torch.zeros((state.capacity, 2), device=state.device, requires_grad=True)
-    gs = _mask_sh(state.with_params(params), iteration)
+    gs = _mask_sh(state.with_params(params), iteration,
+                  None if hyper is None else hyper.sh_mask)
     out = render(bundle.camera(view_idx), gs, bg, 3, rcfg, screen_tap=tap)
     loss = losses.rgb_loss(out.render, gt, ocfg.lambda_dssim)
     loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
@@ -240,8 +295,7 @@ def stage0_step(state: G.GaussianState, adam: opt_mod.AdamState, stats: G.Densif
     # ins_feat is not rendered by the color pass: its gradient is zero
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
     p_grads = dict(zip(params, grads[:-1]))
-    lrs = opt_mod.learning_rates(ocfg, iteration, spatial_lr_scale)
-    new_p, adam = opt_mod.apply(state.params(), p_grads, adam, lrs)
+    new_p, adam = _adam(state, p_grads, adam, ocfg, iteration, spatial_lr_scale, hyper)
     stats = stats.update(grads[-1], out.radii)
     with torch.no_grad():
         psnr = losses.psnr(out.render, gt)
@@ -255,15 +309,27 @@ def _freeze_geometry(params: dict) -> dict:
     return {k: v.detach().requires_grad_(k == "ins_feat") for k, v in params.items()}
 
 
-def _alpha_mask_loss(out_alpha, bundle: ViewBundle, view_idx: int):
+def _alpha_mask_loss(out_alpha, bundle: ViewBundle, view_idx):
     """Per-view gate: maskless views carry an all-ones placeholder that must
     not be regressed against (reference train.py:491 checks per camera)."""
-    return torch.where(bundle.has_alpha[view_idx],
-                       ((out_alpha - bundle.alpha_masks[view_idx]) ** 2).mean(), 0.0)
+    return torch.where(_at(bundle.has_alpha, view_idx),
+                       ((out_alpha - _at(bundle.alpha_masks, view_idx)) ** 2).mean(), 0.0)
+
+
+def _adam(state: G.GaussianState, grads: dict, adam: opt_mod.AdamState,
+          ocfg: OptimizationConfig, iteration: int, spatial_lr_scale: float,
+          hyper: StepHyper | None):
+    """Adam with the iteration's learning rates: from `hyper` (device
+    tensors) in a captured step, else from the schedule."""
+    if hyper is None:
+        lrs = opt_mod.learning_rates(ocfg, iteration, spatial_lr_scale)
+        return opt_mod.apply(state.params(), grads, adam, lrs)
+    return opt_mod.apply(state.params(), grads, adam, hyper.lrs, hyper.bias)
 
 
 def _feature_update(state: G.GaussianState, adam: opt_mod.AdamState, params: dict, loss,
-                    iteration: int, ocfg: OptimizationConfig, keep=None):
+                    iteration: int, ocfg: OptimizationConfig, keep=None,
+                    hyper: StepHyper | None = None):
     """Adam on every leaf with the gradient by ins_feat alone (the frozen
     leaves get zeros and learning rate 0, so they stay as they were). keep
     (a 0-d bool tensor): where False, the gradient is zero, but Adam still
@@ -272,73 +338,80 @@ def _feature_update(state: G.GaussianState, adam: opt_mod.AdamState, params: dic
     if keep is not None:
         g = torch.where(keep, g, 0.0)
     grads = {k: g if k == "ins_feat" else torch.zeros_like(v) for k, v in params.items()}
-    lrs = opt_mod.learning_rates(ocfg, iteration, 1.0)
-    new_p, adam = opt_mod.apply(state.params(), grads, adam, lrs)
+    new_p, adam = _adam(state, grads, adam, ocfg, iteration, 1.0, hyper)
     return state.with_params(new_p), adam
 
 
 def stage1_step(state: G.GaussianState, adam: opt_mod.AdamState, bundle: ViewBundle,
-                view_idx: int, iteration: int, bg: torch.Tensor, rescale_factor: float,
+                view_idx, iteration: int, bg: torch.Tensor, rescale_factor,
                 rcfg: RasterizeConfig, ocfg: OptimizationConfig,
-                with_alpha_loss: bool = False):
+                with_alpha_loss: bool = False, frozen: FrozenPlan | None = None,
+                hyper: StepHyper | None = None):
     """One stage-1 step (the JAX package's _stage1_body): the feature pass of
     the frozen geometry, mask means inside the silhouette, separation +
-    loss_weight * cohesion against the view's SAM masks.
-    -> (state, adam, loss, n_lost), the last two 0-d tensors."""
+    loss_weight * cohesion against the view's SAM masks. frozen: the view's
+    FrozenPlan; view_idx, rescale_factor and hyper may be device tensors
+    (see stage0_step). -> (state, adam, loss, n_lost), the last two 0-d
+    tensors."""
     params = _freeze_geometry(state.params())
     out = render(bundle.camera(view_idx), state.with_params(params), bg, 3, rcfg,
                  render_color=with_alpha_loss, render_feat_map=True,
-                 rescale_factor=rescale_factor)
+                 rescale_factor=rescale_factor, frozen=frozen)
     sil = (out.silhouette > 0.7).to(torch.float32)
-    masks, valid = masku.masks_onehot(bundle.sam_ids[view_idx], bundle.max_masks)
+    masks, valid = masku.masks_onehot(_at(bundle.sam_ids, view_idx), bundle.max_masks)
     means = masku.mask_feature_mean(out.ins_feat, masks, image_mask=sil)
     l_coh = losses.cohesion_loss(out.ins_feat, masks, valid, means)
     l_sep = losses.separation_loss(means, valid, iteration)
     loss = l_sep + ocfg.loss_weight * l_coh
     if with_alpha_loss:
         loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
-    state, adam = _feature_update(state, adam, params, loss, iteration, ocfg)
+    state, adam = _feature_update(state, adam, params, loss, iteration, ocfg, hyper=hyper)
     return state, adam, loss.detach(), out.n_lost
 
 
 def stage21_step(state: G.GaussianState, adam: opt_mod.AdamState, kms: km.KMeansState,
-                 bundle: ViewBundle, view_idx: int, iteration: int, bg: torch.Tensor,
-                 rescale_factor: float, pseudo_feat: torch.Tensor, rcfg: RasterizeConfig,
-                 ocfg: OptimizationConfig, with_alpha_loss: bool = False):
+                 bundle: ViewBundle, view_idx, iteration: int, bg: torch.Tensor,
+                 rescale_factor, pseudo_feat: torch.Tensor, rcfg: RasterizeConfig,
+                 ocfg: OptimizationConfig, with_alpha_loss: bool = False,
+                 frozen: FrozenPlan | None = None, hyper: StepHyper | None = None):
     """One stage-2.1 step (the JAX package's _stage21_body; reference
     train.py:464-473): L1 of the rendered root-quantized features against
-    the view's pseudo features, inside the rendered silhouette.
+    the view's pseudo features, inside the rendered silhouette. frozen,
+    view_idx, rescale_factor, hyper: as for stage1_step.
     -> (state, adam, loss, n_lost), the last two 0-d tensors."""
     params = _freeze_geometry(state.params())
     q = km.quantize(kms, params["ins_feat"], "root")
     out = render(bundle.camera(view_idx), state.with_params(params), bg, 3, rcfg,
                  render_color=with_alpha_loss, render_feat_map=True, quantized_feat=q,
-                 rescale_factor=rescale_factor)
+                 rescale_factor=rescale_factor, frozen=frozen)
     keep = (out.silhouette > 0.7).to(torch.float32)[..., None]
     loss = losses.l1_loss(out.ins_feat, pseudo_feat, keep)
     if with_alpha_loss:
         loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
-    state, adam = _feature_update(state, adam, params, loss, iteration, ocfg)
+    state, adam = _feature_update(state, adam, params, loss, iteration, ocfg, hyper=hyper)
     return state, adam, loss.detach(), out.n_lost
 
 
 def stage22_step(state: G.GaussianState, adam: opt_mod.AdamState, kms: km.KMeansState,
-                 bundle: ViewBundle, view_idx: int, iteration: int, bg: torch.Tensor,
-                 rescale_factor: float, pseudo_feat: torch.Tensor, root_id: int,
+                 bundle: ViewBundle, view_idx, iteration: int, bg: torch.Tensor,
+                 rescale_factor, pseudo_feat: torch.Tensor, root_id,
                  root_visible, rcfg: RasterizeConfig, ocfg: OptimizationConfig,
-                 with_alpha_loss: bool = False):
+                 with_alpha_loss: bool = False, hyper: StepHyper | None = None):
     """One stage-2.2 step (the JAX package's _stage22_body; reference
     train.py:475-497): render the root cluster root_id alone with
     leaf-quantized features, L2 against the view's pseudo features inside
     the cluster's silhouette. Where the root does not occur in the render
     or root_visible (sweep 2's verdict for this view, a 0-d bool tensor or
     bool) is false, the loss and the gradient are zero, but Adam still
-    steps. -> (state, adam, loss, ok, n_lost), the last three 0-d tensors."""
+    steps. root_id: an int, or a 1-element int64 tensor on the device;
+    view_idx, rescale_factor, hyper: as for stage1_step.
+    -> (state, adam, loss, ok, n_lost), the last three 0-d tensors."""
     params = _freeze_geometry(state.params())
     q = km.quantize(kms, params["ins_feat"], "leaf")
     gs = state.with_params(params)
     cam = bundle.camera(view_idx)
-    out = render_clusters(cam, gs, bg, kms.cls_ids, [root_id], rcfg, quantized_feat=q,
+    roots = root_id if isinstance(root_id, torch.Tensor) else [root_id]
+    out = render_clusters(cam, gs, bg, kms.cls_ids, roots, rcfg, quantized_feat=q,
                           rescale_factor=rescale_factor, min_points=1)
     sil = (out.cluster_silhouettes[0] > 0.7).to(torch.float32)[..., None]
     ok = out.cluster_occur[0] & torch.as_tensor(root_visible, device=state.device)
@@ -349,7 +422,8 @@ def stage22_step(state: G.GaussianState, adam: opt_mod.AdamState, kms: km.KMeans
         loss = loss + _alpha_mask_loss(color.alpha, bundle, view_idx)
         n_lost = torch.maximum(n_lost, color.n_lost)
     loss = torch.where(ok, loss, 0.0)
-    state, adam = _feature_update(state, adam, params, loss, iteration, ocfg, keep=ok)
+    state, adam = _feature_update(state, adam, params, loss, iteration, ocfg, keep=ok,
+                                  hyper=hyper)
     return state, adam, loss.detach(), ok, n_lost
 
 
@@ -368,13 +442,21 @@ class Trainer:
 
     View order, the random background and the rescale factor of stages 1 to
     2.2 come from np.random.default_rng(seed), drawn in the JAX package's
-    order, so both trainers visit the same views; the split noise of
-    densification and the k-means++ seeds come from a torch.Generator
-    seeded with `seed` on the training device."""
+    order (a block draws its n views first, then n backgrounds, then n
+    rescale factors, as the JAX package's _run_block does), so both trainers
+    visit the same views; the split noise of densification and the k-means++
+    seeds come from a torch.Generator seeded with `seed` on the training
+    device. autotune_budgets: fixed budgets from ops/budget.py (the JAX
+    trainer's default; off here, where the stream is sized per frame)."""
+
+    # Runs of steps with no event between them go as one block of one of
+    # these lengths (the JAX trainer's menu); () = one step at a time. A
+    # block needs fixed budgets (autotune_budgets).
+    BLOCK_SIZES: tuple = ()
 
     def __init__(self, scene: Scene, cfg: Config, out_dir: str,
                  rcfg: RasterizeConfig | None = None, seed: int = 0,
-                 device="cuda", mesh=None):
+                 device="cuda", mesh=None, autotune_budgets: bool = False):
         if mesh is not None:
             raise NotImplementedError(
                 "training over a device mesh arrives with the port's multi-GPU slice")
@@ -397,9 +479,12 @@ class Trainer:
                          cfg.opt.sam_level, self.device, host=self.save_memory)
             if scene.test_views else None)
         self.rcfg = rcfg or RasterizeConfig()
-        self.bg = torch.tensor(
-            [1.0, 1.0, 1.0] if cfg.model.white_background else [0.0, 0.0, 0.0],
-            device=self.device)
+        # the ceiling the budget probe tunes against, so that budgets can
+        # grow back when the scene's load rises
+        self._base_rcfg = self.rcfg
+        self.autotune_budgets = autotune_budgets
+        self._bg_host = np.full(3, 1.0 if cfg.model.white_background else 0.0, np.float32)
+        self.bg = torch.tensor(self._bg_host, device=self.device)
         self.spatial_lr_scale = scene.cameras_extent
 
         self.state = G.create_from_pcd(
@@ -416,6 +501,13 @@ class Trainer:
         self.iteration = 0
         self.root_id = 0  # the root stage 2.2 trains, in round robin
         self._budgets_tuned = False
+        # per-view FrozenPlans of stages 1 and 2.1, stacked [V, ...]: None =
+        # not built, False = tried and off (a build lost slots, or the stack
+        # would pass frozen_plan_bytes_cap)
+        self.use_frozen_plans = False
+        self._frozen_plans: FrozenPlan | None | bool = None
+        self.frozen_plan_bytes_cap = 4 << 30
+        self._captured: dict[str, _CapturedStep] = {}  # by stage, CUDA only
         self._view_queue: list[int] = []
         self._last_lost: torch.Tensor | None = None
         self._last_view = 0
@@ -458,17 +550,67 @@ class Trainer:
 
     def _bg_for(self, stage: str) -> torch.Tensor:
         if self.cfg.opt.random_background and stage == "0":
-            return torch.as_tensor(self.rng.random(3), dtype=torch.float32,
-                                   device=self.device)
+            return torch.as_tensor(self._bg_values(stage)).to(self.device, non_blocking=True)
         return self.bg
 
+    def _bg_values(self, stage: str) -> np.ndarray:
+        """The step's background on the host (a draw for a random one)."""
+        if self.cfg.opt.random_background and stage == "0":
+            return self.rng.random(3).astype(np.float32)
+        return self._bg_host
+
+    def _tune_budgets(self):
+        """Size the budgets before the first step, after a capacity growth and
+        after a logged step that lost slots. With autotune_budgets, the JAX
+        trainer's probe (ops/budget.py:tuned_config against the base config)
+        fixes P and max_per_tile, and the group budgets are re-probed once
+        the root assignment exists; a change drops the frozen plans and the
+        captured steps. Without it, `_fit_max_per_tile`."""
+        if not self.autotune_budgets:
+            self._fit_max_per_tile()
+            return
+        cams = [self.bundle.camera(i) for i in range(self.bundle.num_views)]
+        new = budget.tuned_config(self._base_rcfg, self.state, cams)
+        if new != self.rcfg:
+            n = self.state.capacity
+            print(f"[budget] intersections {self.rcfg.max_intersections(n)}->"
+                  f"{new.max_intersections(n)}, max_per_tile "
+                  f"{self.rcfg.max_per_tile}->{new.max_per_tile}", flush=True)
+            self._set_rcfg(new)
+        if self.iteration + 1 > self.cfg.opt.start_root_cb_iter:
+            self._tune_group_budgets()
+        self._budgets_tuned = True
+
+    def _tune_group_budgets(self):
+        """Per-root budgets of the group renders (stage 2.2, sweep 2, stage 3)
+        from a probe of the current root assignment (ops/budget.py:
+        tuned_group_config): at stage-2.1 and stage-2.2 entry and with every
+        frame re-tune. A no-op without autotune_budgets and under
+        group_render="dense", whose union binning takes the frame budgets."""
+        if not self.autotune_budgets or self.rcfg.group_render == "dense":
+            return
+        cams = [self.bundle.camera(i) for i in range(self.bundle.num_views)]
+        new = budget.tuned_group_config(self.rcfg, self.state, cams, self.kms.cls_ids,
+                                        self.cfg.opt.root_node_num)
+        if new != self.rcfg:
+            print(f"[budget] group budgets P={new.group_intersection_budget} "
+                  f"K={new.group_max_per_tile}", flush=True)
+            self.rcfg = new  # the frame's plans stand; the captured steps do not
+            self._captured.clear()
+
+    def _set_rcfg(self, rcfg: RasterizeConfig):
+        """New frame budgets: the frozen plans and the captured steps were
+        made for the old ones."""
+        self.rcfg = rcfg
+        self._frozen_plans = None
+        self._captured.clear()
+
     def _fit_max_per_tile(self):
-        """The JAX trainer's budget probe (ops/budget.py:probe, tuned_config)
-        for the one budget the port keeps: over up to 4 evenly spaced views,
-        find the deepest tile and raise max_per_tile to 1.3x of it (rounded
-        up to the chunk) when the cap is lower. Like the JAX trainer, runs
-        before the first step, after a capacity growth and after a logged
-        step that lost slots."""
+        """The per-tile cap of the stream sized per frame (no fixed budgets):
+        over up to 4 evenly spaced views, find the deepest tile and raise
+        max_per_tile to 1.3x of it (rounded up to the chunk) when the cap is
+        lower, as the JAX trainer's probe raises it. Reading the deepest tile
+        is a host sync per view. Runs where `_tune_budgets` runs."""
         V = self.bundle.num_views
         cov3d = build_cov3d(self.state.scales, self.state.quats)
         cnt = max(deepest_tile(self.bundle.camera(i), self.state.means, cov3d,
@@ -483,7 +625,9 @@ class Trainer:
         self._budgets_tuned = True
 
     def _maybe_grow(self):
-        """Double the capacity when more than 90% of the slots are alive."""
+        """Double the capacity when more than 90% of the slots are alive. The
+        geometry is about to change: any frozen plans are stale."""
+        self._frozen_plans = None
         if int(self.state.num_alive) / self.state.capacity > 0.9:
             new_cap = G.round_capacity(int(self.state.capacity * 2))
             self.state = G.grow_capacity(self.state, new_cap)
@@ -493,6 +637,7 @@ class Trainer:
             self.stats = G.grow_capacity(self.stats, new_cap)
             self.kms = self.kms.grow(new_cap)
             self._budgets_tuned = False  # re-probe at the new scale
+            self._captured.clear()
 
     def _rescale_factor(self, it: int) -> float:
         """50% chance of a uniform rescale once past start_root_cb_iter
@@ -502,6 +647,41 @@ class Trainer:
         if self.rng.random() > 0.5:
             return float(self.rng.random())
         return 1.0
+
+    def _ensure_frozen_plans(self) -> FrozenPlan | None:
+        """The stacked per-view FrozenPlans of stages 1 and 2.1, built once
+        (the JAX trainer's cache, loop.py:795): None when use_frozen_plans is
+        off, off the stream layout, or when the cache was turned off because
+        a build lost slots (a plan is exact only when lossless) or the stack
+        would pass frozen_plan_bytes_cap."""
+        if (not self.use_frozen_plans or self._frozen_plans is False
+                or self.rcfg.pallas_input != "stream"):
+            return None
+        if self._frozen_plans is not None:
+            return self._frozen_plans
+        V = self.bundle.num_views
+        n = self.state.capacity
+        T = -(-self.bundle.width // 16) * -(-self.bundle.height // 16)
+        est = V * 4 * (self.rcfg.max_intersections(n) + 2 * T)
+        if est > self.frozen_plan_bytes_cap:
+            print(f"[frozen] plans disabled: ~{est >> 20} MB exceeds the "
+                  f"{self.frozen_plan_bytes_cap >> 20} MB cap", flush=True)
+            self._frozen_plans = False
+            return None
+        cov3d = build_cov3d(self.state.scales, self.state.quats)
+        t0 = time.time()
+        plans = [build_frozen_plan(self.bundle.camera(vi), self.state.means, cov3d,
+                                   self.state.opacity, self.rcfg) for vi in range(V)]
+        lost = int(sum(p.n_dropped + p.n_truncated for p in plans))  # one host sync
+        if lost > 0:
+            print(f"[frozen] plans disabled: builds lost {lost} slots at the "
+                  "current budgets (the plans would not be exact)", flush=True)
+            self._frozen_plans = False
+            return None
+        self._frozen_plans = stack_plans(plans, n)
+        print(f"[frozen] built {V} view plans in {time.time() - t0:.1f}s "
+              f"({self._frozen_plans.nbytes() >> 20} MB)", flush=True)
+        return self._frozen_plans
 
     def _ensure_pseudo(self, mode: str):
         o = self.cfg.opt
@@ -530,10 +710,51 @@ class Trainer:
             self.kms = km.assign_root(
                 self.kms, self.state.ins_feat, self.state.means, self.state.alive,
                 o.pos_weight, self.generator, init=(it == o.start_root_cb_iter + 1))
+            if it == o.start_root_cb_iter + 1:
+                self._tune_group_budgets()  # the first real assignment
         elif stage == "2.2" and (it % 50 == 1 or it == o.start_leaf_cb_iter + 1):
             self.kms = km.assign_leaf(
                 self.kms, self.state.ins_feat, self.state.alive, self.root_id,
                 o.leaf_node_num, self.generator, init=(it == o.start_leaf_cb_iter + 1))
+            if it == o.start_leaf_cb_iter + 1:
+                self._tune_group_budgets()
+
+    def _has_pre_event(self, it: int, stage: str) -> bool:
+        o = self.cfg.opt
+        if it in (o.start_ins_feat_iter + 1, o.start_root_cb_iter + 1,
+                  o.start_leaf_cb_iter + 1):
+            return True
+        return (stage == "2.1" and it % 200 == 1) or (stage == "2.2" and it % 50 == 1)
+
+    def _has_post_event(self, it: int, stage: str, until: int, log_every: int) -> bool:
+        o = self.cfg.opt
+        if it % log_every == 0 or it >= until:
+            return True
+        if stage == "0" and it < o.densify_until_iter and not o.frozen_init_pts:
+            if it > o.densify_from_iter and it % o.densification_interval == 0:
+                return True
+            if it % o.opacity_reset_interval == 0 or (
+                    self.cfg.model.white_background and it == o.densify_from_iter):
+                return True
+        return False
+
+    def _block_len(self, it: int, stage: str, until: int, log_every: int) -> int:
+        """The largest n of BLOCK_SIZES such that steps it..it+n-1 form one
+        block: no pre event strictly inside, no post event but after the
+        last step (the JAX trainer's rule). 1 under save_memory, whose steps
+        each copy their view's window."""
+        if not self.BLOCK_SIZES or self.save_memory:
+            return 1
+        limit = min(self.BLOCK_SIZES[0], until - it + 1)
+        n = 1
+        while n < limit:
+            j = it + n
+            if self._stage(j) != stage or self._has_pre_event(j, stage):
+                break
+            if self._has_post_event(j - 1, stage, until, log_every):
+                break
+            n += 1
+        return next((b for b in self.BLOCK_SIZES if n >= b), 1)
 
     def _post_events(self, it: int, stage: str):
         """Densification / opacity reset AFTER step `it` (reference
@@ -562,15 +783,20 @@ class Trainer:
         t_start = time.time()
         while self.iteration < until:
             if not self._budgets_tuned:
-                self._fit_max_per_tile()
+                self._tune_budgets()
             self._poll_viewer()
             it = self.iteration + 1
             stage = self._stage(it)
             if stage == "2.2" and (it - o.start_leaf_cb_iter) % o.leaf_update_fr == 0:
                 self.root_id = (self.root_id + 1) % o.root_node_num
             self._pre_events(it, stage)
-            loss = self._run_single(it, stage)
-            self.losses.append(loss)
+            n = self._block_len(it, stage, until, log_every)
+            if n > 1:
+                loss = self._run_block(it, stage, n)
+            else:
+                loss = self._run_single(it, stage)
+                self.losses.append(loss)
+            it = it + n - 1
             self.iteration = it
             self._post_events(it, stage)
             if self.save_intermediate and it % observe.dump_frequency(stage) == 0:
@@ -607,13 +833,16 @@ class Trainer:
         elif stage == "1":
             self.state, self.adam, loss, self._last_lost = stage1_step(
                 self.state, self.adam, bundle, svi, it, bg, self._rescale_factor(it),
-                self.rcfg, o, self.any_alpha)
+                self.rcfg, o, self.any_alpha, frozen=self._plan(vi))
         elif stage == "2.1":
             self.state, self.adam, loss, self._last_lost = stage21_step(
                 self.state, self.adam, self.kms, bundle, svi, it, bg,
                 self._rescale_factor(it), self._pseudo_feat(vi), self.rcfg, o,
-                self.any_alpha)
+                self.any_alpha, frozen=self._plan(vi))
         else:
+            # stage 2.2 takes no frozen plan, as in the JAX trainer: the
+            # single-root blend over the whole frozen stream walks more than
+            # the per-root re-binning at the group budgets
             occur = self.pseudo.cluster_occur if self.pseudo is not None else None
             root_vis = occur[vi, self.root_id] if occur is not None else True
             self.state, self.adam, loss, _ok, self._last_lost = stage22_step(
@@ -621,6 +850,84 @@ class Trainer:
                 self._rescale_factor(it), self._pseudo_feat(vi), self.root_id, root_vis,
                 self.rcfg, o, self.any_alpha)
         return loss
+
+    def _plan(self, vi: int) -> FrozenPlan | None:
+        plans = self._ensure_frozen_plans()
+        return None if plans is None else plans.select(vi)
+
+    def _run_block(self, it: int, stage: str, n: int) -> torch.Tensor:
+        """Steps it..it+n-1 of one stage as a block (the JAX trainer's
+        _run_block): the views are drawn first, then the backgrounds, then
+        the rescale factors; stage 2.2's roots advance inside the block. Each
+        step's numbers go into one row of a device buffer (`_step_row`), and
+        the stage's step runs on static buffers (`_CapturedStep`): replayed
+        as a CUDA graph on a GPU, run eagerly on the CPU. -> the last step's
+        loss; every step's loss joins self.losses."""
+        if not self.autotune_budgets or not self.rcfg.intersection_budget:
+            raise ValueError("blocks of steps (BLOCK_SIZES) need fixed budgets: "
+                             "Trainer(..., autotune_budgets=True)")
+        o = self.cfg.opt
+        vis = [self._next_view() for _ in range(n)]
+        self._last_view = vis[-1]
+        bgs = [self._bg_values(stage) for _ in range(n)]
+        rescales = ([1.0] * n if stage == "0"
+                    else [self._rescale_factor(j) for j in range(it, it + n)])
+        roots, rid = [], self.root_id
+        for j in range(it, it + n):
+            if stage == "2.2" and j > it and (j - o.start_leaf_cb_iter) % o.leaf_update_fr == 0:
+                rid = (rid + 1) % o.root_node_num
+            roots.append(rid)
+        self.root_id = rid
+        frozen = self._ensure_frozen_plans() if stage in ("1", "2.1") else None
+        rows = torch.stack([self._step_row(stage, it + j, vis[j], bgs[j], rescales[j],
+                                           roots[j], self.adam.count + j + 1)
+                            for j in range(n)])
+        # one copy of the block's rows; the late-stage flag of the
+        # separation loss is the one number a step takes as a constant
+        rows = rows.to(self.device, non_blocking=True)
+        lost = torch.zeros((), dtype=torch.int32, device=self.device)
+        step, count = None, self.adam.count
+        for j in range(n):
+            late = it + j > losses.LATE_ITERATION
+            if step is None or step.late != late:
+                if step is not None:  # the block crosses the late iteration
+                    step.copy_out(self, count + j)
+                step = self._captured_step(stage, late, frozen)
+            self.losses.append(step.run(rows[j]))
+            lost = torch.maximum(lost, step.io["lost"])
+        step.copy_out(self, count + n)
+        self._last_lost = lost
+        return self.losses[-1]
+
+    def _step_row(self, stage: str, it: int, vi: int, bg, rescale: float, root: int,
+                  count: int) -> torch.Tensor:
+        """One step's numbers, as the float32 row (on the host) a captured
+        step reads: view, root, rescale factor, background (3 host values),
+        Adam's bias corrections for step `count` (4), the learning rates by
+        leaf, the SH mask."""
+        scale = self.spatial_lr_scale if stage == "0" else 1.0
+        lrs = opt_mod.learning_rates(self.cfg.opt, it, scale)
+        return torch.tensor([vi, root, rescale, *(float(x) for x in bg)]
+                            + opt_mod.bias_values(count)
+                            + [lrs[k] for k in self.state.params()]
+                            + sh_mask_values(it, self.state.sh_rest.shape[1]),
+                            dtype=torch.float32)
+
+    def _captured_step(self, stage: str, late: bool,
+                       frozen: FrozenPlan | None) -> "_CapturedStep":
+        """The stage's step on static buffers with the current state copied
+        in; on a GPU its graph, captured anew when what it was captured for
+        has changed (a budget, the capacity, the views, the pseudo labels,
+        the plans, the late flag)."""
+        key = (late, self.rcfg, self.state.capacity, self.any_alpha, self.spatial_lr_scale)
+        deps = (self.bundle, self.pseudo, frozen)
+        step = self._captured.get(stage)
+        if step is None or step.key != key or any(a is not b for a, b in zip(step.deps, deps)):
+            self._captured.pop(stage, None)  # frees the old graph's memory first
+            step = _CapturedStep(self, stage, late, frozen, key, deps)
+            self._captured[stage] = step
+        step.copy_in(self)
+        return step
 
     def view(self, bundle: ViewBundle, i: int) -> tuple[ViewBundle, int]:
         """View i of `bundle` as (bundle, index) on the device: under
@@ -747,9 +1054,157 @@ class Trainer:
                 path, self.device)
             if kms is not None:
                 self.kms = kms
+        self._frozen_plans = None
+        self._captured.clear()
         self.state = ckpt.ensure_ins_feat(self.state)
         if self.state.capacity != self.kms.cls_ids.shape[0]:
             o = self.cfg.opt
             self.kms = km.KMeansState.create(self.state.capacity, o.root_node_num,
                                              o.leaf_node_num, self.device)
         self._budgets_tuned = False
+
+
+def _clone_state(state: G.GaussianState) -> G.GaussianState:
+    return dataclasses.replace(state, **{f.name: getattr(state, f.name).clone()
+                                         for f in dataclasses.fields(state)})
+
+
+def _fields(x) -> list[torch.Tensor]:
+    """The tensors of a dataclass (a GaussianState or DensifyStats)."""
+    return [getattr(x, f.name) for f in dataclasses.fields(x)]
+
+
+class _CapturedStep:
+    """One stage's step on static buffers: the state, Adam's moments, the
+    densification statistics, the k-means state and a row of per-step
+    numbers (`Trainer._step_row`) live in tensors that stay put, and the step
+    writes its results back into them. On a GPU the step is captured once as
+    a torch.cuda.CUDAGraph (after one warm-up run on a side stream, which
+    also builds the kernels and sets their attributes) and each `run`
+    replays it; on the CPU each `run` calls it. A capture that fails raises.
+
+    The graph reads the views, the pseudo labels and the frozen plans where
+    they lie; its key (`Trainer._captured_step`) holds them, so that new ones
+    make a new capture. A replay runs no Python, so each replay adds to the
+    kernels' launch counters what the capture launched (the warm-up and the
+    capture are not counted)."""
+
+    def __init__(self, tr: "Trainer", stage: str, late: bool, frozen, key, deps):
+        self.stage, self.late, self.frozen, self.key, self.deps = stage, late, frozen, key, deps
+        self.tr = tr
+        dev = tr.device
+        n_rest = tr.state.sh_rest.shape[1]
+        self.io = dict(
+            row=torch.zeros(10 + len(tr.state.params()) + n_rest, device=dev),
+            state=_clone_state(tr.state),
+            mu={k: v.clone() for k, v in tr.adam.mu.items()},
+            nu={k: v.clone() for k, v in tr.adam.nu.items()},
+            stats=G.DensifyStats(*(x.clone() for x in _fields(tr.stats))),
+            kms=dataclasses.replace(tr.kms, **{
+                k: getattr(tr.kms, k).clone()
+                for k in ("centers", "cls_ids", "leaf_centers", "leaf_cls_ids")}),
+            loss=torch.zeros((), device=dev),
+            lost=torch.zeros((), dtype=torch.int32, device=dev))
+        self.graph = None
+        self.deltas: dict = {}
+
+    def copy_in(self, tr: "Trainer"):
+        io = self.io
+        for a, b in zip(_fields(io["state"]), _fields(tr.state)):
+            a.copy_(b)
+        for k in io["mu"]:
+            io["mu"][k].copy_(tr.adam.mu[k])
+            io["nu"][k].copy_(tr.adam.nu[k])
+        for a, b in zip(_fields(io["stats"]), _fields(tr.stats)):
+            a.copy_(b)
+        for k in ("centers", "cls_ids", "leaf_centers", "leaf_cls_ids"):
+            getattr(io["kms"], k).copy_(getattr(tr.kms, k))
+
+    def copy_out(self, tr: "Trainer", count: int):
+        """The trainer's state, moments and statistics as copies of the
+        static buffers (a later replay overwrites the buffers)."""
+        io = self.io
+        tr.state = _clone_state(io["state"])
+        tr.adam = opt_mod.AdamState(mu={k: v.clone() for k, v in io["mu"].items()},
+                                    nu={k: v.clone() for k, v in io["nu"].items()},
+                                    count=count)
+        if self.stage == "0":
+            tr.stats = G.DensifyStats(*(x.clone() for x in _fields(io["stats"])))
+
+    def _body(self, write_back: bool):
+        tr, io = self.tr, self.io
+        o = tr.cfg.opt
+        row = io["row"]
+        keys = list(io["state"].params())
+        vi, root = row[0:1].to(torch.int64), row[1:2].to(torch.int64)
+        rescale, bg = row[2], row[3:6]
+        hyper = StepHyper(lrs=dict(zip(keys, row[10:10 + len(keys)].unbind(0))),
+                          bias=opt_mod.bias_tensors(row[6:10]),
+                          sh_mask=row[10 + len(keys):])
+        it = losses.LATE_ITERATION + 1 if self.late else 1  # the late flag alone
+        state = io["state"]
+        adam = opt_mod.AdamState(mu=io["mu"], nu=io["nu"], count=0)
+        stats = None
+        if self.stage == "0":
+            state, adam, stats, loss, _psnr, lost = stage0_step(
+                state, adam, io["stats"], tr.bundle, vi, it, bg, tr.spatial_lr_scale,
+                tr.rcfg, o, hyper=hyper)
+        elif self.stage == "1":
+            fz = None if self.frozen is None else self.frozen.select(vi)
+            state, adam, loss, lost = stage1_step(
+                state, adam, tr.bundle, vi, it, bg, rescale, tr.rcfg, o, tr.any_alpha,
+                frozen=fz, hyper=hyper)
+        elif self.stage == "2.1":
+            fz = None if self.frozen is None else self.frozen.select(vi)
+            state, adam, loss, lost = stage21_step(
+                state, adam, io["kms"], tr.bundle, vi, it, bg, rescale,
+                _at(tr.pseudo.feat, vi), tr.rcfg, o, tr.any_alpha, frozen=fz, hyper=hyper)
+        else:
+            occur = tr.pseudo.cluster_occur
+            vis = (torch.ones((), dtype=torch.bool, device=tr.device) if occur is None
+                   else _at(_at(occur, vi), root))
+            state, adam, loss, _ok, lost = stage22_step(
+                state, adam, io["kms"], tr.bundle, vi, it, bg, rescale,
+                _at(tr.pseudo.feat, vi), root, vis, tr.rcfg, o, tr.any_alpha,
+                hyper=hyper)
+        if not write_back:
+            return
+        for k, v in state.params().items():
+            getattr(io["state"], k).copy_(v)
+        for k in io["mu"]:
+            io["mu"][k].copy_(adam.mu[k])
+            io["nu"][k].copy_(adam.nu[k])
+        if stats is not None:
+            for a, b in zip(_fields(io["stats"]), _fields(stats)):
+                a.copy_(b)
+        io["loss"].copy_(loss)
+        io["lost"].copy_(lost)
+
+    def _capture(self):
+        counters = {w: w.launches for w in rk.KERNEL_WRAPPERS}
+        side = torch.cuda.Stream(self.tr.device)
+        side.wait_stream(torch.cuda.current_stream(self.tr.device))
+        with torch.cuda.stream(side):
+            self._body(write_back=False)  # builds the kernels, sets their attributes
+        torch.cuda.current_stream(self.tr.device).wait_stream(side)
+        before = {w: w.launches for w in rk.KERNEL_WRAPPERS}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._body(write_back=True)
+        self.deltas = {w: w.launches - before[w] for w in rk.KERNEL_WRAPPERS}
+        for w, c in counters.items():
+            w.launches = c
+        self.graph = graph
+
+    def run(self, row: torch.Tensor) -> torch.Tensor:
+        """One step with the numbers of `row`. -> a copy of its loss."""
+        self.io["row"].copy_(row)
+        if self.tr.device.type != "cuda":
+            self._body(write_back=True)
+            return self.io["loss"].clone()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        for w, d in self.deltas.items():
+            w.launches += d
+        return self.io["loss"].clone()

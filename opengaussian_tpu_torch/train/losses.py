@@ -52,6 +52,9 @@ def cohesion_loss(feat_map, masks, mask_valid, feat_means):
     return per_mask.sum() / torch.clamp(mask_valid.sum(), min=1)
 
 
+LATE_ITERATION = 35_000  # past it the separation loss focuses on hard pairs
+
+
 def separation_loss(feat_means, mask_valid, iteration: int):
     """Inter-mask contrastive loss: inverse squared distances between mask
     mean features, with the reference's rank-based pair weighting and the
@@ -73,7 +76,7 @@ def separation_loss(feat_means, mask_valid, iteration: int):
     ref_rank = ranks - (M - n_valid)  # diagonal ~0, valid pairs 1..n_valid-1
     weight = (ref_rank / torch.clamp(n_valid - 1.0, min=1.0)) * 0.9 + 0.1
     weight = torch.clamp(weight, 0.1, 1.0)
-    if iteration > 35_000:
+    if iteration > LATE_ITERATION:
         weight = torch.where(weight < 0.9, 0.1, weight)
     inv = inv * weight
     return inv.sum() / torch.clamp(n_valid * (n_valid - 1.0), min=1.0)

@@ -192,8 +192,7 @@ def test_config_rejects_unknown_layouts():
     with pytest.raises(ValueError, match="bwd_layout"):
         RasterizeConfig(bwd_layout="sparse")
     assert RasterizeConfig(group_render="scan").group_render == "scan"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        RasterizeConfig(group_render="dense")
+    assert RasterizeConfig(group_render="dense").group_render == "dense"
     with pytest.raises(ValueError, match="group_render"):
         RasterizeConfig(group_render="vmap")
     # the JAX package's fields of the same names take the same values

@@ -682,3 +682,82 @@ def test_refiner_on_card_matches_cpu(cuda, layout):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
     assert max(errs.values()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,G", [(4, 1), (7, 3), (7, 5)])
+def test_group_entries_match_plain(cuda, C, G):
+    """The group entries of K5 and K6 (a [G, N] opacity table read by splat
+    id, the group a grid axis) against their plain versions, bit for bit,
+    one launch each."""
+    from opengaussian_tpu_torch.ops.rasterize_kernels import (
+        blend_tiles_bwd_groups,
+        blend_tiles_bwd_groups_plain,
+        blend_tiles_fwd_groups,
+        blend_tiles_fwd_groups_plain,
+    )
+
+    gdata, counts, stream = make_dense(seed=3, C=C)
+    T, Kd, F = gdata.shape
+    rng = np.random.default_rng(G)
+    n = 97
+    gauss_idx = rng.integers(0, n, size=(T, Kd)).astype(np.int32)
+    opac_g = np.where(rng.uniform(size=(G, n)) < 0.3, 0.0,
+                      rng.uniform(0.05, 0.99, size=(G, n))).astype(np.float32)
+    opac_g[:, :5] = 1.0  # alpha clamps at 0.99 near these splats' centers
+    g, c, gi, og = (torch.as_tensor(x, device=cuda) for x in (gdata, counts, gauss_idx, opac_g))
+    before = (blend_tiles_fwd_groups.launches, blend_tiles_bwd_groups.launches)
+    acc, tf = blend_tiles_fwd_groups(g, gi, og, c, GRID_X, CHUNK)
+    cot = [torch.as_tensor(rng.normal(0, 0.1, x.shape).astype(np.float32), device=cuda)
+           for x in (acc, tf)]
+    ts = torch.as_tensor(dense_starts(stream), device=cuda)
+    P = stream[0].shape[0]
+    d = blend_tiles_bwd_groups(g, gi, og, c, ts, P, acc, tf, *cot, GRID_X, CHUNK)
+    torch.cuda.synchronize()
+    assert (blend_tiles_fwd_groups.launches, blend_tiles_bwd_groups.launches) == (
+        before[0] + 1, before[1] + 1)
+    acc_p, tf_p = blend_tiles_fwd_groups_plain(g, gi, og, c, GRID_X, CHUNK)
+    assert torch.equal(acc, acc_p) and torch.equal(tf, tf_p)
+    d_p = blend_tiles_bwd_groups_plain(g, gi, og, c, ts, P, acc, tf, *cot, GRID_X, CHUNK)
+    assert torch.equal(d, d_p) and float(d_p.abs().max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["stream", "dense", "compact"])
+def test_fixed_budget_steps_sync_free_and_captured(cuda, layout, tmp_path):
+    """chip_smoke.py's checks on the 160x120 blob trainer at fixed budgets:
+    each stage's eager step runs under torch.cuda.set_sync_debug_mode
+    ("error"), and its step captured as the trainer's blocks capture it (a
+    CUDA graph over static buffers) equals the eager step to K3's tolerance;
+    the stage-2.2 step of root 1 has ok true and a nonzero loss."""
+    from chip_smoke import LAYOUTS, STAGES, blob_trainer, check_captured_step, \
+        check_sync_free_step
+
+    tr = blob_trainer(cuda, RasterizeConfig(**LAYOUTS[layout]), str(tmp_path))
+    for stage in STAGES:
+        check_sync_free_step(tr, stage)
+        r = check_captured_step(tr, stage)
+        assert r["err"] <= 1e-5, stage
+    assert r["ok"] and r["loss"] > 0
+
+
+@pytest.mark.gpu
+def test_blocks_on_the_card(cuda, tmp_path):
+    """Five stage-2.2 steps of the blob trainer as one captured block: the
+    replays add the captured launches to the counters, the losses are
+    finite, and a second block replays the same graph."""
+    from chip_smoke import blob_trainer
+    from opengaussian_tpu_torch.ops import rasterize_kernels as rk
+
+    tr = blob_trainer(cuda, RasterizeConfig(), str(tmp_path))
+    tr.BLOCK_SIZES = (5,)
+    tr.iteration = 62
+    before = {w: w.launches for w in rk.KERNEL_WRAPPERS}
+    tr.train(until=67, log_every=200)
+    graph = tr._captured["2.2"].graph
+    tr.train(until=72, log_every=200)
+    torch.cuda.synchronize()
+    assert tr._captured["2.2"].graph is graph
+    assert rk.segment_reduce.launches - before[rk.segment_reduce] == 10
+    assert rk.blend_stream_fwd.launches - before[rk.blend_stream_fwd] == 10
+    assert len(tr.losses) == 10 and all(np.isfinite(float(x)) for x in tr.losses)
