@@ -118,6 +118,23 @@ Phases, in order; any failure exits non-zero:
      path (sweep 2 and stage 3 of view 0, 5 captured stage-2.2 steps of
      the blocked trainer) with its launches, and sweep 2 and stage 3 per
      view with group_render="dense".
+  9. tile windows, tile bands and the mesh, on the stream run's trained
+     state: the budget tuner's window branch (a base config with
+     tile_windows > 0: K = WINDOW_K, S from the probe's deepest tile,
+     window_extra from its extra windows); on the training frame binned
+     under it, S, Tv, the live and dead windows, nothing truncated or
+     dropped, K1, K2 and K4 bit for bit with their plain versions on the
+     virtual tiles (the dead windows start over NaN rows), K3 over K2's
+     rows, the folded tiles within T_EPS_TOL of the unwindowed ones; in
+     turns windowed and unwindowed, K1, K2 and K4 device time, the deepest
+     walk alone, the fold, and a stage-1 step eager and captured through
+     each config's frozen plans (the captured windowed step against the
+     eager one). rasterize_banded(bands=4) against rasterize on the render
+     and training frames in the stream, dense and compact configurations,
+     images and gradients, each band's slots and launches. The mesh at world
+     size 1 on NCCL in this process: render_sharded against rasterize,
+     bands off and on, 10 sharded stage-0 steps against 10 single-device
+     ones, the two steps in turns, scaling_bench(sizes=[1]).
 Then a JSON line of per-kernel numbers (K5's and K6's rows count their
 group entries' launches and errors), the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}.
@@ -275,7 +292,8 @@ def write_model_and_scene(root: str, seed: int = 0) -> tuple[str, str]:
 def frame_streams(camera, state, rcfg=None):
     """The blend inputs of one view's two render passes, built by the
     render path's own _prepare and gather_rows (rcfg: the rasterizer's
-    settings, RasterizeConfig() by default):
+    settings, RasterizeConfig() by default; under tile windows toff holds
+    each virtual tile's real tile):
     {C: (rows, counts, tstart, toff, grid_x, bins, proj)}."""
     from opengaussian_tpu_torch.ops.projection import build_cov3d
     from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, _prepare, gather_rows
@@ -294,10 +312,10 @@ def frame_streams(camera, state, rcfg=None):
         rows = gather_rows(proj.mean2d, proj.conic, opac,
                            torch.cat([payload, proj.depth[:, None]], dim=-1),
                            bins.sorted_gauss)
-        toff = torch.arange(bins.counts.shape[0], dtype=torch.int32,
-                            device=state.device)
-        out[payload.shape[1] + 1] = (rows, bins.counts, bins.tile_start, toff, gx,
-                                     bins, proj)
+        vt = (bins.vt_real if bins.vt_real is not None
+              else torch.arange(bins.counts.shape[0], device=state.device))
+        out[payload.shape[1] + 1] = (rows, bins.counts, bins.tile_start,
+                                     vt.to(torch.int32).contiguous(), gx, bins, proj)
     return out
 
 
@@ -1115,15 +1133,19 @@ def refine_phase(dev, card: str) -> dict:
     sr.pixel_weight_expand = recording
     try:
         wrappers = zero_launches()
+        # the refiner's own peak: what it allocates above what the earlier
+        # phases still hold (the trained trainers, their captured graphs)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         timings = {}
         t0 = time.perf_counter()
         refined = sr.refine_sam_masks(gs, cams, sam, rcfg, anchor_stride=REFINE_STRIDE,
                                       timings=timings)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
+        peak_abs = torch.cuda.max_memory_allocated()
+        peak = peak_abs - base
         launches = read_launches(wrappers, REFINE_VIEWS, "refiner phase")
     finally:
         sr.pixel_weight_expand = expand
@@ -1137,8 +1159,9 @@ def refine_phase(dev, card: str) -> dict:
     log(f"refiner phase: {total:.3f} s in all, by phase "
         + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
         + f" (device phases {device_s:.3f} s, each ending in its copy to the host); "
-        f"n_gids {n_gids}, void fraction {void:.4f}, peak device memory "
-        f"{peak / 2**30:.3f} GiB, launches {launches} [{card}]")
+        f"n_gids {n_gids}, void fraction {void:.4f}, peak device memory of the refiner "
+        f"{peak / 2**30:.3f} GiB (peak less the {base / 2**30:.3f} GiB held before it; "
+        f"{peak_abs / 2**30:.3f} GiB in all), launches {launches} [{card}]")
     # one view's vote and expansion passes alone, every kernel they launch
     with torch.no_grad():
         r = rasterize(cams[0], gs.means, cov3d, gs.opacity,
@@ -2817,6 +2840,484 @@ def queries_path(out: str, scene_dir: str, root: str, dev, card) -> dict:
                 frame_ms=viewer["frame_ms"])
 
 
+# --- phase 9: tile windows, tile bands and the mesh at world size 1 ---
+
+T_EPS_TOL = 2e-4  # a window's own early stop leaves at most T_EPS per pixel
+MESH_STEPS = 10
+MESH_TOL = 1e-3  # normalised, the repo's gradient tolerance, after MESH_STEPS steps
+
+
+def poisoned(rows, ids, n: int, chunk: int):
+    """rows [P, F] and their splat ids [P], followed by a chunk of NaN rows
+    of id n: the dead windows start at P, so a kernel that read a dead
+    window's rows would blend NaN."""
+    return (torch.cat([rows, rows.new_full((chunk, rows.shape[1]), float("nan"))]),
+            torch.cat([ids, ids.new_full((chunk,), n)]))
+
+
+def path_launches(wrappers: dict, what: str, *need: str) -> dict:
+    """The launches since zero_launches; raise unless each kernel in `need`
+    launched."""
+    torch.cuda.synchronize()
+    got = {k: w.launches for k, w in wrappers.items()}
+    missing = [k for k in need if got[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: no launch of {missing}: {got}")
+    log(f"launches, {what}: {got}")
+    return got
+
+
+def windows_phase(tr, chunk: int, card: str) -> dict:
+    """Tile windows on the stream run's trained state. The budget tuner's
+    window branch (a base config with tile_windows > 0): K = WINDOW_K and
+    S = ceil(1.3 x the probe's deepest tile / K), window_extra from the
+    probe. On the training frame (view 0's feature pass, C = 7) binned
+    under it: S, Tv, the live and dead windows (count 0, start at the
+    stream's end, where NaN rows follow: `poisoned`), nothing truncated or
+    dropped; K1, K2 and K4 bit for bit with their plain versions on the
+    virtual tiles, K2 and K4 with the per-window cotangents that autograd of
+    _fold_windows gives from the stage-1 loss's, and K3 over K2's rows; the
+    folded image within T_EPS_TOL of the unwindowed one (the tuner's config
+    without windows, K grown past the deepest tile). Then, in turns
+    windowed and unwindowed, K1, K2 and K4 device time per launch, each
+    walk's deepest (virtual) tile alone, the fold's time, and a stage-1
+    step eager and captured (through each config's frozen plans), the
+    captured windowed step against the eager one. The main path counted:
+    the windowed stage-1 step eager (K2, and K4 with bwd_layout "compact")
+    and captured. -> the numbers."""
+    from opengaussian_tpu_torch.ops import budget
+    from opengaussian_tpu_torch.ops import rasterize_kernels as rk
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.ops.rasterize import (
+        RasterizeConfig,
+        _fold_windows,
+        _images,
+        build_frozen_plan,
+        stack_plans,
+    )
+
+    V, n = tr.bundle.num_views, tr.state.capacity
+    cams = [tr.bundle.camera(v) for v in range(V)]
+    _, deepest = budget.probe(tr.state, cams)
+    win_cfg = budget.tuned_config(RasterizeConfig(tile_windows=1), tr.state, cams)
+    wx = budget.probe.last_window_extras
+    flat_cfg = budget.tuned_config(RasterizeConfig(), tr.state, cams)
+    S = win_cfg.tile_windows
+    want_s = math.ceil(deepest * budget.HEADROOM / budget.WINDOW_K)
+    if win_cfg.max_per_tile != budget.WINDOW_K or S != want_s or S < 2:
+        raise AssertionError(f"the tuner's window branch: K {win_cfg.max_per_tile}, S {S}, "
+                             f"for a deepest tile of {deepest} (want K {budget.WINDOW_K}, "
+                             f"S {want_s} >= 2)")
+    cam = cams[0]
+    with torch.no_grad():
+        rows, counts, tstart, toff, gx, bins, _ = frame_streams(cam, tr.state, win_cfg)[7]
+        f_rows, f_counts, f_tstart, f_toff, _, f_bins, _ = frame_streams(cam, tr.state,
+                                                                         flat_cfg)[7]
+    P, F = rows.shape
+    Tv, band = counts.shape[0], bins.vt_n.shape[0]
+    used = int(bins.vt_n.sum())
+    dead = torch.arange(Tv, device=counts.device) >= used
+    lost = [int(b.n_truncated) for b in (bins, f_bins)] + [int(b.n_dropped) for b in (bins, f_bins)]
+    log(f"windows: the tuner's window branch on the trained state: deepest tile {deepest}, "
+        f"K = {win_cfg.max_per_tile}, S = {S}, window_extra = {win_cfg.window_extra} (the "
+        f"probe's extra windows by depth {wx}), P = {win_cfg.intersection_budget}; without "
+        f"windows K = {flat_cfg.max_per_tile}. Training frame: {band} tiles, Tv = {Tv} "
+        f"virtual tiles, {used} windows in use ({int((bins.vt_n > 1).sum())} tiles split, "
+        f"{int((counts > 0).sum())} windows with slots), {int(dead.sum())} dead; deepest "
+        f"window {int(counts.max())} of the deepest tile's {int(f_counts.max())}; "
+        f"n_truncated {lost[0]} (unwindowed {lost[1]}), n_dropped {lost[2]} ({lost[3]})")
+    if any(lost):
+        raise AssertionError(f"windows: the training frame lost slots {lost}")
+    if not bool(dead.any()) or bool(counts[dead].any()) or not bool((tstart[dead] == P).all()):
+        raise AssertionError("windows: the frame's dead windows are missing or not at P")
+    # the kernels on the virtual tiles, bit for bit, dead windows over NaN rows
+    prow, pids = poisoned(rows, bins.sorted_gauss, n, chunk)
+    with torch.no_grad():
+        acc, t_fin = rk.blend_stream_fwd(prow, counts, tstart, toff, gx, chunk)
+        torch.cuda.synchronize()
+        acc_p, t_p, work_f = rk.blend_stream_fwd_plain(rows, counts, tstart, toff, gx, chunk,
+                                                        count_work=True)
+    k1 = max(compare(f"blend_stream_fwd C=7 windowed training frame {nm}", x, y, 0.0, 0.0)
+             for nm, x, y in (("accum", acc, acc_p), ("t_final", t_fin, t_p)))
+    a = acc.clone().requires_grad_(True)
+    tt = t_fin.clone().requires_grad_(True)
+    acc_w, t_w = _fold_windows(a, tt, bins.vt_first, bins.vt_n, S)
+    grids = (gx, (HEIGHT + 15) // 16)
+    sam = (tr.bundle.sam_ids[0], tr.bundle.max_masks, tr.cfg.opt.loss_weight)
+    cot_f = stage1_cotangents(cam, grids, acc_w.detach(), t_w.detach(), *sam)
+    cot = tuple(g.contiguous() for g in torch.autograd.grad((acc_w, t_w), (a, tt), cot_f))
+    acc_w, t_w = acc_w.detach(), t_w.detach()
+    d = rk.blend_stream_bwd(prow, counts, tstart, toff, acc, t_fin, *cot, gx, chunk)
+    torch.cuda.synchronize()
+    d_p, work_b = rk.blend_stream_bwd_plain(rows, counts, tstart, toff, acc, t_fin, *cot, gx,
+                                            chunk, count_work=True)
+    k2 = compare("blend_stream_bwd C=7 windowed training frame d_rows", d[:P], d_p, 0.0, 0.0)
+    if bool(d[P:].any()) or float(d_p.abs().max()) == 0.0:
+        raise AssertionError("K2, windows: rows past the stream written, or no gradient")
+    per = rk.segment_reduce(d, pids, n)
+    per_p = rk.segment_reduce_plain(d_p, bins.sorted_gauss, n)
+    k3 = compare("segment_reduce per-splat (K2's windowed rows)", per, per_p, grad_atol(per_p),
+                 GRAD_TOL["rtol"])
+    cargs = (counts, tstart, toff)
+    d4, ids4 = rk.blend_stream_bwd_compact(prow, *cargs, pids, acc, t_fin, *cot, gx, chunk, n)
+    torch.cuda.synchronize()
+    d4_p, ids4_p = rk.blend_stream_bwd_compact_plain(rows, *cargs, bins.sorted_gauss, acc, t_fin,
+                                                     *cot, gx, chunk, n)
+    nc = rk.compact_offsets(counts, chunk)[1] * chunk
+    k4 = compare("blend_stream_bwd_compact C=7 windowed training frame d_rows", d4[:nc],
+                 d4_p[:nc], 0.0, 0.0)
+    if not torch.equal(ids4[:nc], ids4_p[:nc]) or bool((ids4[nc:] != n).any()):
+        raise AssertionError("K4, windows: the ids differ from the plain version's")
+    del d4, ids4, d4_p, ids4_p, per, per_p
+    log(f"windows: K1, K2 and K4 bit for bit with their plain versions on the {Tv} virtual "
+        f"tiles ({P} slots; the dead windows' starts at P over {chunk} NaN rows), K3 over "
+        f"K2's rows within its tolerance; work K1 "
+        + ", ".join(f"{k} {v}" for k, v in work_f.items())
+        + "; work K2 " + ", ".join(f"{k} {v}" for k, v in work_b.items()))
+    # the folded tiles against the unwindowed ones
+    with torch.no_grad():
+        f_acc, f_t = rk.blend_stream_fwd(f_rows, f_counts, f_tstart, f_toff, gx, chunk)
+        bg6 = torch.zeros(6, device=acc.device)
+        fw, aw, dw = (x[0] for x in _images(cam, grids, acc_w, t_w, bg6))
+        ff, af, df = (x[0] for x in _images(cam, grids, f_acc, f_t, bg6))
+    # a window's own stop composites, past the whole tile's stop, at most the
+    # transmittance left there, T_EPS / (1 - alpha) of the slot that stopped
+    # it; the payload's scale multiplies that (depth's too)
+    a_max = min(float(rows[:, 5].max()), 0.99)
+    fold_err = {"features": compare("windowed feature image against unwindowed", fw, ff,
+                                    T_EPS_TOL, 1e-4),
+                "alpha": compare("windowed alpha against unwindowed", aw, af, T_EPS_TOL, 0.0),
+                "depth": compare("windowed depth against unwindowed", dw, df,
+                                 T_EPS_TOL * float(df.abs().max()), 1e-4)}
+    log(f"windows: the folded tiles against the unwindowed ones, features / alpha / depth "
+        f"within {fold_err['features']:.3e} / {fold_err['alpha']:.3e} / "
+        f"{fold_err['depth']:.3e}; the gate {T_EPS_TOL} (x the largest depth); the frame's "
+        f"largest opacity {a_max:.4f}, so T_EPS / (1 - alpha) = {1e-4 / (1 - a_max):.3e}")
+    # in turns: the kernels, the deepest tile alone, the fold
+    f_cot = stage1_cotangents(cam, grids, f_acc, f_t, *sam)
+    fc = (f_counts, f_tstart, f_toff)
+    cases = {
+        "K1": ("blend_stream_fwd_kernel",
+               lambda c=counts: rk.blend_stream_fwd(rows, c, tstart, toff, gx, chunk),
+               lambda c=f_counts: rk.blend_stream_fwd(f_rows, c, f_tstart, f_toff, gx, chunk)),
+        "K2": ("blend_stream_bwd_kernel",
+               lambda: rk.blend_stream_bwd(rows, *cargs, acc, t_fin, *cot, gx, chunk),
+               lambda: rk.blend_stream_bwd(f_rows, *fc, f_acc, f_t, *f_cot, gx, chunk)),
+        "K4": ("blend_stream_bwd_compact_kernel",
+               lambda: rk.blend_stream_bwd_compact(rows, *cargs, bins.sorted_gauss, acc, t_fin,
+                                                   *cot, gx, chunk, n),
+               lambda: rk.blend_stream_bwd_compact(f_rows, *fc, f_bins.sorted_gauss, f_acc, f_t,
+                                                   *f_cot, gx, chunk, n)),
+    }
+    times = {}
+    with torch.no_grad():
+        for name, (kern, w, u) in cases.items():
+            times[name] = [device_ms(f, 10, kern) for f in (w, u, u, w)]
+        # one (virtual) tile, the deepest, alone: its walk sets the launch's least time
+        alone = lambda c: torch.where(  # noqa: E731
+            torch.arange(c.shape[0], device=c.device) == torch.argmax(c), c, 0)
+        w_only, u_only = alone(counts), alone(f_counts)
+        times["K1 deepest alone"] = [
+            device_ms(f, 20, "blend_stream_fwd_kernel") for f in (
+                lambda: rk.blend_stream_fwd(rows, w_only, tstart, toff, gx, chunk),
+                lambda: rk.blend_stream_fwd(f_rows, u_only, f_tstart, f_toff, gx, chunk))]
+        fold = lambda: _fold_windows(acc, t_fin, bins.vt_first, bins.vt_n, S)  # noqa: E731
+        fold_ms, fold_dev = cuda_ms(fold, iters=20, warmup=2), device_ms(fold, 10)
+    for name, v in times.items():
+        log(f"timing: windows, training frame, {name} device ms in turns windowed, unwindowed"
+            + (", unwindowed, windowed" if len(v) == 4 else "") + ": "
+            + ", ".join(f"{x:.4f}" for x in v) + f" [{card}]")
+    log(f"timing: windows, _fold_windows over {band} tiles x {S} windows: {fold_ms:.4f} ms a "
+        f"call, device time {fold_dev:.4f} ms [{card}]")
+    # the stage-1 step, eager and captured through each config's frozen plans
+    cov3d = build_cov3d(tr.state.scales, tr.state.quats)
+    cfgs = {"windowed": win_cfg, "unwindowed": flat_cfg}
+    ew, eu = eager_step(tr, "1", rcfg=win_cfg), eager_step(tr, "1", rcfg=flat_cfg)
+    step_loss = abs(float(ew[3]) - float(eu[3])) / abs(float(eu[3]))
+    eager_ms = {k: [] for k in cfgs}
+    for k in ("windowed", "unwindowed", "unwindowed", "windowed"):
+        eager_ms[k].append(cuda_ms(lambda k=k: eager_step(tr, "1", rcfg=cfgs[k]), iters=10))
+    wrappers = zero_launches()
+    eager_step(tr, "1", rcfg=win_cfg)
+    eager_step(tr, "1", rcfg=dataclasses.replace(win_cfg, bwd_layout="compact"))
+    saved = (tr.rcfg, tr.autotune_budgets)
+    tr.autotune_budgets = True
+    steps, plans = {}, {}
+    try:
+        row = tr._step_row("1", STEP_ITS["1"], 0, tr._bg_values("1"), 1.0, 0,
+                           tr.adam.count + 1).to(tr.device)
+        for k, c in cfgs.items():
+            tr._set_rcfg(c)
+            plans[k] = stack_plans([build_frozen_plan(tr.bundle.camera(v), tr.state.means, cov3d,
+                                                      tr.state.opacity, c) for v in range(V)], n)
+            if int((plans[k].n_dropped + plans[k].n_truncated).sum()):
+                raise AssertionError(f"windows: the {k} frozen plans lost slots")
+            steps[k] = tr._captured_step("1", False, plans[k])
+            loss = steps[k].run(row)
+            if k == "windowed":
+                e = eager_step(tr, "1", rcfg=c, frozen=plans[k].select(0))
+                io = steps[k].io
+                cap_err = step_error(tr, (io["state"], io["mu"], io["nu"], None, loss,
+                                          io["lost"]), (e[0], e[1], None, e[3], e[4]),
+                                     "captured windowed stage-1 step")
+                launches = path_launches(wrappers, "windowed stage-1 steps (eager stream and "
+                                         "compact, captured)", "blend_stream_fwd",
+                                         "blend_stream_bwd", "blend_stream_bwd_compact",
+                                         "segment_reduce")
+            tr._captured.clear()  # one graph per stage: keep each aside
+        cap_ms = {k: [] for k in cfgs}
+        for k in ("windowed", "unwindowed", "unwindowed", "windowed"):
+            steps[k].copy_in(tr)
+            cap_ms[k].append(cuda_ms(lambda k=k: steps[k].run(row), iters=10))
+    finally:
+        tr._set_rcfg(saved[0])
+        tr.autotune_budgets = saved[1]
+    del steps
+    log(f"timing: windows, stage-1 step ms in turns windowed, unwindowed, unwindowed, "
+        f"windowed: eager {eager_ms['windowed'][0]:.3f}, {eager_ms['unwindowed'][0]:.3f}, "
+        f"{eager_ms['unwindowed'][1]:.3f}, {eager_ms['windowed'][1]:.3f}; captured through "
+        f"frozen plans ({plans['windowed'].nbytes() / 2**20:.1f} / "
+        f"{plans['unwindowed'].nbytes() / 2**20:.1f} MiB) {cap_ms['windowed'][0]:.3f}, "
+        f"{cap_ms['unwindowed'][0]:.3f}, {cap_ms['unwindowed'][1]:.3f}, "
+        f"{cap_ms['windowed'][1]:.3f}; the eager steps' losses differ by {step_loss:.2e} "
+        f"(relative), the captured windowed step against the eager one {cap_err:.2e} [{card}]")
+    return dict(win_cfg=win_cfg, flat_cfg=flat_cfg, S=S, Tv=Tv, band=band, used=used,
+                dead=int(dead.sum()), deepest=deepest, k1_err=k1, k2_err=k2, k3_err=k3,
+                k4_err=k4, fold_err=fold_err, times=times, fold_ms=fold_ms, fold_dev=fold_dev,
+                eager_ms=eager_ms, cap_ms=cap_ms, cap_err=cap_err, launches=launches)
+
+
+def bands_phase(state, cam_r, tr, k_render: int, card: str) -> dict:
+    """rasterize_banded(bands=4) against rasterize on the render frame (the
+    loaded model's color pass of view 0, C = 4) and the training frame (the
+    trained state's feature pass of view 0, C = 7), in the stream and dense
+    layouts and, on the training frame, the compact backward: the images
+    (expected equal bit for bit; the largest difference logged) and the
+    gradients by means, opacities and payload (to K3's tolerance), each
+    band's slots, and the banded calls' launches (4 of K1 or K5, 4 of the
+    backward and of K3), and the forward render banded and whole in turns
+    (stream layout). -> {"launches", "errs", "times"}."""
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.ops.rasterize import (
+        RasterizeConfig,
+        _prepare,
+        rasterize,
+        rasterize_banded,
+    )
+    from opengaussian_tpu_torch.ops.sh import sh_to_rgb
+    from opengaussian_tpu_torch.render import encoded_ins_feat
+
+    bands = 4
+    cam_t = tr.bundle.camera(0)
+    frames = {
+        "render frame C=4": (cam_r.to(state.device), state, k_render, (
+            lambda st, c: sh_to_rgb(3, st.sh, st.means, c.cam_center))),
+        "training frame C=7": (cam_t, tr.state, tr.rcfg.max_per_tile, (
+            lambda st, c: encoded_ins_feat(st, origin_feat=True)))}
+    layouts = {"stream": {}, "dense": {"pallas_input": "dense"},
+               "compact": {"bwd_layout": "compact"}}
+    total, errs, times = {}, {}, {}
+    for fname, (cam, st, K, payload_of) in frames.items():
+        cov = build_cov3d(st.scales, st.quats).detach()
+        with torch.no_grad():
+            pay = payload_of(st, cam).detach()
+        bg = torch.zeros(pay.shape[1], device=st.device)
+        gen = torch.Generator(device=st.device).manual_seed(3)
+        wts = torch.rand((HEIGHT, WIDTH, pay.shape[1]), generator=gen, device=st.device)
+        for lay, upd in layouts.items():
+            if lay == "compact" and not fname.startswith("training"):
+                continue
+            cfg = RasterizeConfig(max_per_tile=K, **upd)
+
+            def run(fn, **kw):
+                leaves = [x.detach().clone().requires_grad_(True)
+                          for x in (st.means, st.opacity, pay)]
+                r = fn(cam, leaves[0], cov, leaves[1], leaves[2], bg, cfg, **kw)
+                loss = (r.image * wts).sum() + 0.1 * r.alpha.sum() + 0.01 * r.depth.sum()
+                return r, torch.autograd.grad(loss, leaves)
+
+            wrappers = zero_launches()
+            banded, gb = run(rasterize_banded, bands=bands)
+            fwd = "blend_tiles_fwd" if lay == "dense" else "blend_stream_fwd"
+            bwd = {"stream": "blend_stream_bwd", "dense": "blend_tiles_bwd",
+                   "compact": "blend_stream_bwd_compact"}[lay]
+            got = path_launches(wrappers, f"rasterize_banded, {fname}, {lay}", fwd, bwd,
+                                "segment_reduce")
+            if (got[fwd], got[bwd], got["segment_reduce"]) != (bands, bands, bands):
+                raise AssertionError(f"rasterize_banded: launches {got}, not {bands} each")
+            total = {k: total.get(k, 0) + v for k, v in got.items()}
+            full, gf = run(rasterize)
+            e = max(compare(f"rasterize_banded {k}, {fname}, {lay}",
+                            getattr(banded, k).detach(), getattr(full, k).detach(),
+                            TOL["atol"], TOL["rtol"])
+                    for k in ("image", "alpha", "depth"))
+            g = max(compare(f"rasterize_banded d {nm}, {fname}, {lay}", x, y, grad_atol(y),
+                            GRAD_TOL["rtol"])
+                    for nm, x, y in zip(("means", "opacities", "payload"), gb, gf))
+            lost = [int(x) for x in (banded.n_dropped, banded.n_truncated, full.n_dropped,
+                                     full.n_truncated)]
+            if any(lost):
+                raise AssertionError(f"rasterize_banded, {fname}, {lay}: lost {lost}")
+            with torch.no_grad():
+                gx, gy = (WIDTH + 15) // 16, (HEIGHT + 15) // 16
+                per = -(-gy // bands)
+                slots = []
+                for r0 in range(0, gy, per):
+                    _, b, _ = _prepare(cam, st.means, cov, st.opacity, cfg, tile_lo=r0 * gx,
+                                       tile_hi=min(gy, r0 + per) * gx)
+                    slots.append(int(b.counts.sum()))
+            errs[(fname, lay)] = (e, g)
+            if lay == "stream":  # the forward render, banded and whole, in turns
+                with torch.no_grad():
+                    fns = {"banded": lambda: rasterize_banded(cam, st.means, cov, st.opacity,
+                                                              pay, bg, cfg, bands=bands),
+                           "whole": lambda: rasterize(cam, st.means, cov, st.opacity, pay, bg,
+                                                      cfg)}
+                    ms = [(k, cuda_ms(fns[k], iters=5)) for k in ("banded", "whole", "whole",
+                                                                  "banded")]
+                times[fname] = ms
+                log(f"timing: bands, {fname}: the forward render ms in turns "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in ms) + f" [{card}]")
+            log(f"bands: rasterize_banded(bands={bands}), {fname}, {lay}: images against "
+                f"rasterize {'equal bit for bit' if e == 0.0 else f'max abs err {e:.3e}'}, "
+                f"gradients within {g:.3e}; slots per band {slots} (sum {sum(slots)}), "
+                f"max_per_tile {K}; launches {got} [{card}]")
+    return dict(launches=total, errs=errs, times=times)
+
+
+def mesh_phase(tr, cfg, card: str, backend: str = "nccl") -> dict:
+    """The mesh at world size 1 on `backend` (NCCL: one process on the one
+    card, in this process): render_sharded against rasterize on the
+    training frame's color pass, bands off and on (the band budget the
+    frame's P), in the stream, dense and compact configurations, images and
+    radii (bit for bit expected) and gradients by means; MESH_STEPS sharded
+    stage-0 steps against as many single-device stage-0 steps from the
+    trained state, with the same views and backgrounds: the losses and the
+    parameters, Adam's moments and the densification statistics after
+    them, within MESH_TOL normalised; the stage-0 step of each in turns;
+    scaling_bench(sizes=[1]). No figure here speaks of more than one GPU.
+    -> {"launches", "errs", ...}."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.ops.rasterize import rasterize
+    from opengaussian_tpu_torch.ops.sh import sh_to_rgb
+    from opengaussian_tpu_torch.parallel.distributed import scaling_bench
+    from opengaussian_tpu_torch.parallel.mesh import make_mesh, shard_gaussians
+    from opengaussian_tpu_torch.parallel.render import render_sharded
+    from opengaussian_tpu_torch.parallel.steps import make_sharded_steps
+    from opengaussian_tpu_torch.train import loop
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, timeout=datetime.timedelta(minutes=5))
+    try:
+        mesh = make_mesh()
+        n, V, o = tr.state.capacity, tr.bundle.num_views, tr.cfg.opt
+        cam = tr.bundle.camera(0)
+        st = shard_gaussians(mesh, tr.state)
+        cov = build_cov3d(st.scales, st.quats).detach()
+        with torch.no_grad():
+            rgb = sh_to_rgb(3, st.sh, st.means, cam.cam_center)
+        band = dataclasses.replace(cfg, band_intersection_budget=cfg.max_intersections(n))
+        cases = {"stream": cfg, "stream, bands": band,
+                 "dense, bands": dataclasses.replace(band, pallas_input="dense"),
+                 "compact, bands": dataclasses.replace(band, bwd_layout="compact")}
+        gen = torch.Generator(device=tr.device).manual_seed(5)
+        wts = torch.rand((HEIGHT, WIDTH, 3), generator=gen, device=tr.device)
+
+        def grads_of(fn, c):
+            means = st.means.detach().clone().requires_grad_(True)
+            out = fn(means, c)
+            return out, torch.autograd.grad((out[0] * wts).sum() + out[1].sum(), means)[0]
+
+        sharded = lambda m, c: render_sharded(mesh, cam, m, cov, st.opacity, rgb,  # noqa: E731
+                                              tr.bg, c)
+
+        def single(m, c):
+            r = rasterize(cam, m, cov, st.opacity, rgb, tr.bg,
+                          dataclasses.replace(c, band_intersection_budget=0))
+            return r.image, r.alpha, r.depth, r.radii, r.n_dropped + r.n_truncated
+
+        wrappers = zero_launches()
+        outs = {k: grads_of(sharded, c) for k, c in cases.items()}
+        vis = [i % V for i in range(MESH_STEPS)]
+        bgs = np.random.default_rng(9).random((MESH_STEPS, 3)).astype(np.float32)
+        its = [STEP_ITS["0"] + i for i in range(MESH_STEPS)]
+        steps = make_sharded_steps(mesh, cfg, o, tr.spatial_lr_scale)
+        s2, a2, sa2 = shard_gaussians(mesh, (tr.state, tr.adam, tr.stats))
+        loss_sh = []
+        for i, vi in enumerate(vis):
+            s2, a2, sa2, loss, aux = steps.stage0(
+                s2, a2, sa2, tr.bundle.camera(vi), tr.bundle.gt_images[vi],
+                tr.bundle.alpha_masks[vi], its[i], torch.as_tensor(bgs[i], device=tr.device),
+                has_alpha=tr.bundle.has_alpha[vi])
+            loss_sh.append(float(loss))
+        launches = path_launches(wrappers, "the mesh at world size 1 (4 sharded renders "
+                                 f"with their backward, {MESH_STEPS} sharded stage-0 steps)",
+                                 "blend_stream_fwd", "blend_stream_bwd", "segment_reduce",
+                                 "blend_tiles_fwd", "blend_tiles_bwd",
+                                 "blend_stream_bwd_compact")
+        errs = {}
+        for k, c in cases.items():
+            (img, alpha, depth, radii, lost), g = outs[k]
+            (r_img, r_alpha, r_depth, r_radii, r_lost), r_g = grads_of(single, c)
+            e = max(compare(f"render_sharded {nm} ({k}), world 1", x.detach(), y.detach(),
+                            TOL["atol"], TOL["rtol"])
+                    for nm, x, y in (("image", img, r_img), ("alpha", alpha, r_alpha),
+                                     ("depth", depth, r_depth)))
+            ge = compare(f"render_sharded d means ({k}), world 1", g, r_g, grad_atol(r_g),
+                         GRAD_TOL["rtol"])
+            if not torch.equal(radii, r_radii) or int(lost) or int(r_lost):
+                raise AssertionError(f"render_sharded ({k}): radii differ or slots lost "
+                                     f"({int(lost)}, {int(r_lost)})")
+            errs[k] = (e, ge)
+        del outs
+        s1, a1, sa1, loss_1 = tr.state, tr.adam, tr.stats, []
+        for i, vi in enumerate(vis):
+            s1, a1, sa1, loss, _p, lost = loop.stage0_step(
+                s1, a1, sa1, tr.bundle, vi, its[i], torch.as_tensor(bgs[i], device=tr.device),
+                tr.spatial_lr_scale, cfg, o)
+            loss_1.append(float(loss))
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(loss_sh, loss_1))
+        pairs = ([(f"param {k}", getattr(s2, k), getattr(s1, k)) for k in s1.params()]
+                 + [(f"mu {k}", a2.mu[k], a1.mu[k]) for k in a1.mu]
+                 + [(f"nu {k}", a2.nu[k], a1.nu[k]) for k in a1.nu]
+                 + [(f"stats {f.name}", getattr(sa2, f.name), getattr(sa1, f.name))
+                    for f in dataclasses.fields(sa1)])
+        step_errs = {nm: normalised_err(x.float(), y.float().cpu()) for nm, x, y in pairs}
+        worst = max(step_errs.values())
+        if loss_err > MESH_TOL or worst > MESH_TOL:
+            raise AssertionError(f"{MESH_STEPS} sharded stage-0 steps against single-device "
+                                 f"ones: losses {loss_err:.3e}, state {step_errs}")
+        del s1, a1, sa1
+        # one step each, in turns, from the trained state
+        fns = {"single": lambda: loop.stage0_step(tr.state, tr.adam, tr.stats, tr.bundle, 0,
+                                                  its[0], tr.bg, tr.spatial_lr_scale, cfg, o),
+               "sharded": lambda: steps.stage0(
+                   st, tr.adam, tr.stats, cam, tr.bundle.gt_images[0],
+                   tr.bundle.alpha_masks[0], its[0], tr.bg, has_alpha=tr.bundle.has_alpha[0])}
+        turns = [(k, cuda_ms(fns[k], iters=10)) for k in ("single", "sharded", "sharded",
+                                                          "single")]
+        rows = scaling_bench(sizes=[1])
+    finally:
+        dist.destroy_process_group()
+    log(f"mesh, world size 1 on {backend}: render_sharded against rasterize "
+        + ", ".join(f"{k} {e:.3e} (d means {g:.3e})" for k, (e, g) in errs.items())
+        + f"; {MESH_STEPS} sharded stage-0 steps against single-device steps: losses within "
+        f"{loss_err:.3e} relative, parameters, moments and statistics within {worst:.3e} "
+        f"normalised (worst {max(step_errs, key=step_errs.get)}); stage-0 step ms in turns "
+        + ", ".join(f"{k} {v:.3f}" for k, v in turns) + f"; scaling_bench(sizes=[1]) {rows}"
+        f" [{card}]; more than one GPU: not measured (one card)")
+    return dict(launches=launches, errs=errs, loss_err=loss_err, state_err=worst,
+                turns=turns, scaling=rows)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3193,6 +3694,11 @@ def main(argv=None) -> int:
         captured = captured_phase(tr, tuned, card)
         groups = dense_groups_phase(tr, tr_b, chunk, card)
 
+        # 9. tile windows, tile bands and the mesh at world size 1
+        windows = windows_phase(tr, chunk, card)
+        bands = bands_phase(state, views[0].camera, tr, k_dense, card)
+        meshed = mesh_phase(tr, windows["flat_cfg"], card)
+
     k1_b = [b for b, _ in k1_bound.values()]
 
     def row(name, launches, err, ms, plain, bound, by, lib=None, line=None):
@@ -3203,12 +3709,14 @@ def main(argv=None) -> int:
                 "bound_ms": bound, "bound_by": by, "library_ms": lib}
 
     main_paths = (render_launches, *train_launches.values(), *queries["launches"].values(),
-                  refine["launches"], groups["launches"])
+                  refine["launches"], groups["launches"], windows["launches"],
+                  bands["launches"], meshed["launches"])
     total = {k: sum(p[k] for p in main_paths) for k in render_launches}
     log(f"launches on the main paths: render {render_launches}, "
         + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()) + ", "
         + ", ".join(f"{q} {v}" for q, v in queries["launches"].items())
-        + f", refiner {refine['launches']}, dense groups {groups['launches']}")
+        + f", refiner {refine['launches']}, dense groups {groups['launches']}, windows "
+        f"{windows['launches']}, bands {bands['launches']}, mesh {meshed['launches']}")
     for k, kname, render_dev in (("k1", "K1", k1_dev), ("k2", "K2", {4: k2_dev}),
                                  ("k4", "K4", {4: k4_dev}), ("k6", "K6", {7: k6_dev})):
         t = train[k]
@@ -3220,7 +3728,8 @@ def main(argv=None) -> int:
         f"partition against scan max abs err {partition_err:.3e} [{card}]")
     log(f"summary: refiner: {REFINE_VIEWS} views {REFINE_W}x{REFINE_H}, {REFINE_SPLATS} "
         f"splats: {refine['total_s']:.3f} s, n_gids {refine['n_gids']}, void fraction "
-        f"{refine['void']:.4f}, peak device memory {refine['peak'] / 2**30:.3f} GiB, view 0's "
+        f"{refine['void']:.4f}, the refiner's own peak device memory "
+        f"{refine['peak'] / 2**30:.3f} GiB, view 0's "
         f"votes {refine['votes_ms']:.3f} ms and expansion {refine['expand_ms']:.3f} ms device "
         f"time; in the lazy_refine training run {refined_run['seconds']:.3f} s (n_gids "
         f"{refined_run['n_gids']}); card against CPU, two blobs: "
@@ -3249,19 +3758,41 @@ def main(argv=None) -> int:
         f"{leaf_ms['stream']['stage3']:.3f}, dense layout {leaf_ms['dense']['sweep2']:.3f} / "
         f"{leaf_ms['dense']['stage3']:.3f}, dense groups {groups['leaf_ms']['sweep2']:.3f} / "
         f"{groups['leaf_ms']['stage3']:.3f} [{card}]")
+    w_t = windows["times"]
+    log(f"summary: windows: S = {windows['S']}, K = {windows['win_cfg'].max_per_tile}, Tv = "
+        f"{windows['Tv']} for {windows['band']} tiles ({windows['dead']} dead); K1, K2, K4 "
+        f"bit for bit on the virtual tiles; folded against unwindowed "
+        + ", ".join(f"{k} {v:.2e}" for k, v in windows["fold_err"].items())
+        + "; device ms windowed / unwindowed (the means of two turns): "
+        + ", ".join(f"{k} {(v[0] + v[3]) / 2:.4f} / {(v[1] + v[2]) / 2:.4f}"
+                    for k, v in w_t.items() if len(v) == 4)
+        + f", K1 deepest tile alone {w_t['K1 deepest alone'][0]:.4f} / "
+        f"{w_t['K1 deepest alone'][1]:.4f}; the fold {windows['fold_dev']:.4f}; stage-1 step "
+        f"eager {sum(windows['eager_ms']['windowed']) / 2:.3f} / "
+        f"{sum(windows['eager_ms']['unwindowed']) / 2:.3f} ms, captured "
+        f"{sum(windows['cap_ms']['windowed']) / 2:.3f} / "
+        f"{sum(windows['cap_ms']['unwindowed']) / 2:.3f} ms [{card}]")
+    log(f"summary: bands: rasterize_banded(bands=4) against rasterize, image / gradient "
+        + ", ".join(f"{f.split(' C=')[0]} {lay} {e:.1e} / {g:.1e}"
+                    for (f, lay), (e, g) in bands["errs"].items())
+        + "; mesh at world size 1: render_sharded "
+        + ", ".join(f"{k} {e:.1e}" for k, (e, _g) in meshed["errs"].items())
+        + f", {MESH_STEPS} stage-0 steps within {meshed['state_err']:.1e}, scaling_bench "
+        f"{meshed['scaling']} [{card}]")
     kernels = [
         row("blend_stream_fwd", total["blend_stream_fwd"],
-            max(k1_err, train["k1"]["err"], refine["k1_err"]),
+            max(k1_err, train["k1"]["err"], refine["k1_err"], windows["k1_err"]),
             sum(k_ms.values()) / len(k_ms), sum(p_ms.values()) / len(p_ms),
             sum(k1_b) / len(k1_b), max(k1_bound.values())[1], line=562),
         row("blend_stream_bwd", total["blend_stream_bwd"],
-            max(grad["k2_err"], train["k2"]["err"]), k2_ms, k2_plain,
+            max(grad["k2_err"], train["k2"]["err"], windows["k2_err"]), k2_ms, k2_plain,
             k2_b, k2_by, line=670),
         row("blend_stream_bwd_compact", total["blend_stream_bwd_compact"],
-            max(compact["k4_err"], train["k4"]["err"]), k4_dev, k4_plain, k4_b, k4_by,
+            max(compact["k4_err"], train["k4"]["err"], windows["k4_err"]), k4_dev, k4_plain,
+            k4_b, k4_by,
             line=841),
         row("segment_reduce", total["segment_reduce"],
-            max(grad["k3_err"], dense["k3_err"], compact["k43_err"]),
+            max(grad["k3_err"], dense["k3_err"], compact["k43_err"], windows["k3_err"]),
             k3_dev, k3_plain, k3_b, k3_by, lib=lib_dev, line=1196),
         row("blend_tiles_fwd", total["blend_tiles_fwd"] + total["blend_tiles_fwd_groups"],
             max(dense["k5_err"], *groups["errs"].values()), k5_ms, k5_plain, k5_b, k5_by,

@@ -26,6 +26,20 @@ per frame. The per-tile cap `max_per_tile` and its `n_truncated` count are
 applied exactly as the JAX package applies them, so both packages produce
 the same stream whenever the JAX package drops nothing (and, at a fixed P,
 also when it does).
+
+Two options of the JAX package restrict or split the per-tile outputs:
+  * a tile band (`tile_lo`, `tile_hi`, or `band_size` for the sharded
+    render): counts, tile starts and the dense matrix cover only tiles
+    [tile_lo, tile_hi), while the stream covers whatever the projection
+    holds (the sharded render clips it to the band first,
+    projection.clip_rect_rows); tiles past the real grid count 0;
+  * tile windows (`window_depth` S > 0, stream layout): a tile deeper than K
+    becomes up to S consecutive virtual tiles of at most K slots each, so
+    counts and tile starts span Tv = band + extra virtual tiles, and
+    `vt_real`, `vt_first` and `vt_n` map them back to the real tiles. The
+    blend composites each window from a transmittance of 1, and
+    rasterize._fold_windows composes them. Virtual tiles past the last live
+    window are dead: count 0, start at the stream's end.
 """
 
 from __future__ import annotations
@@ -50,6 +64,13 @@ class TileBins:
     n_truncated: torch.Tensor  # [] int32 slots lost to max_per_tile
     deepest: torch.Tensor  # [] int32 slots in the deepest tile, before the cap
     gauss_idx: torch.Tensor | None = None  # [T, K] int32 splat per dense slot
+    # tile windows (window_depth > 0): counts and tile_start are then over Tv
+    # virtual tiles
+    vt_real: torch.Tensor | None = None  # [Tv] int32 real tile of each
+    # virtual tile, relative to the band's first tile
+    vt_first: torch.Tensor | None = None  # [band] int32 first virtual tile of
+    # each real tile
+    vt_n: torch.Tensor | None = None  # [band] int32 windows of each real tile
 
 
 def depth_rank(depth: torch.Tensor) -> torch.Tensor:
@@ -63,7 +84,9 @@ def depth_rank(depth: torch.Tensor) -> torch.Tensor:
 def bin_gaussians(
     proj: Projected, grid_x: int, grid_y: int, max_per_tile: int, dense: bool = False,
     rank: torch.Tensor | None = None, group_of: torch.Tensor | None = None,
-    num_groups: int = 1, max_intersections: int = 0,
+    num_groups: int = 1, max_intersections: int = 0, tile_lo: int = 0,
+    tile_hi: int | None = None, band_size: int | None = None, window_depth: int = 0,
+    window_extra: int = 0,
 ) -> TileBins:
     """Sort the frame's (splat, tile) slots by (tile, depth rank); with
     dense, also build the [T, max_per_tile] splat-index matrix.
@@ -73,11 +96,28 @@ def bin_gaussians(
     splat's group, 0..num_groups-1 (partition binning, stream only); splats
     in no group must have num_tiles 0. Counts and tile starts then span
     num_groups * T virtual tiles. max_intersections: the fixed slot budget P
-    (0: sized per frame, with one host sync)."""
+    (0: sized per frame, with one host sync).
+
+    tile_lo / tile_hi: the band of tiles the per-tile outputs cover (default
+    all); band_size: the same with tile_hi = tile_lo + band_size, where tiles
+    past the real grid (a mesh's padding) count 0. window_depth S > 0
+    (stream layout): tile windows of at most max_per_tile slots, up to S per
+    tile, within Tv = band + (window_extra or max(P // max_per_tile, 1))
+    virtual tiles, P the stream's length; slots past S windows and windows
+    past Tv are counted in n_truncated."""
     if group_of is not None and dense:
         raise ValueError("partition binning is stream-only")
+    if group_of is not None and (tile_lo or tile_hi is not None or band_size is not None):
+        raise ValueError("partition binning does not compose with tile bands")
+    if window_depth > 0 and dense:
+        raise ValueError("tile windows are stream-only")
     num_tiles = grid_x * grid_y
     vt_total = num_tiles * num_groups
+    if band_size is not None:
+        tile_hi = tile_lo + band_size
+    elif tile_hi is None:
+        tile_hi = vt_total
+    band = tile_hi - tile_lo
     dev = proj.depth.device
     nt = proj.num_tiles.to(torch.int64)
     n = nt.shape[0]
@@ -127,11 +167,15 @@ def bin_gaussians(
     tile_s = key_s // (n + 1)
     if live is not None:  # the slots past the last tile reach no reduce
         g_sorted = torch.where(tile_s < vt_total, g_sorted, n)
-    edges = torch.searchsorted(
-        tile_s, torch.arange(vt_total + 1, device=dev), side="left")
+    # one (band + 1)-query searchsorted gives both edges of every band tile
+    band_ids = tile_lo + torch.arange(band + 1, device=dev)
+    edges = torch.searchsorted(tile_s, band_ids, side="left")
     tstart = edges[:-1]
-    full_counts = edges[1:] - tstart
+    # a band reaching past the real grid must not pick up the run of culled
+    # slots at tile id vt_total
+    full_counts = torch.where(band_ids[:-1] < vt_total, edges[1:] - tstart, 0)
     counts = torch.clamp(full_counts, max=max_per_tile)
+    n_truncated = (full_counts - counts).sum()
     i32 = lambda x: x.to(torch.int32)  # noqa: E731
     gauss_idx = None
     if dense:  # slot k of tile t is stream slot tstart[t] + k while k < counts[t]
@@ -139,6 +183,11 @@ def bin_gaussians(
         pos = torch.clamp(tstart[:, None] + k[None, :], max=max(g_sorted.shape[0] - 1, 0))
         src = g_sorted if g_sorted.numel() else torch.zeros(1, dtype=g.dtype, device=dev)
         gauss_idx = i32(torch.where(k[None, :] < counts[:, None], src[pos], 0))
+    windows = {}
+    if window_depth > 0:
+        counts, tstart, n_truncated, windows = _windows(
+            full_counts, tstart, window_depth, max_per_tile, window_extra,
+            g_sorted.shape[0])
     total = nt.sum()
     n_dropped = (torch.clamp(total - P, min=0) if P > 0
                  else torch.zeros((), dtype=torch.int64, device=dev))
@@ -148,7 +197,33 @@ def bin_gaussians(
         sorted_gauss=i32(g_sorted),
         total=i32(total),
         n_dropped=i32(n_dropped),
-        n_truncated=i32((full_counts - counts).sum()),
+        n_truncated=i32(n_truncated),
         deepest=i32(full_counts.max()),
         gauss_idx=gauss_idx,
+        **{k: i32(v) for k, v in windows.items()},
     )
+
+
+def _windows(full_counts, tstart, S: int, K: int, window_extra: int, P: int):
+    """Split each real tile's run into up to S windows of at most K slots,
+    laid out as consecutive virtual tiles (the JAX package's window branch
+    of bin_gaussians). full_counts, tstart [band]: the real tiles' runs; P:
+    the stream's length. -> (counts [Tv], tstart [Tv], n_truncated,
+    {vt_real, vt_first, vt_n})."""
+    band = full_counts.shape[0]
+    dev = full_counts.device
+    nwin = torch.clamp((full_counts + K - 1) // K, 1, S)
+    covered = torch.minimum(full_counts, nwin * K)
+    Tv = band + (window_extra or max(P // K, 1))
+    vt_first = torch.cumsum(nwin, 0) - nwin
+    total_w = vt_first[-1] + nwin[-1]
+    vslot = torch.arange(Tv, device=dev)
+    # the real tile of a virtual one: the last whose first window is not past it
+    vt_real = torch.clamp(torch.searchsorted(vt_first, vslot, right=True) - 1, min=0)
+    w = vslot - vt_first[vt_real]
+    live = (vslot < total_w) & (w < nwin[vt_real]) & (w >= 0)
+    counts = torch.where(live, torch.clamp(full_counts[vt_real] - w * K, 0, K), 0)
+    tstart = torch.where(live, tstart[vt_real] + w * K, P)
+    # slots past S windows of a tile, and windows past Tv
+    n_truncated = (full_counts - covered).sum() + (covered.sum() - counts.sum())
+    return counts, tstart, n_truncated, dict(vt_real=vt_real, vt_first=vt_first, vt_n=nwin)

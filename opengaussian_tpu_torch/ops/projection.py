@@ -184,3 +184,25 @@ def project(
         num_tiles=num_tiles,
         valid=valid,
     )
+
+
+def clip_rect_rows(proj: Projected, row_lo: int, row_hi: int) -> Projected:
+    """proj with each splat's tile rect clipped to grid rows [row_lo, row_hi)
+    (the JAX package's clip_rect_rows).
+
+    Banded binning (parallel/render.py): each rank clips the gathered table
+    to its own tile rows before the expansion, so its slot stream holds only
+    its band's slots. Pixel-exact: the slots outside the rows belong to other
+    bands, and each slot inside still takes the circle-tile cull. A splat
+    whose rect misses the band, or that is invalid, gets num_tiles 0 and is
+    never expanded."""
+    ry_min = torch.clamp(proj.rect_min[:, 1], min=row_lo)
+    ry_max = torch.clamp(proj.rect_max[:, 1], max=row_hi)
+    h = torch.clamp(ry_max - ry_min, min=0)
+    area = (proj.rect_max[:, 0] - proj.rect_min[:, 0]) * h
+    return dataclasses.replace(
+        proj,
+        rect_min=torch.stack([proj.rect_min[:, 0], torch.minimum(ry_min, ry_max)], dim=-1),
+        rect_max=torch.stack([proj.rect_max[:, 0], ry_max], dim=-1),
+        num_tiles=torch.where(proj.valid, area, 0).to(torch.int32),
+    )

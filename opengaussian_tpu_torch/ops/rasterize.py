@@ -37,6 +37,18 @@ would drop the slots past 8N: that is the port's one deviation from it.
 A `FrozenPlan` (`build_frozen_plan`) caches a view's binning for frozen
 geometry, so that a step's whole binning is one row gather.
 
+Two more options of the JAX package, both off by default:
+  * tile windows (`RasterizeConfig.tile_windows` S > 0, stream layout):
+    binning splits a tile deeper than max_per_tile into up to S virtual
+    tiles, K1 blends each as a tile of its own, and `_fold_windows` composes
+    a tile's windows in plain differentiable torch, so the backward kernels
+    receive per-window cotangents through autograd and need no window
+    logic;
+  * tile bands: `rasterize_banded` bins and blends the frame in horizontal
+    bands of tile rows (K1 or K5 with the band's tile offset), and the
+    sharded render of parallel/render.py bins each rank's band of the
+    gathered table (`band_intersection_budget`).
+
 Gradients by means3d, cov3d, opacities, payload and the screen tap flow
 through `project` by ordinary autograd; only the blend has its own backward.
 """
@@ -70,8 +82,7 @@ GROUP_RENDERS = ("auto", "scan", "dense")
 @dataclasses.dataclass(frozen=True)
 class RasterizeConfig:
     """Rasterizer settings the port reads (same defaults as the JAX
-    package's RasterizeConfig). The JAX package's tile windows and band
-    budget are not ported."""
+    package's RasterizeConfig)."""
 
     max_per_tile: int = 1024  # K: depth-ordered slots kept per tile
     chunk: int = 64  # slots staged per step of the blend
@@ -105,10 +116,31 @@ class RasterizeConfig:
     # by ops/budget.py:tuned_group_config
     group_intersection_budget: int = 0
     group_max_per_tile: int = 0
+    # tile windows (stream layout): S > 0 lets a tile hold up to S *
+    # max_per_tile slots, split into virtual tiles of at most max_per_tile
+    # each and composed by _fold_windows. The blend's T < 1e-4 stop applies
+    # to each window's own transmittance, so a later window may composite
+    # past the point where the whole tile's blend stops: a windowed pixel
+    # differs from the unwindowed one by at most the transmittance left
+    # there, below T_EPS / (1 - alpha) of the slot that stopped it, times
+    # the payload. Sized by ops/budget.py:tuned_config when the base config
+    # sets it.
+    tile_windows: int = 0
+    # the virtual tiles past the band's real ones (0: the hard bound P //
+    # max_per_tile, which never overflows)
+    window_extra: int = 0
+    # the slot budget of one rank's band under the sharded render
+    # (parallel/render.py): each rank clips the gathered table to its own
+    # tile rows and bins only those slots (0: each rank bins the whole
+    # frame). Sized by ops/budget.py:tuned_config under a mesh.
+    band_intersection_budget: int = 0
 
     def __post_init__(self):
         if self.chunk <= 0 or self.max_per_tile % self.chunk:
             raise ValueError("max_per_tile must be a multiple of chunk")
+        for f in ("tile_windows", "window_extra", "band_intersection_budget"):
+            if getattr(self, f) < 0:
+                raise ValueError(f"{f} must be >= 0, got {getattr(self, f)}")
         if self.pallas_input not in LAYOUTS:
             raise ValueError(f"pallas_input must be one of {LAYOUTS}, got "
                              f"{self.pallas_input!r}")
@@ -180,15 +212,23 @@ class FrozenPlan:
     stay below 1/255 where the opacity-aware radius binds, or composite a
     little more of the 3-sigma tail where that radius binds (the JAX
     package's bound: <= 0.02 of the image, <= 3% of pixels above 1e-5).
-    Stream layout only. Fields may carry a leading view axis [V, ...]
+    Stream layout only; under tile windows the plan keeps the virtual
+    tiles' maps as well. Fields may carry a leading view axis [V, ...]
     (`stack_plans`), from which `select` takes one view."""
 
     g_sorted: torch.Tensor  # [P] int32 splat per sorted slot
-    tstart: torch.Tensor  # [T] int32
+    tstart: torch.Tensor  # [T] int32 ([Tv] under tile windows)
     counts: torch.Tensor  # [T] int32
     total: torch.Tensor  # [] int32 (diagnostics, from the build)
     n_dropped: torch.Tensor
     n_truncated: torch.Tensor
+    vt_real: torch.Tensor | None = None  # the windows' maps (TileBins), or None
+    vt_first: torch.Tensor | None = None
+    vt_n: torch.Tensor | None = None
+
+    def _tensors(self):
+        return [(f.name, getattr(self, f.name)) for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None]
 
     def select(self, i) -> "FrozenPlan":
         """View i of stacked plans; i an int or a 1-element int64 tensor on
@@ -197,22 +237,34 @@ class FrozenPlan:
             pick = lambda x: x.index_select(0, i)[0]  # noqa: E731
         else:
             pick = lambda x: x[i]  # noqa: E731
-        return FrozenPlan(*(pick(getattr(self, f.name))
-                            for f in dataclasses.fields(self)))
+        return FrozenPlan(**{k: pick(x) for k, x in self._tensors()})
 
     def nbytes(self) -> int:
-        return sum(getattr(self, f.name).nbytes for f in dataclasses.fields(self))
+        return sum(x.nbytes for _, x in self._tensors())
 
 
 def stack_plans(plans: list[FrozenPlan], n: int) -> FrozenPlan:
     """Per-view plans stacked along a leading view axis; streams of unequal
     length (sized per frame) are padded with slots of id n, past every
-    tile."""
+    tile, and windowed plans of unequal virtual-tile counts with dead
+    windows (count 0, start at the padded stream's end)."""
     P = max(p.g_sorted.shape[0] for p in plans)
-    pad = lambda x: torch.nn.functional.pad(x, (0, P - x.shape[0]), value=n)  # noqa: E731
-    return FrozenPlan(torch.stack([pad(p.g_sorted) for p in plans]),
-                      *(torch.stack([getattr(p, f.name) for p in plans])
-                        for f in dataclasses.fields(FrozenPlan)[1:]))
+
+    def stack(name: str, value: int | None = None):
+        xs = [getattr(p, name) for p in plans]
+        if xs[0] is None:
+            return None
+        L = max(x.shape[0] for x in xs) if xs[0].dim() else 0
+        if value is not None:
+            xs = [torch.nn.functional.pad(x, (0, L - x.shape[0]), value=value) for x in xs]
+        return torch.stack(xs)
+
+    last = plans[0].vt_first.shape[0] - 1 if plans[0].vt_first is not None else 0
+    return FrozenPlan(g_sorted=stack("g_sorted", n), tstart=stack("tstart", P),
+                      counts=stack("counts", 0), total=stack("total"),
+                      n_dropped=stack("n_dropped"), n_truncated=stack("n_truncated"),
+                      vt_real=stack("vt_real", last), vt_first=stack("vt_first"),
+                      vt_n=stack("vt_n"))
 
 
 @torch.no_grad()
@@ -226,29 +278,37 @@ def build_frozen_plan(camera: Camera, means3d, cov3d, opacities,
     _, bins, _ = _prepare(camera, means3d, cov3d, opacities, config)
     return FrozenPlan(g_sorted=bins.sorted_gauss, tstart=bins.tile_start,
                       counts=bins.counts, total=bins.total, n_dropped=bins.n_dropped,
-                      n_truncated=bins.n_truncated)
+                      n_truncated=bins.n_truncated, vt_real=bins.vt_real,
+                      vt_first=bins.vt_first, vt_n=bins.vt_n)
 
 
 def _prepare(camera: Camera, means3d, cov3d, opacities, config: RasterizeConfig,
              screen_tap=None, proj: Projected | None = None,
-             rank: torch.Tensor | None = None,
-             frozen: FrozenPlan | None = None) -> tuple[Projected, TileBins, tuple[int, int]]:
+             rank: torch.Tensor | None = None, frozen: FrozenPlan | None = None,
+             tile_lo: int = 0,
+             tile_hi: int | None = None) -> tuple[Projected, TileBins, tuple[int, int]]:
     """Project (unless proj is given) and bin, or take the bins of a
-    FrozenPlan."""
+    FrozenPlan. tile_lo / tile_hi: the band of tiles to bin (all by
+    default); the stream layout bins with config.tile_windows."""
     grid_x, grid_y = _grids(camera)
     if proj is None:
         proj = _project(camera, means3d, cov3d, opacities, config, screen_tap)
+    stream = config.pallas_input == "stream"
     if frozen is not None:
-        if config.pallas_input != "stream":
+        if not stream:
             raise ValueError("frozen plans apply to pallas_input='stream' only")
         bins = TileBins(counts=frozen.counts, tile_start=frozen.tstart,
                         sorted_gauss=frozen.g_sorted, total=frozen.total,
                         n_dropped=frozen.n_dropped, n_truncated=frozen.n_truncated,
-                        deepest=frozen.counts.max())
+                        deepest=frozen.counts.max(), vt_real=frozen.vt_real,
+                        vt_first=frozen.vt_first, vt_n=frozen.vt_n)
     else:
         bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile,
-                             dense=config.pallas_input == "dense", rank=rank,
-                             max_intersections=config.fixed_budget(means3d.shape[0]))
+                             dense=not stream, rank=rank,
+                             max_intersections=config.fixed_budget(means3d.shape[0]),
+                             tile_lo=tile_lo, tile_hi=tile_hi,
+                             window_depth=config.tile_windows if stream else 0,
+                             window_extra=config.window_extra)
     return proj, bins, (grid_x, grid_y)
 
 
@@ -318,8 +378,9 @@ class DenseBlend(torch.autograd.Function):
     package's custom VJP rasterize_pallas.py:blend_tiles_pallas).
 
     forward(mean2d [N,2], conic [N,3], opac [N], payload [N,C], gauss_idx
-    [T,K], sorted_gauss [P], tile_start [T], counts [T], grid_x, chunk) ->
-    (accum [T, C, 256], t_final [T, 256]). The block gdata [T, K, 6+C] is
+    [T,K], sorted_gauss [P], tile_start [T], counts [T], grid_x, chunk,
+    tile_offset) -> (accum [T, C, 256], t_final [T, 256]); tile t shades
+    image tile t + tile_offset (a band's first tile). The block gdata [T, K, 6+C] is
     gathered inside the forward, where autograd records nothing, as in
     StreamBlend. The backward takes the live rows from the K6 replay, at
     the stream positions tile_start[t] + k the block was gathered from, and
@@ -327,11 +388,12 @@ class DenseBlend(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mean2d, conic, opac, payload, gauss_idx, sorted_gauss, tile_start,
-                counts, grid_x: int, chunk: int):
+                counts, grid_x: int, chunk: int, tile_offset: int = 0):
         gdata = gather_rows(mean2d, conic, opac, payload, gauss_idx)
-        accum, t_final = blend_tiles_fwd(gdata, counts, grid_x, chunk)
+        accum, t_final = blend_tiles_fwd(gdata, counts, grid_x, chunk, tile_offset)
         ctx.save_for_backward(gdata, sorted_gauss, tile_start, counts, accum, t_final)
         ctx.grid_x, ctx.chunk, ctx.n = grid_x, chunk, mean2d.shape[0]
+        ctx.tile_offset = tile_offset
         return accum, t_final
 
     @staticmethod
@@ -339,10 +401,10 @@ class DenseBlend(torch.autograd.Function):
         gdata, sorted_gauss, tile_start, counts, accum, t_final = ctx.saved_tensors
         d_rows = blend_tiles_bwd(gdata, counts, tile_start, sorted_gauss.shape[0], accum,
                                  t_final, g_accum.contiguous(), g_t.contiguous(),
-                                 ctx.grid_x, ctx.chunk)
+                                 ctx.grid_x, ctx.chunk, ctx.tile_offset)
         per = segment_reduce(d_rows, sorted_gauss, ctx.n)
         return (per[:, 0:2], per[:, 2:5], per[:, 5], per[:, N_GEOM:],
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 class GroupDenseBlend(torch.autograd.Function):
@@ -401,18 +463,40 @@ def _untile(x: torch.Tensor, grid_x: int, grid_y: int, H: int, W: int) -> torch.
     return x[:, :H, :W]
 
 
-def _images(camera: Camera, grids, accum, t_final, bg):
+def _images(camera: Camera, grids, accum, t_final, bg, row_lo: int = 0,
+            rows: int | None = None):
     """accum [G * T, C+1, 256] (payload + depth), t_final [G * T, 256] ->
-    image [G, H, W, C] over bg, alpha [G, H, W], depth [G, H, W]."""
+    image [G, H, W, C] over bg, alpha [G, H, W], depth [G, H, W]. A band of
+    `rows` tile rows from grid row row_lo gives that band's image rows
+    only."""
     grid_x, grid_y = grids
+    rows = grid_y if rows is None else rows
     acc = accum.transpose(1, 2)  # [G * T, 256, C+1]
     C = acc.shape[-1] - 1
     img_tiles = acc[:, :, :C] + t_final[..., None] * bg[None, None, :]
-    H, W = camera.height, camera.width
-    image = _untile(img_tiles, grid_x, grid_y, H, W)
-    alpha = _untile((1.0 - t_final)[..., None], grid_x, grid_y, H, W)[..., 0]
-    depth = _untile(acc[:, :, C:], grid_x, grid_y, H, W)[..., 0]
+    H, W = min(rows * TILE, camera.height - row_lo * TILE), camera.width
+    image = _untile(img_tiles, grid_x, rows, H, W)
+    alpha = _untile((1.0 - t_final)[..., None], grid_x, rows, H, W)[..., 0]
+    depth = _untile(acc[:, :, C:], grid_x, rows, H, W)[..., 0]
     return image, alpha, depth
+
+
+def _fold_windows(accum, t_final, vt_first, vt_n, S: int):
+    """Composite each real tile's windows front to back, (a, T) o (a', T')
+    = (a + T a', T T') (the JAX package's _fold_windows). accum [Tv, C, 256]
+    and t_final [Tv, 256], each window blended from a transmittance of 1 ->
+    ([band, C, 256], [band, 256]). Plain differentiable gathers: autograd
+    hands the blend per-window cotangents."""
+    Tv = accum.shape[0]
+    first = torch.clamp(vt_first.to(torch.int64), max=Tv - 1)
+    acc = accum[first]
+    t = t_final[first]
+    for s in range(1, S):
+        idx = torch.clamp(first + s, max=Tv - 1)
+        live = (s < vt_n)[:, None]
+        acc = acc + torch.where(live[..., None], t[:, None, :] * accum[idx], 0.0)
+        t = torch.where(live, t * t_final[idx], t)
+    return acc, t
 
 
 def _blend_inputs(proj: Projected, opacities, payload):
@@ -422,21 +506,36 @@ def _blend_inputs(proj: Projected, opacities, payload):
     return opac, torch.cat([payload, proj.depth[:, None]], dim=-1)
 
 
-def _composite(camera: Camera, proj: Projected, bins: TileBins, grids,
-               opacities, payload, bg, config: RasterizeConfig):
-    grid_x, grid_y = grids
-    opac, full_payload = _blend_inputs(proj, opacities, payload)
+def _blend(proj: Projected, bins: TileBins, opac, full_payload, grid_x: int,
+           config: RasterizeConfig, tile_lo: int = 0, toff=None):
+    """Blend the binned band of tiles from tile_lo (virtual tiles folded) ->
+    (accum [band, C+1, 256], t_final [band, 256]). toff: the image tile of
+    each (virtual) tile, when it is not tile_lo + its place in the band."""
     if config.pallas_input == "dense":
-        accum, t_final = DenseBlend.apply(
+        return DenseBlend.apply(
             proj.mean2d, proj.conic, opac, full_payload, bins.gauss_idx,
-            bins.sorted_gauss, bins.tile_start, bins.counts, grid_x, config.chunk)
-    else:
-        toff = torch.arange(grid_x * grid_y, dtype=torch.int32,
-                            device=bins.counts.device)
-        accum, t_final = StreamBlend.apply(
-            proj.mean2d, proj.conic, opac, full_payload, bins.sorted_gauss,
-            bins.tile_start, bins.counts, toff, grid_x, config.chunk, config.bwd_layout)
-    image, alpha, depth = _images(camera, grids, accum, t_final, bg)
+            bins.sorted_gauss, bins.tile_start, bins.counts, grid_x, config.chunk,
+            tile_lo)
+    if toff is None:
+        vt = (bins.vt_real if bins.vt_real is not None else
+              torch.arange(bins.counts.shape[0], device=bins.counts.device))
+        toff = (tile_lo + vt).to(torch.int32)
+    accum, t_final = StreamBlend.apply(
+        proj.mean2d, proj.conic, opac, full_payload, bins.sorted_gauss,
+        bins.tile_start, bins.counts, toff, grid_x, config.chunk, config.bwd_layout)
+    if bins.vt_real is not None:
+        accum, t_final = _fold_windows(accum, t_final, bins.vt_first, bins.vt_n,
+                                       config.tile_windows)
+    return accum, t_final
+
+
+def _composite(camera: Camera, proj: Projected, bins: TileBins, grids,
+               opacities, payload, bg, config: RasterizeConfig, tile_lo: int = 0):
+    grid_x = grids[0]
+    opac, full_payload = _blend_inputs(proj, opacities, payload)
+    accum, t_final = _blend(proj, bins, opac, full_payload, grid_x, config, tile_lo)
+    image, alpha, depth = _images(camera, grids, accum, t_final, bg, tile_lo // grid_x,
+                                  accum.shape[0] // grid_x)
     return image[0], alpha[0], depth[0]
 
 
@@ -467,6 +566,44 @@ def rasterize(
                                      payload, bg, config)
     return RasterOut(image=image, alpha=alpha, depth=depth, radii=proj.radius,
                      n_dropped=bins.n_dropped, n_truncated=bins.n_truncated)
+
+
+def rasterize_banded(
+    camera: Camera,
+    means3d: torch.Tensor,
+    cov3d: torch.Tensor,
+    opacities: torch.Tensor,
+    payload: torch.Tensor,
+    bg: torch.Tensor,
+    config: RasterizeConfig = RasterizeConfig(),
+    bands: int = 4,
+    screen_tap: torch.Tensor | None = None,
+) -> RasterOut:
+    """Render in `bands` horizontal bands of tile rows (the JAX package's
+    rasterize_banded, rasterize.py:612): each band bins the frame's slots
+    again but keeps only its own tiles' runs, and blends them (K1, or K5
+    with the band's tile offset), which bounds the per-tile buffers (the
+    dense block, [band, K, 6 + C]) by the band. One projection and depth
+    rank serve every band. Pixel-exact: the bands' images, stacked, are the
+    single pass's. n_dropped counts the frame's dropped slots once (every
+    band sees the whole stream); n_truncated sums over the bands."""
+    camera = camera.to(means3d.device)
+    grid_x, grid_y = _grids(camera)
+    rows_per = -(-grid_y // bands)
+    proj = _project(camera, means3d, cov3d, opacities, config, screen_tap)
+    rank = depth_rank(proj.depth.detach())
+    outs, n_dropped, n_truncated = [], 0, 0
+    for r0 in range(0, grid_y, rows_per):
+        lo, hi = r0 * grid_x, min(grid_y, r0 + rows_per) * grid_x
+        _, bins, grids = _prepare(camera, means3d, cov3d, opacities, config, proj=proj,
+                                  rank=rank, tile_lo=lo, tile_hi=hi)
+        outs.append(_composite(camera, proj, bins, grids, opacities, payload, bg, config,
+                               lo))
+        n_dropped = n_dropped + bins.n_dropped
+        n_truncated = n_truncated + bins.n_truncated
+    image, alpha, depth = (torch.cat(x, dim=0) for x in zip(*outs))
+    return RasterOut(image=image, alpha=alpha, depth=depth, radii=proj.radius,
+                     n_dropped=n_dropped // len(outs), n_truncated=n_truncated)
 
 
 def cull_outside(proj: Projected, keep: torch.Tensor) -> Projected:
@@ -573,7 +710,8 @@ def rasterize_partition(
     launch over G * T virtual tiles (pixels of tile vt % T) cover every
     group; each virtual tile's run holds exactly the slots a single-group
     binning gives. Splats outside every group must be culled in proj (zero
-    opacity, or proj masked by the caller). Stream layout only.
+    opacity, or proj masked by the caller). Stream layout only; under tile
+    windows each (group, tile)'s windows are folded as in `rasterize`.
     -> RasterOut with image [G, H, W, C], alpha and depth [G, H, W], the
     union's radii."""
     if config.pallas_input != "stream":
@@ -585,12 +723,13 @@ def rasterize_partition(
         proj = _project(camera, means3d, cov3d, opacities, config)
     bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile, rank=rank,
                          group_of=group_of, num_groups=num_groups,
-                         max_intersections=config.fixed_budget(means3d.shape[0]))
+                         max_intersections=config.fixed_budget(means3d.shape[0]),
+                         window_depth=config.tile_windows, window_extra=config.window_extra)
     opac, full_payload = _blend_inputs(proj, opacities, payload)
-    toff = (torch.arange(num_groups * T, device=bins.counts.device) % T).to(torch.int32)
-    accum, t_final = StreamBlend.apply(
-        proj.mean2d, proj.conic, opac, full_payload, bins.sorted_gauss, bins.tile_start,
-        bins.counts, toff, grid_x, config.chunk, config.bwd_layout)
+    vt = (bins.vt_real if bins.vt_real is not None
+          else torch.arange(num_groups * T, device=bins.counts.device))
+    accum, t_final = _blend(proj, bins, opac, full_payload, grid_x, config,
+                            toff=(vt % T).to(torch.int32))
     image, alpha, depth = _images(camera, (grid_x, grid_y), accum, t_final, bg)
     return RasterOut(image=image, alpha=alpha, depth=depth, radii=proj.radius,
                      n_dropped=bins.n_dropped, n_truncated=bins.n_truncated)

@@ -563,7 +563,8 @@ class Trainer:
         """Size the budgets before the first step, after a capacity growth and
         after a logged step that lost slots. With autotune_budgets, the JAX
         trainer's probe (ops/budget.py:tuned_config against the base config)
-        fixes P and max_per_tile, and the group budgets are re-probed once
+        fixes P and max_per_tile (and, when the base config sets tile_windows,
+        the window count and window_extra), and the group budgets are re-probed once
         the root assignment exists; a change drops the frozen plans and the
         captured steps. Without it, `_fit_max_per_tile`."""
         if not self.autotune_budgets:
@@ -609,8 +610,10 @@ class Trainer:
         """The per-tile cap of the stream sized per frame (no fixed budgets):
         over up to 4 evenly spaced views, find the deepest tile and raise
         max_per_tile to 1.3x of it (rounded up to the chunk) when the cap is
-        lower, as the JAX trainer's probe raises it. Reading the deepest tile
-        is a host sync per view. Runs where `_tune_budgets` runs."""
+        lower, as the JAX trainer's probe raises it. Under tile windows
+        (rcfg.tile_windows > 0) max_per_tile stays and the window count grows
+        to cover that depth instead. Reading the deepest tile is a host sync
+        per view. Runs where `_tune_budgets` runs."""
         V = self.bundle.num_views
         cov3d = build_cov3d(self.state.scales, self.state.quats)
         cnt = max(deepest_tile(self.bundle.camera(i), self.state.means, cov3d,
@@ -618,7 +621,13 @@ class Trainer:
                   for i in list(range(0, V, max(1, V // 4)))[:4])
         chunk = self.rcfg.chunk
         k = -(-int(cnt * HEADROOM) // chunk) * chunk
-        if k > self.rcfg.max_per_tile:
+        if self.rcfg.tile_windows > 0:
+            s = -(-k // self.rcfg.max_per_tile)
+            if s > self.rcfg.tile_windows:
+                print(f"[budget] tile_windows {self.rcfg.tile_windows}->{s} "
+                      f"(deepest tile {cnt})", flush=True)
+                self.rcfg = dataclasses.replace(self.rcfg, tile_windows=s)
+        elif k > self.rcfg.max_per_tile:
             print(f"[budget] max_per_tile {self.rcfg.max_per_tile}->{k} "
                   f"(deepest tile {cnt})", flush=True)
             self.rcfg = dataclasses.replace(self.rcfg, max_per_tile=k)

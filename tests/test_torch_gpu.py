@@ -761,3 +761,64 @@ def test_blocks_on_the_card(cuda, tmp_path):
     assert rk.segment_reduce.launches - before[rk.segment_reduce] == 10
     assert rk.blend_stream_fwd.launches - before[rk.blend_stream_fwd] == 10
     assert len(tr.losses) == 10 and all(np.isfinite(float(x)) for x in tr.losses)
+
+
+def make_windowed_stream(C=4):
+    """tests/test_windows.py's deep scene at 64x48 (12 tiles), binned
+    under tile windows (K 64, up to 12 windows a tile, window_extra 64, more
+    than its deep tiles need) by the render path's own _prepare. -> (rows
+    [P + CHUNK, 6 + C] whose last CHUNK rows are NaN, counts, tstart, toff
+    [Tv] (each window's real tile), ids [P + CHUNK] (n past P), grid_x, n,
+    P). The dead windows (count 0) start at P, on the NaN rows, so a kernel
+    that read them would blend NaN."""
+    from opengaussian_tpu_torch.ops.rasterize import _prepare, gather_rows
+
+    rng = np.random.default_rng(2)
+    n = 300
+    means = np.stack([rng.normal(0, 0.08, n), rng.normal(0, 0.06, n),
+                      rng.uniform(2.0, 6.0, n)], -1).astype(np.float32)
+    scales = np.exp(rng.normal(-3.0, 0.3, (n, 3))).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    op = rng.uniform(0.05, 0.6, n).astype(np.float32)
+    cam = Camera.from_fov(np.eye(3), np.zeros(3), 0.9, 0.7, 64, 48)
+    cov = build_cov3d(torch.as_tensor(scales), torch.as_tensor(quats))
+    cfg = RasterizeConfig(max_per_tile=64, chunk=CHUNK, tile_windows=12, window_extra=64)
+    proj, bins, (gx, _) = _prepare(cam, torch.as_tensor(means), cov, torch.as_tensor(op), cfg)
+    pay = torch.as_tensor(np.random.default_rng(1).uniform(size=(n, C)).astype(np.float32))
+    opac = torch.where(proj.valid, torch.as_tensor(op), 0.0)
+    rows = gather_rows(proj.mean2d, proj.conic, opac, pay, bins.sorted_gauss)
+    P = rows.shape[0]
+    dead = torch.arange(bins.counts.shape[0]) >= int(bins.vt_n.sum())
+    assert int(bins.vt_n.max()) > 1 and bool(dead.any())
+    assert not bool(bins.counts[dead].any()) and bool((bins.tile_start[dead] == P).all())
+    rows = torch.cat([rows, torch.full((CHUNK, rows.shape[1]), float("nan"))])
+    ids = torch.cat([bins.sorted_gauss, torch.full((CHUNK,), n, dtype=torch.int32)])
+    return rows, bins.counts, bins.tile_start, bins.vt_real, ids, gx, n, P
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [4, 7])
+def test_kernels_bit_equal_on_a_windowed_stream(cuda, C):
+    """K1, K2 and K4 on the virtual tiles of tile windows, dead windows
+    included, against their plain versions bit for bit (which read no row
+    past P): the windows' starts and counts need no window logic in the
+    kernels, and a dead window reads nothing."""
+    rows, counts, tstart, toff, ids, gx, n, P = make_windowed_stream(C)
+    rows, counts, tstart, toff, ids = (x.to(cuda) for x in (rows, counts, tstart, toff, ids))
+    live = rows[:P]
+    acc, t_final = blend_stream_fwd(rows, counts, tstart, toff, gx, CHUNK)
+    acc_p, t_p = blend_stream_fwd_plain(live, counts, tstart, toff, gx, CHUNK)
+    assert torch.equal(acc, acc_p) and torch.equal(t_final, t_p)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cot = (torch.randn(acc.shape, generator=gen, device=cuda),
+           torch.randn(t_final.shape, generator=gen, device=cuda))
+    d = blend_stream_bwd(rows, counts, tstart, toff, acc, t_final, *cot, gx, CHUNK)
+    d_p = blend_stream_bwd_plain(live, counts, tstart, toff, acc, t_final, *cot, gx, CHUNK)
+    assert torch.equal(d[:P], d_p) and not bool(d[P:].any())
+    d4, ids4 = blend_stream_bwd_compact(rows, counts, tstart, toff, ids, acc, t_final, *cot, gx,
+                                        CHUNK, n)
+    d4_p, ids4_p = blend_stream_bwd_compact_plain(live, counts, tstart, toff, ids[:P], acc,
+                                                  t_final, *cot, gx, CHUNK, n)
+    nc = compact_offsets(counts, CHUNK)[1] * CHUNK
+    assert torch.equal(d4[:nc], d4_p[:nc]) and torch.equal(ids4[:nc], ids4_p[:nc])
+    assert bool((ids4[nc:] == n).all())
