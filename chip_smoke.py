@@ -135,6 +135,22 @@ Phases, in order; any failure exits non-zero:
      size 1 on NCCL in this process: render_sharded against rasterize,
      bands off and on, 10 sharded stage-0 steps against 10 single-device
      ones, the two steps in turns, scaling_bench(sizes=[1]).
+ 10. the mesh trainer at world size 1 on NCCL: `cli.train.main` with
+     --mesh 1 (Trainer(mesh=...) over a process group of one in this
+     process) trains the 80-iteration schedule of phase 5 without its
+     opacity reset, the SAM refiner on, through stage 3 and a checkpoint:
+     every step sharded (K1, K2, K3), the sweeps and stage 3 through the
+     group entry of K5 at the rank's tile offset, the refiner's depth
+     renders through K1; the launches of that schedule, the losses, PLYs,
+     codebooks, cluster_lang.npz and the checkpoint checked, the roots
+     occurring per view and the stage-2.2 loss logged. On the trained state,
+     one sharded step of each stage against the single-device step in the
+     stream, dense and compact configurations (stage 2.2 on a root whose
+     render occurs), and in turns; eval_render against render; sweeps 1 and
+     2 and the stage-3 association of each view against the single-device
+     ones, and in turns; the sharded refiner's ids against the single-device
+     refiner's on the two-blob scene; the group entry of K5 at a tile offset
+     bit for bit with its plain version.
 Then a JSON line of per-kernel numbers (K5's and K6's rows count their
 group entries' launches and errors), the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}.
@@ -1324,6 +1340,23 @@ def expected_launches(tr, rcfg) -> dict:
     return want
 
 
+def root_alpha_peaks(tr) -> str:
+    """Sweep 2's cluster renders of view 0 on the trainer's state (the
+    better_vis scale cull, origin features; a sharded state is whole at world
+    size 1): each root's alpha peak, which must pass 0.8 for the root to
+    occur. -> "min / median / max" over the roots."""
+    from opengaussian_tpu_torch.render import render_clusters
+
+    k1 = tr.cfg.opt.root_node_num
+    with torch.no_grad():
+        out = render_clusters(tr.bundle.camera(0), tr.state, tr.bg, tr.kms.cls_ids,
+                              torch.arange(k1, device=tr.device), tr.rcfg, origin_feat=True,
+                              better_vis=True, scale_limit=0.5, min_points=100)
+    peak = out.cluster_silhouettes.flatten(1).max(dim=1).values
+    return (f"{float(peak.min()):.3f} / {float(peak.median()):.3f} / "
+            f"{float(peak.max()):.3f}")
+
+
 def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
                extra: tuple = (), trainer=None) -> tuple:
     """The training main path: cli.train.main for TRAIN_ITERS iterations
@@ -1396,7 +1429,8 @@ def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
         f"max_per_tile {tr.rcfg.max_per_tile}, slots lost in the last step "
         f"{int(tr._last_lost)}, last root {tr.root_id}, leaf_sub_num "
         f"{tr.kms.leaf_sub_num.tolist()}, roots occurring per view "
-        f"{tr.pseudo.cluster_occur.sum(dim=1).tolist()}")
+        f"{tr.pseudo.cluster_occur.sum(dim=1).tolist()}, the roots' alpha peaks in view 0 "
+        f"(min / median / max; sweep 2 needs 0.8) {root_alpha_peaks(tr)}")
     if tr.state.capacity <= N_SPLATS + 4096:
         raise AssertionError(f"{what}: the capacity did not grow")
     if tr.root_id != (TRAIN_ITERS - STAGE_ENDS["start_leaf_cb_iter"]) // LEAF_UPDATE_FR:
@@ -3318,6 +3352,317 @@ def mesh_phase(tr, cfg, card: str, backend: str = "nccl") -> dict:
                 turns=turns, scaling=rows)
 
 
+# --- phase 10: the mesh trainer at world size 1 on NCCL ---
+
+# the mesh run trains without train_path's opacity reset at 30: ten stage-0
+# steps after that reset no root's render reaches the 0.8 alpha of sweep 2's
+# gates at this width (roots occurring per view [0, 0, 0], the roots' alpha
+# peaks in view 0 at most 0.591 on an H100), and the stage-2.2 steps train
+# nothing
+MESH_RUN_FLAGS = ("--opacity_reset_interval", "1000")
+
+
+def _hold_step(name: str, got: tuple, want: tuple, params) -> float:
+    """A sharded step's (state, adam, loss, ..., n_lost) against the
+    single-device step's: the loss within 1e-5 relative, n_lost (and stage
+    2.2's ok) equal, every parameter and Adam moment within MESH_TOL
+    normalised. -> the largest normalised error."""
+    (s1, a1, l1, *r1), (s2, a2, l2, *r2) = got, want
+    if [bool(x) if x.dtype == torch.bool else int(x) for x in r1] != \
+            [bool(x) if x.dtype == torch.bool else int(x) for x in r2]:
+        raise AssertionError(f"{name}: ok / n_lost {r1} against {r2}")
+    loss_err = abs(float(l1) - float(l2)) / max(abs(float(l2)), 1e-12)
+    errs = [normalised_err(getattr(s1, k), getattr(s2, k).cpu()) for k in params]
+    errs += [normalised_err(a1.mu[k], a2.mu[k].cpu()) for k in params]
+    errs += [normalised_err(a1.nu[k], a2.nu[k].cpu()) for k in params]
+    worst = max(errs)
+    if loss_err > 1e-5 or worst > MESH_TOL:
+        raise AssertionError(f"{name}: loss {float(l1)!r} against {float(l2)!r}, state within "
+                             f"{worst:.3e} (tolerance {MESH_TOL})")
+    log(f"mesh trainer hold, {name}: loss {float(l1):.6f} within {loss_err:.2e} relative "
+        f"(tolerance 1e-5), parameters and moments within {worst:.2e} normalised "
+        f"(tolerance {MESH_TOL}), n_lost {int(r1[-1])}")
+    return worst
+
+
+def _stage_pairs(steps, loop, tr, cfg, live) -> dict:
+    """{stage: (sharded step, single-device step)} from the trainer's state,
+    each -> (state, adam, loss, [ok,] n_lost): view 0 (stage 2.2: root and
+    view `live`), rescale 1, the trainer's background."""
+    st, adam, b, bg, o, pf = tr.state, tr.adam, tr.bundle, tr.bg, tr.cfg.opt, tr.pseudo.feat
+    cam, (r22, v22) = b.camera(0), live
+
+    def sharded0():
+        s, a, _stats, loss, aux = steps.stage0(st, adam, tr.stats, cam, b.gt_images[0], None,
+                                               STEP_ITS["0"], bg)
+        return s, a, loss, aux["n_lost"]
+
+    def single0():
+        s, a, _stats, loss, _psnr, lost = loop.stage0_step(st, adam, tr.stats, b, 0,
+                                                           STEP_ITS["0"], bg,
+                                                           tr.spatial_lr_scale, cfg, o)
+        return s, a, loss, lost
+
+    return {
+        "0": (sharded0, single0),
+        "1": (lambda: steps.stage1(st, adam, cam, b.sam_ids[0], None, STEP_ITS["1"], bg, 1.0,
+                                   b.max_masks),
+              lambda: loop.stage1_step(st, adam, b, 0, STEP_ITS["1"], bg, 1.0, cfg, o)),
+        "2.1": (lambda: steps.stage21(st, adam, tr.kms, cam, pf[0], None, STEP_ITS["2.1"], bg,
+                                      1.0),
+                lambda: loop.stage21_step(st, adam, tr.kms, b, 0, STEP_ITS["2.1"], bg, 1.0,
+                                          pf[0], cfg, o)),
+        "2.2": (lambda: steps.stage22(st, adam, tr.kms, b.camera(v22), pf[v22], r22, True, None,
+                                      STEP_ITS["2.2"], bg, 1.0),
+                lambda: loop.stage22_step(st, adam, tr.kms, b, v22, STEP_ITS["2.2"], bg, 1.0,
+                                          pf[v22], r22, True, cfg, o))}
+
+
+def mesh_trainer_phase(scene_dir: str, root: str, dev, chunk: int, card: str) -> dict:
+    """The mesh trainer at world size 1 on NCCL, through the entry point a
+    user runs: `cli.train.main(["--mesh", "1", ...])` starts a process group
+    of one in this process and trains TRAIN_ITERS iterations over it, stages
+    0 to 3 with train_path's schedule but no opacity reset
+    (MESH_RUN_FLAGS), the SAM refiner before stage 1, and a checkpoint:
+    every step through parallel/steps.py, the sweeps and stage 3 through
+    parallel/sweeps.py (the group entry of K5 at the rank's tile offset, one
+    launch per view in sweep 2 and per root and view in stage 3), the
+    refiner's passes through parallel/refine.py. Checks the launches of
+    that schedule, the losses, the PLYs, codebooks, cluster_lang.npz and the
+    checkpoint (reloaded bit for bit), and logs the roots occurring per view
+    and the stage-2.2 loss. Then, on the trained state, one sharded step of
+    each stage against the single-device step, in the stream, dense and
+    compact configurations, stage 2.2 on a root whose render occurs (sweep
+    2's verdict for the view when one passes), and the two in turns;
+    eval_render against render; sweeps 1 and 2 and the stage-3 association
+    of each view against the single-device sweeps, in turns; the sharded
+    refiner against the single-device one on refiner_two_blobs; and the
+    group entry of K5 at a tile offset bit for bit with its plain version.
+    No figure here speaks of more than one GPU. -> {"launches" (the
+    training run's), "hold_launches" (the sharded holds'), errors, times}."""
+    import torch.distributed as dist
+
+    from opengaussian_tpu_torch.cli import train as cli_train
+    from opengaussian_tpu_torch.data.ply import load_gaussian_ply
+    from opengaussian_tpu_torch.ops import rasterize_kernels as rk
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.ops.rasterize import _prepare, gather_rows
+    from opengaussian_tpu_torch.parallel.refine import make_refiner_fns
+    from opengaussian_tpu_torch.parallel.render import _tile_slice
+    from opengaussian_tpu_torch.parallel.steps import make_sharded_steps
+    from opengaussian_tpu_torch.refine import sam_refiner as sr
+    from opengaussian_tpu_torch.render import render
+    from opengaussian_tpu_torch.train import checkpoint, lang, loop, pseudo
+    from opengaussian_tpu_torch.utils.codebook import load_codebook
+
+    out = os.path.join(root, "trained_mesh")
+    flags = [x for k, v in STAGE_ENDS.items() for x in (f"--{k}", str(v))]
+    wrappers = zero_launches()
+    t0 = time.perf_counter()
+    tr = cli_train.main(
+        ["-s", scene_dir, "-m", out, "--iterations", str(TRAIN_ITERS), *flags,
+         "--densify_from_iter", "10", "--densification_interval", "10",
+         "--leaf_update_fr", str(LEAF_UPDATE_FR), "--checkpoint_iterations", str(TRAIN_ITERS),
+         "--enable_multiview_sam_refinement", *MESH_RUN_FLAGS, "--mesh", "1"], device=dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    try:
+        mesh, o, V = tr.mesh, tr.cfg.opt, tr.bundle.num_views
+        what = "mesh trainer (world size 1, NCCL)"
+        log(f"{what}: {TRAIN_ITERS} iterations, the refiner and stage 3 through cli.train "
+            f"--mesh 1 in {seconds:.2f} s, launches {launches}")
+        # the steps; the refiner's depth render and sweep 1 (at 2.1 and 2.2
+        # entry) per view; the group entry once per view in sweep 2 and per
+        # root and view in stage 3
+        want = dict.fromkeys(launches, 0)
+        want["blend_stream_fwd"] = TRAIN_ITERS + 3 * V
+        want["blend_stream_bwd"] = want["segment_reduce"] = TRAIN_ITERS
+        want["blend_tiles_fwd_groups"] = V + o.root_node_num * V
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, expected {want}")
+        losses = torch.stack(tr.losses).cpu().numpy()
+        m = [float(losses[i:i + 10].mean()) for i in range(0, TRAIN_ITERS, 10)]
+        occur = tr.pseudo.cluster_occur.sum(dim=1).tolist()
+        s22 = losses[STAGE_ENDS["start_leaf_cb_iter"]:]
+        log(f"{what}: loss by step " + " ".join(f"{x:.5f}" for x in losses))
+        log(f"{what}: mean loss of steps 1-10, ..., {TRAIN_ITERS - 9}-{TRAIN_ITERS}: "
+            + ", ".join(f"{x:.5f}" for x in m) + f"; capacity {tr.state.capacity}, alive "
+            f"{tr._num_alive()}, max_per_tile {tr.rcfg.max_per_tile}, leaf_sub_num "
+            f"{tr.kms.leaf_sub_num.tolist()}, roots occurring per view {occur}, the roots' "
+            f"alpha peaks in view 0 (min / median / max; sweep 2 needs 0.8) "
+            f"{root_alpha_peaks(tr)}, stage-2.2 "
+            f"loss mean {float(s22.mean()):.6f}, steps with a loss {int((s22 > 0).sum())} of "
+            f"{len(s22)}")
+        if not np.isfinite(losses).all() or not m[3] < m[0]:
+            raise AssertionError(f"{what}: losses {m}")
+        pc = os.path.join(out, "point_cloud")
+        a, b = (load_gaussian_ply(os.path.join(pc, f"iteration_{it}", "point_cloud.ply"))
+                for it in (STAGE_ENDS["start_ins_feat_iter"], TRAIN_ITERS))
+        if any(not np.array_equal(a[k], b[k]) for k in ("means", "log_scales", "quats")) or \
+                not np.abs(a["ins_feat"] - b["ins_feat"]).max() > 0:
+            raise AssertionError(f"{what}: the feature stages moved the geometry, or not "
+                                 f"ins_feat")
+        n_alive = tr._num_alive()
+        for book in ("root_code_book", "leaf_code_book"):
+            _c, ids = load_codebook(os.path.join(pc, f"iteration_{TRAIN_ITERS}", book))
+            if len(ids) != n_alive:
+                raise AssertionError(f"{what}: {book} has {len(ids)} ids for {n_alive}")
+        z = np.load(os.path.join(out, "cluster_lang.npz"))
+        if len(z["leaf_ind"]) != n_alive or z["leaf_feat"].shape != (
+                o.root_node_num * o.leaf_node_num, 512):
+            raise AssertionError(f"{what}: cluster_lang.npz {z['leaf_feat'].shape}")
+        if not os.path.exists(os.path.join(out, "refine_trace", "summary.json")):
+            raise AssertionError(f"{what}: no refine_trace/")
+        st, adam, stats, kms, it = checkpoint.load(os.path.join(out, f"chkpnt{TRAIN_ITERS}.npz"),
+                                                   dev)
+        bad = [f.name for f in dataclasses.fields(st)
+               if not torch.equal(getattr(st, f.name), getattr(tr.state, f.name))]
+        bad += [k for k in adam.mu if not torch.equal(adam.mu[k], tr.adam.mu[k])]
+        if it != TRAIN_ITERS or bad or not torch.equal(kms.leaf_cls_ids, tr.kms.leaf_cls_ids):
+            raise AssertionError(f"{what}: the checkpoint does not reload bit for bit: {bad}")
+
+        # one sharded step of each stage against the single-device step
+        state, b0, bg = tr.state, tr.bundle, tr.bg
+        cam0, pf = b0.camera(0), tr.pseudo.feat
+        params = list(state.params())
+        sweep_ok = [(r, v) for v in range(V) for r in range(o.root_node_num)
+                    if bool(tr.pseudo.cluster_occur[v, r])]
+        members = torch.bincount(tr.kms.cls_ids[state.alive].long(),
+                                 minlength=o.root_node_num)
+        tries = sweep_ok + [(int(r), v) for r in torch.argsort(members, descending=True)[:8]
+                            for v in range(V)]
+        live = None
+        for r, v in tries:  # a root whose render occurs in the view
+            res = loop.stage22_step(state, tr.adam, tr.kms, b0, v, STEP_ITS["2.2"], bg, 1.0,
+                                    pf[v], r, True, tr.rcfg, o)
+            if bool(res[3]):
+                live = (r, v)
+                break
+        if live is None:
+            raise AssertionError(f"{what}: no root renders with alpha above 0.8 in any view")
+        r22, v22 = live
+        log(f"{what}: stage-2.2 holds on root {r22} in view {v22} ("
+            + ("sweep 2 passes it there" if live in sweep_ok else
+               "sweep 2 passes no root: its render occurs, root_visible given True") + ")")
+        errs, hold_launches, turns = {}, dict.fromkeys(launches, 0), {}
+        for lay, extra in LAYOUTS.items():
+            cfg = dataclasses.replace(tr.rcfg, **extra)
+            steps = make_sharded_steps(mesh, cfg, o, tr.spatial_lr_scale)
+            pairs = _stage_pairs(steps, loop, tr, cfg, (r22, v22))
+            for stage, (sharded, single) in pairs.items():
+                if stage == "0" and lay != "stream":
+                    continue  # phase 9 holds stage 0 in every configuration
+                zero_launches()
+                got = sharded()
+                for k, w in wrappers.items():
+                    hold_launches[k] += w.launches
+                errs[f"stage {stage}, {lay}"] = _hold_step(f"stage {stage}, {lay}", got,
+                                                           single(), params)
+                if lay == "stream":
+                    turns[stage] = [cuda_ms(f, iters=5) for f in (single, sharded, sharded,
+                                                                  single)]
+            if lay == "stream":
+                with torch.no_grad():
+                    img, alpha, depth = steps.eval_render(state, cam0, bg)
+                    ref = render(cam0, state, bg, 3, cfg)
+                errs["eval_render"] = max(
+                    compare(f"eval_render {k}, world 1", x, y, TOL["atol"], TOL["rtol"])
+                    for k, x, y in (("image", img, ref.render), ("alpha", alpha, ref.alpha),
+                                    ("depth", depth, ref.depth)))
+        log(f"launches, the mesh trainer's sharded holds: {hold_launches}")
+        if not all(hold_launches[k] for k in ("blend_stream_fwd", "blend_stream_bwd",
+                                              "blend_stream_bwd_compact", "segment_reduce",
+                                              "blend_tiles_fwd", "blend_tiles_bwd")):
+            raise AssertionError(f"{what}: a kernel of the sharded holds never launched")
+
+        # the sweeps and the stage-3 association, per view, against one device
+        fns, k1, k2, M = tr._sweeps(), o.root_node_num, o.leaf_node_num, b0.max_masks
+        sweep_t = {"sweep1": [], "sweep2": [], "stage3": []}
+        for v in range(V):
+            cam, sam, pids = b0.camera(v), b0.sam_ids[v], tr.pseudo.mask_ids[v]
+            occ_row = tr.pseudo.cluster_occur[v]
+            calls = {
+                "sweep1": (lambda: fns.sweep1(state, cam, sam, bg),
+                           lambda: pseudo._sweep1_view(state, cam, sam, bg, M, tr.rcfg)),
+                "sweep2": (lambda: fns.sweep2(state, cam, pf[v], pids, tr.kms.cls_ids, bg),
+                           lambda: pseudo._sweep2_view(state, cam, pf[v], pids, tr.kms.cls_ids,
+                                                       bg, M, k1, tr.rcfg)),
+                "stage3": (lambda: fns.lang_view(state, tr.kms.leaf_cls_ids, cam, pf[v], pids,
+                                                 occ_row, bg),
+                           lambda: lang._associate_view(state, tr.kms.leaf_cls_ids, cam, pf[v],
+                                                        pids, occ_row, bg, k1, k2, M,
+                                                        tr.rcfg))}
+            for name, (sharded, single) in calls.items():
+                got, want = sharded(), single()
+                if name == "sweep1":
+                    errs[f"sweep 1, view {v}"] = compare(
+                        f"sharded sweep 1 features, view {v}", got[0], want[0], TOL["atol"],
+                        TOL["rtol"])
+                    same = torch.equal(got[1], want[1])
+                elif name == "sweep2":
+                    same = all(torch.equal(x, y) for x, y in zip(got, want))
+                else:
+                    same = torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+                    errs[f"stage 3 scores, view {v}"] = compare(
+                        f"sharded stage-3 scores, view {v}", got[1], want[1], 1e-4, 0.0)
+                if not same:
+                    raise AssertionError(f"{what}: sharded {name} of view {v} differs: {got} "
+                                         f"against {want}")
+                if v == 0:
+                    sweep_t[name] = [cuda_ms(f, iters=1) for f in (single, sharded, sharded,
+                                                                   single)]
+
+        # the sharded refiner against one device on the two-blob scene
+        st_r, cams_r, sam_r, cfg_r = refiner_two_blobs()
+        st_r = to_device(st_r, dev)
+        got = sr.refine_sam_masks(st_r, cams_r, sam_r, cfg_r, anchor_stride=1,
+                                  sharded_fns=make_refiner_fns(mesh, cfg_r))
+        want_ids = sr.refine_sam_masks(st_r, cams_r, sam_r, cfg_r, anchor_stride=1)
+        if not np.array_equal(got, want_ids) or not (want_ids > 0).any():
+            raise AssertionError(f"{what}: the sharded refiner's ids differ in "
+                                 f"{int((got != want_ids).sum())} pixels")
+
+        # the group entry of K5 at a tile offset: view 0's dense block from
+        # tile t0 on, the first five roots' opacities, against its plain version
+        with torch.no_grad():
+            dcfg = dataclasses.replace(tr.rcfg, pallas_input="dense")
+            cov = build_cov3d(state.scales, state.quats)
+            proj, bins, (gx, gy) = _prepare(cam0, state.means, cov, state.opacity, dcfg)
+            t0_off = (gx * gy) // 2
+            bins = _tile_slice(bins, t0_off, gx * gy - t0_off)
+            full_pay = torch.cat([(state.normalized_ins_feat() + 1.0) / 2.0,
+                                  proj.depth[:, None]], dim=-1)
+            gdata = gather_rows(proj.mean2d, proj.conic, state.opacity, full_pay,
+                                bins.gauss_idx)
+            keep = tr.kms.cls_ids[None, :] == torch.arange(5, device=dev)[:, None]
+            opac_g = torch.where(keep & state.alive & proj.valid, state.opacity, 0.0)
+            args = (gdata, bins.gauss_idx, opac_g.contiguous(), bins.counts, gx, chunk, t0_off)
+            ka, kt = rk.blend_tiles_fwd_groups(*args)
+            pa, pt = rk.blend_tiles_fwd_groups_plain(*args)
+        k5_offset_err = max(float((ka - pa).abs().max()), float((kt - pt).abs().max()))
+        if not (torch.equal(ka, pa) and torch.equal(kt, pt)):
+            raise AssertionError(f"{what}: the group entry of K5 at tile offset {t0_off} "
+                                 f"differs from its plain version")
+        log(f"{what}: the group entry of K5 at tile offset {t0_off} ({gx * gy - t0_off} tiles, "
+            f"G = 5, C = 7) bit for bit with its plain version")
+    finally:
+        dist.destroy_process_group()
+    log(f"{what}: holds on the trained state, largest errors (tolerances: a step's loss 1e-5 "
+        f"relative and its state {MESH_TOL} normalised; images atol {TOL['atol']} + rtol "
+        f"{TOL['rtol']}; stage-3 scores 1e-4; sweep 2 and the ids equal) "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+        + f"; the sharded refiner's ids equal the single-device refiner's; step ms in turns "
+        f"single, sharded, sharded, single: "
+        + "; ".join(f"stage {k} " + ", ".join(f"{x:.3f}" for x in v) for k, v in turns.items())
+        + "; view 0 ms in turns single, sharded, sharded, single: "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.3f}" for x in v) for k, v in sweep_t.items())
+        + f" [{card}]; more than one GPU: not measured (one card)")
+    return dict(launches=launches, hold_launches=hold_launches, errs=errs, turns=turns,
+                sweep_t=sweep_t, occur=occur, s22=float(s22.mean()), seconds=seconds,
+                live=live in sweep_ok, k5_offset_err=k5_offset_err)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3699,6 +4044,9 @@ def main(argv=None) -> int:
         bands = bands_phase(state, views[0].camera, tr, k_dense, card)
         meshed = mesh_phase(tr, windows["flat_cfg"], card)
 
+        # 10. the mesh trainer at world size 1 on NCCL
+        meshtr = mesh_trainer_phase(scene_dir, root, dev, chunk, card)
+
     k1_b = [b for b, _ in k1_bound.values()]
 
     def row(name, launches, err, ms, plain, bound, by, lib=None, line=None):
@@ -3710,13 +4058,15 @@ def main(argv=None) -> int:
 
     main_paths = (render_launches, *train_launches.values(), *queries["launches"].values(),
                   refine["launches"], groups["launches"], windows["launches"],
-                  bands["launches"], meshed["launches"])
+                  bands["launches"], meshed["launches"], meshtr["launches"],
+                  meshtr["hold_launches"])
     total = {k: sum(p[k] for p in main_paths) for k in render_launches}
     log(f"launches on the main paths: render {render_launches}, "
         + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()) + ", "
         + ", ".join(f"{q} {v}" for q, v in queries["launches"].items())
         + f", refiner {refine['launches']}, dense groups {groups['launches']}, windows "
-        f"{windows['launches']}, bands {bands['launches']}, mesh {meshed['launches']}")
+        f"{windows['launches']}, bands {bands['launches']}, mesh {meshed['launches']}, "
+        f"mesh trainer {meshtr['launches']}, its sharded holds {meshtr['hold_launches']}")
     for k, kname, render_dev in (("k1", "K1", k1_dev), ("k2", "K2", {4: k2_dev}),
                                  ("k4", "K4", {4: k4_dev}), ("k6", "K6", {7: k6_dev})):
         t = train[k]
@@ -3779,6 +4129,17 @@ def main(argv=None) -> int:
         + ", ".join(f"{k} {e:.1e}" for k, (e, _g) in meshed["errs"].items())
         + f", {MESH_STEPS} stage-0 steps within {meshed['state_err']:.1e}, scaling_bench "
         f"{meshed['scaling']} [{card}]")
+    log(f"summary: mesh trainer at world size 1: {TRAIN_ITERS} iterations through cli.train "
+        f"--mesh 1 in {meshtr['seconds']:.2f} s, roots occurring per view {meshtr['occur']}, "
+        f"stage-2.2 loss mean {meshtr['s22']:.6f} (the stage-2.2 hold's root "
+        + ("passes" if meshtr["live"] else "occurs, but sweep 2 passes no root") + "); "
+        + ", ".join(f"{k} {e:.1e}" for k, e in meshtr["errs"].items())
+        + "; step ms single / sharded (the means of two turns) "
+        + ", ".join(f"stage {k} {(v[0] + v[3]) / 2:.3f} / {(v[1] + v[2]) / 2:.3f}"
+                    for k, v in meshtr["turns"].items())
+        + "; view 0 ms single / sharded "
+        + ", ".join(f"{k} {(v[0] + v[3]) / 2:.3f} / {(v[1] + v[2]) / 2:.3f}"
+                    for k, v in meshtr["sweep_t"].items()) + f" [{card}]")
     kernels = [
         row("blend_stream_fwd", total["blend_stream_fwd"],
             max(k1_err, train["k1"]["err"], refine["k1_err"], windows["k1_err"]),
@@ -3795,7 +4156,8 @@ def main(argv=None) -> int:
             max(grad["k3_err"], dense["k3_err"], compact["k43_err"], windows["k3_err"]),
             k3_dev, k3_plain, k3_b, k3_by, lib=lib_dev, line=1196),
         row("blend_tiles_fwd", total["blend_tiles_fwd"] + total["blend_tiles_fwd_groups"],
-            max(dense["k5_err"], *groups["errs"].values()), k5_ms, k5_plain, k5_b, k5_by,
+            max(dense["k5_err"], *groups["errs"].values(), meshtr["k5_offset_err"]), k5_ms,
+            k5_plain, k5_b, k5_by,
             line=322),
         row("blend_tiles_bwd", total["blend_tiles_bwd"] + total["blend_tiles_bwd_groups"],
             max(dense["k6_err"], train["k6"]["err"], *groups["errs"].values()), k6_ms,

@@ -17,8 +17,14 @@ with --port N serves the SIBR remote viewer on 127.0.0.1:N while it trains.
 --enable_multiview_sam_refinement refines the SAM masks across views once,
 before the first stage-1 step; --save_memory keeps the views in host memory
 and copies one to the device per step; --lazy_load implies --save_memory and
-decodes each view from disk when it is used. --mesh (multi-GPU training) is
-not in the port yet and raises NotImplementedError.
+decodes each view from disk when it is used.
+
+--mesh N trains over a mesh of N devices (parallel/mesh.py), one process
+per device: start N processes with OPENGS_NUM_PROCESSES=N,
+OPENGS_COORDINATOR=host:port (rank 0's) and OPENGS_PROCESS_ID=<rank>
+(parallel/distributed.py:init_distributed; NCCL between GPUs, gloo between
+CPU processes). A single process with --mesh 1 starts a process group of
+one itself. An N larger than the processes raises. Rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -102,17 +108,36 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_left_out(args) -> None:
-    """Raise for every flag whose feature this slice of the port lacks."""
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: multi-GPU training is not in the PyTorch port yet (see ROADMAP.md)")
+def _mesh(n: int, dev):
+    """The mesh of --mesh n: the process group from OPENGS_* (or the one
+    already up), else a group of this process alone. -> the Mesh, or None
+    on a rank outside it."""
+    import torch
+    import torch.distributed as dist
+
+    from opengaussian_tpu_torch.parallel.distributed import _backend, init_distributed
+    from opengaussian_tpu_torch.parallel.mesh import make_mesh
+
+    init_distributed()
+    alone = not dist.is_initialized()
+    if alone:  # one process: a group of one
+        dist.init_process_group(_backend(), store=dist.HashStore(), rank=0, world_size=1)
+    if dist.get_backend() != "nccl":
+        dev = torch.device("cpu")
+    try:
+        return make_mesh(n, None if dev.type == "cuda" else dev)
+    except ValueError:
+        if alone:
+            dist.destroy_process_group()
+        raise
 
 
 def main(argv=None, device="cuda", rcfg: RasterizeConfig | None = None) -> Trainer:
     """Parse the flags, train on `device` and save at the milestones. rcfg:
     the rasterizer's settings (default RasterizeConfig(), the stream layout).
-    -> the Trainer, whose `losses` and `history` hold the run."""
+    -> the Trainer, whose `losses` and `history` hold the run (None on a rank
+    outside the --mesh). Under --mesh the process group stays up, for the
+    Trainer's shards."""
     args = build_parser().parse_args(argv)
     cfg = PRESETS.get(args.preset, Config()) if args.preset else Config()
     opt_over = {k: getattr(args, k) for k in OPT_FLAGS if getattr(args, k) is not None}
@@ -125,9 +150,15 @@ def main(argv=None, device="cuda", rcfg: RasterizeConfig | None = None) -> Train
         opt=dataclasses.replace(cfg.opt, **opt_over),
         pipe=cfg.pipe,
     )
-    _refuse_left_out(args)
     dev = resolve_device(device)
     out_dir = args.model_path or os.path.join("output", os.path.basename(args.source_path))
+    mesh = None
+    if args.mesh:
+        mesh = _mesh(args.mesh, dev)
+        if mesh is None:
+            print(f"Outside the {args.mesh}-device mesh: nothing to train", flush=True)
+            return None
+        print(f"Sharding over {args.mesh} devices: {mesh}", flush=True)
 
     print(f"Loading scene {args.source_path} ...", flush=True)
     scene = load_scene(args.source_path, args.images, args.white_background, args.eval,
@@ -135,7 +166,7 @@ def main(argv=None, device="cuda", rcfg: RasterizeConfig | None = None) -> Train
     print(f"{len(scene.train_views)} train / {len(scene.test_views)} test views, "
           f"{len(scene.points)} init points, extent {scene.cameras_extent:.2f}",
           flush=True)
-    tr = Trainer(scene, cfg, out_dir, rcfg=rcfg, seed=args.seed, device=dev)
+    tr = Trainer(scene, cfg, out_dir, rcfg=rcfg, seed=args.seed, device=dev, mesh=mesh)
     if args.port:
         tr.viewer_port = args.port
     if args.disable_intermediate_dumps:
@@ -172,4 +203,8 @@ def main(argv=None, device="cuda", rcfg: RasterizeConfig | None = None) -> Train
 
 
 if __name__ == "__main__":
+    import torch.distributed as dist
+
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

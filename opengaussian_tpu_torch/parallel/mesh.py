@@ -10,6 +10,11 @@ between CPU processes. The caller starts the processes and initializes the
 default group (`torch.distributed.init_process_group`, or
 parallel/distributed.py:init_distributed); `make_mesh` takes its first
 n ranks.
+
+Ranks hold plain shards, so where the JAX trainer runs a global operation on
+its sharded arrays (densification, the k-means, checkpoints), the port
+gathers the whole table onto every rank (`gather_gaussians`), runs the
+single-device code identically there and shards the result again.
 """
 
 from __future__ import annotations
@@ -18,6 +23,10 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
+
+
+# the collective under its newer name, where this torch has it
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +91,27 @@ def shard_gaussians(mesh: Mesh, tree):
         return x[mesh.rank * rows:(mesh.rank + 1) * rows].to(mesh.device)
 
     return _tree_map(shard, tree)
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """[n, ...] rows of every rank -> [D n, ...], in rank order, on every
+    rank (no autograd). Bool tensors travel as uint8."""
+    if x.dtype == torch.bool:
+        return all_gather(x.to(torch.uint8), mesh).bool()
+    out = x.new_empty((x.shape[0] * mesh.size, *x.shape[1:]))
+    _ALL_GATHER(out, x.contiguous(), group=mesh.group)
+    return out
+
+
+def gather_gaussians(mesh: Mesh, tree):
+    """The inverse of `shard_gaussians`: every tensor of `tree` with a
+    leading axis all-gathered back to the whole table, the ranks' rows in
+    rank order (0-d tensors whole), on every rank. Every rank must call it.
+
+    The JAX package needs no such function: GSPMD runs its trainer's global
+    operations on the sharded arrays themselves. A port whose ranks hold
+    plain shards gathers the table for them instead."""
+    return _tree_map(lambda x: x if x.dim() == 0 else all_gather(x, mesh), tree)
 
 
 def replicate(mesh: Mesh, tree):

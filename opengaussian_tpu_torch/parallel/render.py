@@ -38,17 +38,10 @@ from opengaussian_tpu_torch.ops.rasterize import (
     _untile,
 )
 from opengaussian_tpu_torch.parallel.mesh import Mesh
+from opengaussian_tpu_torch.parallel.mesh import all_gather as _all_gather
 
-
-# the same collectives under their newer names, where this torch has them
-_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+# the collective under its newer name, where this torch has it
 _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-
-
-def _all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    out = x.new_empty((x.shape[0] * mesh.size, *x.shape[1:]))
-    _ALL_GATHER(out, x.contiguous(), group=mesh.group)
-    return out
 
 
 class _GatherRows(torch.autograd.Function):
@@ -102,19 +95,22 @@ def _gather_proj(mesh: Mesh, proj: Projected, payload, opac):
         t[:, 8:], t[:, 6]
 
 
+def _rows(x: torch.Tensor, t0: int, tl: int, value=0) -> torch.Tensor:
+    """Rows [t0, t0 + tl) of x, padded with `value` past its end (a rank's
+    tiles of a [T, ...] tensor, the frame padded to a multiple of the
+    ranks)."""
+    pad = max(0, t0 + tl - x.shape[0])
+    x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, pad), value=value)
+    return x[t0:t0 + tl].contiguous()
+
+
 def _tile_slice(bins: TileBins, t0: int, tl: int) -> TileBins:
     """A whole frame's bins cut to tiles [t0, t0 + tl) of the frame padded
     with empty tiles (count 0, start at the stream's end)."""
-    end = bins.sorted_gauss.shape[0]
-
-    def cut(x, value):
-        pad = max(0, t0 + tl - x.shape[0])
-        x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, pad), value=value)
-        return x[t0:t0 + tl].contiguous()
-
     return dataclasses.replace(
-        bins, counts=cut(bins.counts, 0), tile_start=cut(bins.tile_start, end),
-        gauss_idx=None if bins.gauss_idx is None else cut(bins.gauss_idx, 0))
+        bins, counts=_rows(bins.counts, t0, tl),
+        tile_start=_rows(bins.tile_start, t0, tl, bins.sorted_gauss.shape[0]),
+        gauss_idx=None if bins.gauss_idx is None else _rows(bins.gauss_idx, t0, tl))
 
 
 def render_sharded(mesh: Mesh, camera: Camera, means3d, cov3d, opacities, payload, bg,

@@ -58,13 +58,17 @@ def _palette(n: int) -> np.ndarray:
 class RefinerTrace:
     """Collects refiner stage intermediates; write() emits the artifacts."""
 
-    def __init__(self, out_dir: str, rerun_app: str = "opengs_refine"):
+    def __init__(self, out_dir: str, rerun_app: str = "opengs_refine", emit: bool = True):
+        """emit False: collect only, write and stream nothing (a rank of a
+        device mesh other than rank 0, which takes the trace's path through
+        the refiner alike)."""
         self.out = os.path.join(out_dir, "refine_trace")
+        self.emit = emit
         self.depths: list[np.ndarray] = []
         self.stage1: dict = {}
         self.dominant: list[np.ndarray] = []
         self.summary: dict = {}
-        self.rr = _try_rerun()
+        self.rr = _try_rerun() if emit else None
         if self.rr is not None:
             self.rr.init(rerun_app, spawn=False)
             save_path = os.path.join(self.out, "refine_trace.rrd")
@@ -122,6 +126,8 @@ class RefinerTrace:
     # -- emission --
 
     def write(self, refined: np.ndarray):
+        if not self.emit:
+            return self.out
         os.makedirs(self.out, exist_ok=True)
         for v, d in enumerate(self.depths):
             mx = d.max() or 1.0

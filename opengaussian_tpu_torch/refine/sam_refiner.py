@@ -36,6 +36,11 @@ JAX package's `_prepare(..., None, force_dense=True)`: those tiles can be
 deeper than a max_per_tile fitted to the tight binning, and are truncated
 at it in both packages alike.
 
+Under a device mesh (`refine_sam_masks(sharded_fns=...)`, from
+parallel/refine.py:make_refiner_fns) the three device passes run with the
+state sharded, and `_host` gathers the splat vectors the host merge reads;
+every rank then runs the merge alike.
+
 Documented deviations from the reference (tests/test_refiner_golden.py pins
 everything else):
   * the void id (-1 / here 0) never votes and is never expanded;
@@ -67,6 +72,17 @@ DEPTH_THRESHOLD = 0.15  # meters (sam_refinement_utils.py:628)
 ANCHOR_OPACITY = 0.99  # stage-1 anchor gate (:1159-1204)
 ANCHOR_STRIDE = 1000
 EXPANSION_THRESHOLD = 0.5  # final per-pixel weight gate (:1287-1302)
+
+
+def _host(x: torch.Tensor, mesh=None) -> np.ndarray:
+    """x on the host; under a mesh (x this rank's rows) the whole table's,
+    gathered: the graph merge reads every splat's opacity and aliveness on
+    every rank. Every rank must call it."""
+    if mesh is not None:
+        from opengaussian_tpu_torch.parallel.mesh import all_gather
+
+        x = all_gather(x, mesh)
+    return x.cpu().numpy()
 
 
 @contextlib.contextmanager
@@ -192,8 +208,14 @@ def pixel_weight_expand(gs, camera, splat_global_id, contrib, synced_mask, n_mat
     the device: the [H, W, n_gids] weight volume never leaves it, only the
     [H, W] winners do. -> refined row [H, W] int32 (-1 void), the caller's
     where(wmax >= threshold, argmax + 1, -1)."""
-    w = pixel_weight_accumulation(gs, camera, splat_global_id, contrib, synced_mask,
-                                  n_match, max_ids, config)
+    return _expand(pixel_weight_accumulation(gs, camera, splat_global_id, contrib,
+                                             synced_mask, n_match, max_ids, config),
+                   threshold)
+
+
+def _expand(w: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Weights [H, W, M] -> the refined row [H, W] int32: where(max weight >=
+    threshold, argmax + 1, -1)."""
     best = torch.argmax(w, dim=-1).to(torch.int32)
     wmax = torch.amax(w, dim=-1)
     return torch.where(wmax >= threshold, best + 1, -1)
@@ -245,13 +267,16 @@ def refine_sam_masks(
     anchor_stride: int = ANCHOR_STRIDE,
     trace=None,  # refine/introspect.RefinerTrace, or None
     timings: dict | None = None,  # phase wall seconds, accumulated
+    sharded_fns=None,  # parallel/refine.py:make_refiner_fns(...)
 ) -> np.ndarray:
     """-> refined [V, H, W] cross-view-consistent ids (-1 void, like the
     reference's final masks). The device passes run on gs's device; each
     ends in a copy to the host, so `timings` charges each phase its own
     device time: device_votes_s (depth render and votes), host_stage1_merge_s,
     host_dominant_s, host_majority_s, host_expand_prep_s, device_expand_s
-    and, with a trace, host_expand_argmax_s."""
+    and, with a trace, host_expand_argmax_s. sharded_fns: under a mesh, the
+    sharded device passes, with which gs is this rank's shard; every rank
+    calls this alike, each with a trace or none."""
 
     def _mark(phase, t0):
         if timings is not None:
@@ -264,19 +289,23 @@ def refine_sam_masks(
     if max_ids == 0:
         return np.where(sam_ids > 0, sam_ids, -1)
     dev = gs.device
+    mesh = sharded_fns.mesh if sharded_fns is not None else None
     if trace is not None:
-        trace.log_scene(gs.means.cpu().numpy(), gs.alive.cpu().numpy())
+        trace.log_scene(_host(gs.means, mesh), _host(gs.alive, mesh))
 
     # per-camera depth maps + per-splat votes/visibility
     cov3d = build_cov3d(gs.scales, gs.quats)
     votes_all, vis_all = [], []
     for v in range(V):
-        out = rasterize(cameras[v], gs.means, cov3d, gs.opacity,
-                        torch.zeros((gs.capacity, 1), device=dev),
-                        torch.zeros(1, device=dev), config)
-        depth = out.depth / torch.clamp(out.alpha, min=1e-6)
-        votes, vis = splat_id_votes(gs, cameras[v], torch.as_tensor(sam_ids[v], device=dev),
-                                    depth, max_ids, config)
+        sam_v = torch.as_tensor(sam_ids[v], device=dev)
+        if sharded_fns is not None:
+            votes, vis, depth = sharded_fns.depth_votes(gs, cameras[v], sam_v, max_ids)
+        else:
+            out = rasterize(cameras[v], gs.means, cov3d, gs.opacity,
+                            torch.zeros((gs.capacity, 1), device=dev),
+                            torch.zeros(1, device=dev), config)
+            depth = out.depth / torch.clamp(out.alpha, min=1e-6)
+            votes, vis = splat_id_votes(gs, cameras[v], sam_v, depth, max_ids, config)
         votes_all.append(votes.cpu().numpy())
         vis_all.append(vis.cpu().numpy())
         if trace is not None:
@@ -288,8 +317,8 @@ def refine_sam_masks(
     # stage 1: global id sync via anchor splats (host graph merge). The
     # per-anchor winners come from ONE vectorized argmax pass ([V, A]
     # scalars), so the merge loop only touches scalars.
-    opac = gs.opacity.cpu().numpy()
-    anchors = np.flatnonzero((opac >= ANCHOR_OPACITY) & gs.alive.cpu().numpy())
+    opac = _host(gs.opacity, mesh)
+    anchors = np.flatnonzero((opac >= ANCHOR_OPACITY) & _host(gs.alive, mesh))
     anchors = anchors[::anchor_stride] if len(anchors) else anchors
     win_lid = np.zeros((V, len(anchors)), np.int32)  # 0 = no winner
     if len(anchors):
@@ -329,7 +358,7 @@ def refine_sam_masks(
     # the local->global remap summing columns that the sync merged). The
     # reduction stays in LOCAL column space ([N, M]); the merge-summed
     # columns are grouped by np.add.reduceat over gid-sorted columns.
-    n = gs.capacity
+    n = votes_all.shape[1]  # the whole table's splats
     dom = np.zeros((V, n), np.int32)  # 0 = no vote in this view
     for v in range(V):
         cols = local2global[v][1:]  # global id of local ids 1..M
@@ -362,14 +391,20 @@ def refine_sam_masks(
         synced_v = local2global[v][sam_ids[v]].astype(np.int32)
         args = (gs, cameras[v], gid_t, torch.as_tensor(match_v, device=dev),
                 torch.as_tensor(synced_v, device=dev),
-                torch.as_tensor(n_match, device=dev), n_gids, config)
+                torch.as_tensor(n_match, device=dev), n_gids)
         _t = _mark("host_expand_prep_s", _t)
+        weights = (sharded_fns.pixel_weights(*args) if sharded_fns is not None
+                   else None)
         if trace is None:
             # fused device argmax: only the [H, W] winners leave the device
-            refined[v] = pixel_weight_expand(*args, EXPANSION_THRESHOLD).cpu().numpy()
+            row = (pixel_weight_expand(*args, config, EXPANSION_THRESHOLD)
+                   if weights is None else _expand(weights, EXPANSION_THRESHOLD))
+            refined[v] = row.cpu().numpy()
             _t = _mark("device_expand_s", _t)
             continue
-        wnp = pixel_weight_accumulation(*args).cpu().numpy()
+        if weights is None:
+            weights = pixel_weight_accumulation(*args, config)
+        wnp = weights.cpu().numpy()
         _t = _mark("device_expand_s", _t)
         best = wnp.argmax(axis=-1)
         wmax = wnp.max(axis=-1)

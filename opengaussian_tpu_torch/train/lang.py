@@ -41,6 +41,12 @@ def score_leaves(cluster_imgs, cluster_sils, cluster_valid, pm, pm_valid, p_mean
     sils = cluster_sils > SIL_THRESHOLD
     pred_mean = masku.pair_mask_feature_mean(cluster_imgs, sils)  # [k2, 6]
     ious = masku.calculate_iou(pm[None], sils[:, None])  # [k2, M]
+    return score_matches(pred_mean, ious, cluster_valid, pm_valid, p_mean, root_visible)
+
+
+def score_matches(pred_mean, ious, cluster_valid, pm_valid, p_mean, root_visible):
+    """score_leaves from each leaf's feature mean inside its silhouette
+    pred_mean [k2, 6] and its IoU with every pseudo mask ious [k2, M]."""
     l1 = (pred_mean[:, None, :] - p_mean[None, :, :]).abs().sum(-1)  # [k2, M]
     scores = torch.where(pm_valid[None, :], ious * (1.0 - l1), -torch.inf)
     max_ind = torch.argmax(scores, dim=-1)  # the first best mask, as jnp.argmax
@@ -82,13 +88,23 @@ def _associate_view(gs, leaf_ids, camera, pseudo_feat, pseudo_ids, occur_row, bg
 
 
 def associate_language(state, kms, bundle, pseudo, clip_tables: list, bg, k1: int,
-                       k2: int, config: RasterizeConfig, out_path: str | None = None) -> dict:
+                       k2: int, config: RasterizeConfig, out_path: str | None = None,
+                       view_fn=None, leaf_ind: np.ndarray | None = None) -> dict:
     """The stage-3 sweep over every view of `bundle` (a ViewBundle) with its
     PseudoLabels (feat, mask_ids and, in leaf mode, cluster_occur) and the
     per-view CLIP tables (clip_tables_from_views; None for a view without
     one). -> {leaf_feat, leaf_score, occu_count, leaf_ind} as numpy arrays,
-    also saved to out_path (.npz) when given."""
+    also saved to out_path (.npz) when given. view_fn: the per-view
+    association (gs, leaf_ids, camera, pseudo_feat, pseudo_ids, occur_row,
+    bg) -> ([k1 * k2] mask id, score, matched) in place of the single-device
+    one: parallel/sweeps.py:make_sweep_fns gives the sharded one, with which
+    state and kms.leaf_cls_ids are this rank's shards. leaf_ind: the alive
+    splats' leaf ids of the whole table (default: read from kms and state,
+    which then hold the whole table)."""
     V = bundle.num_views
+    if view_fn is None:
+        view_fn = lambda gs, li, cam, pf, pi, oc, b: _associate_view(  # noqa: E731
+            gs, li, cam, pf, pi, oc, b, k1, k2, bundle.max_masks, config)
     match_id = np.zeros((k1 * k2, V), np.int64)
     match_score = np.zeros((k1 * k2, V), np.float32)
     match_ok = np.zeros((k1 * k2, V), bool)
@@ -97,10 +113,9 @@ def associate_language(state, kms, bundle, pseudo, clip_tables: list, bg, k1: in
         occur_row = (pseudo.cluster_occur[v].to(dev) if pseudo.cluster_occur is not None
                      else torch.ones((k1,), dtype=torch.bool, device=dev))
         # the pseudo labels are in host memory under save_memory
-        mid, sc, ok = _associate_view(state, kms.leaf_cls_ids, bundle.camera(v),
-                                      pseudo.feat[v].to(dev, non_blocking=True),
-                                      pseudo.mask_ids[v].to(dev, non_blocking=True),
-                                      occur_row, bg, k1, k2, bundle.max_masks, config)
+        mid, sc, ok = view_fn(state, kms.leaf_cls_ids, bundle.camera(v),
+                              pseudo.feat[v].to(dev, non_blocking=True),
+                              pseudo.mask_ids[v].to(dev, non_blocking=True), occur_row, bg)
         match_id[:, v] = mid.cpu().numpy()
         match_score[:, v] = sc.cpu().numpy()
         match_ok[:, v] = ok.cpu().numpy()
@@ -116,8 +131,10 @@ def associate_language(state, kms, bundle, pseudo, clip_tables: list, bg, k1: in
         tab0 = np.concatenate([np.zeros((1, tab.shape[1]), np.float32), tab], axis=0)
         feat_sum += tab0[np.clip(match_id[:, v], 0, tab0.shape[0] - 1)]
     leaf_feat = feat_sum / (occu_count + 1e-4)[:, None]
+    if leaf_ind is None:
+        leaf_ind = kms.leaf_cls_ids.cpu().numpy()[state.alive.cpu().numpy()]
     result = dict(leaf_feat=leaf_feat, leaf_score=leaf_score, occu_count=occu_count,
-                  leaf_ind=kms.leaf_cls_ids.cpu().numpy()[state.alive.cpu().numpy()])
+                  leaf_ind=leaf_ind)
     if out_path:
         np.savez(out_path, **result)
     return result

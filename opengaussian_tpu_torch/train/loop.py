@@ -50,7 +50,21 @@ one under its names:
     iteration, learning rates, background, rescale factor and root written
     into a device buffer before the replay; on the CPU the same step runs
     eagerly. The counterpart of the JAX package's scanned stage*_block.
-What the port leaves out so far raises NotImplementedError: the device mesh.
+
+`Trainer(mesh=...)` (parallel/mesh.py) trains over a device mesh, one
+process per device: every rank holds a contiguous shard of the splat
+table, Adam's moments, the statistics and the k-means assignments, and runs
+the sharded steps of parallel/steps.py, the sharded sweeps of
+parallel/sweeps.py, the sharded refiner passes of parallel/refine.py and
+the sharded evaluation render. The global operations (densification,
+capacity growth, the opacity reset, the k-means, the budget fit, the PLY
+and checkpoints) gather the whole table onto every rank
+(`mesh.gather_gaussians`), run the single-device code identically there
+and shard the result again (`_reshard`), as the JAX trainer runs them on
+its sharded arrays. Every rank draws the same views, backgrounds, rescale
+factors and noise (the generators are seeded from `seed` alone); rank 0
+alone writes files, and the others wait for it. Frozen plans, blocks of
+steps and the group budgets are off under a mesh, as in the JAX trainer.
 
 Observability as in the JAX trainer: the train_process/ PNG dumps
 (train/observe.py, every 1000 iterations, 100 in stage 2.2, unless
@@ -62,6 +76,7 @@ every loop turn.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -457,16 +472,19 @@ class Trainer:
     def __init__(self, scene: Scene, cfg: Config, out_dir: str,
                  rcfg: RasterizeConfig | None = None, seed: int = 0,
                  device="cuda", mesh=None, autotune_budgets: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                "training over a device mesh arrives with the port's multi-GPU slice")
-        self.device = resolve_device(device)
+        """mesh: a parallel.mesh.Mesh trains over its ranks (this rank's
+        device is the mesh's; `device` is then unused); None trains on
+        `device`."""
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.scene = scene
         self.cfg = cfg
         self.out_dir = out_dir
+        self._psteps, self._psweeps = {}, {}  # the sharded steps and sweeps, by key
         os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "cfg_args.json"), "w") as f:
-            f.write(cfg.to_json())
+        if self._writes:
+            with open(os.path.join(out_dir, "cfg_args.json"), "w") as f:
+                f.write(cfg.to_json())
 
         # sorted order is load-bearing for pseudo labels (reference train.py:673)
         self.train_views = sorted(scene.train_views, key=lambda v: v.image_name)
@@ -495,6 +513,8 @@ class Trainer:
         self.kms = km.KMeansState.create(self.state.capacity, cfg.opt.root_node_num,
                                          cfg.opt.leaf_node_num, self.device)
         self.pseudo: pseudo_mod.PseudoLabels | None = None
+        if self.mesh is not None:
+            self._reshard()
         self.any_alpha = bool(self.bundle.has_alpha.any())
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -527,9 +547,131 @@ class Trainer:
         try:
             from torch.utils.tensorboard import SummaryWriter
 
-            self.tb = SummaryWriter(out_dir)
+            if self._writes:
+                self.tb = SummaryWriter(out_dir)
         except Exception:
             print("Tensorboard not available: not logging progress")
+
+    # -- the device mesh --
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes files: always on one device, rank 0
+        alone under a mesh."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self):
+        """Under a mesh, wait until every rank (rank 0 with its writes) gets
+        here."""
+        if self.mesh is not None:
+            torch.distributed.barrier(group=self.mesh.group)
+
+    def _whole(self, tree):
+        """`tree`'s splat rows whole on every rank: gathered under a mesh
+        (every rank must call it), as they are on one device."""
+        if self.mesh is None:
+            return tree
+        from opengaussian_tpu_torch.parallel.mesh import gather_gaussians
+
+        return gather_gaussians(self.mesh, tree)
+
+    def _num_alive(self) -> int:
+        """The alive splats of the whole table (summed over the mesh)."""
+        n = self.state.alive.sum()
+        if self.mesh is not None:
+            torch.distributed.all_reduce(n, group=self.mesh.group)
+        return int(n)
+
+    def _gather(self):
+        """The whole state, Adam's moments, statistics and k-means
+        assignments on every rank (the inverse of `_reshard`)."""
+        self.state, mu, nu, self.stats, cls, leaf = self._whole(
+            (self.state, self.adam.mu, self.adam.nu, self.stats, self.kms.cls_ids,
+             self.kms.leaf_cls_ids))
+        self.adam = opt_mod.AdamState(mu=mu, nu=nu, count=self.adam.count)
+        self.kms = dataclasses.replace(self.kms, cls_ids=cls, leaf_cls_ids=leaf)
+
+    def _reshard(self):
+        """Shard the whole state, Adam's moments, statistics and k-means
+        assignments, as every rank holds them after a global operation, over
+        the mesh (the JAX trainer's _reshard); the capacity first grows to a
+        multiple of the mesh's size where it is not one."""
+        from opengaussian_tpu_torch.parallel.mesh import shard_gaussians
+
+        cap, d = self.state.capacity, self.mesh.size
+        if cap % d:
+            self._grow_to(-(-cap // d) * d)
+        self.state, mu, nu, self.stats, cls, leaf = shard_gaussians(
+            self.mesh, (self.state, self.adam.mu, self.adam.nu, self.stats,
+                        self.kms.cls_ids, self.kms.leaf_cls_ids))
+        self.adam = opt_mod.AdamState(mu=mu, nu=nu, count=self.adam.count)
+        self.kms = dataclasses.replace(self.kms, cls_ids=cls, leaf_cls_ids=leaf)
+
+    @contextlib.contextmanager
+    def _global(self):
+        """A global operation: under a mesh the whole table on every rank for
+        the block, which every rank runs alike, and shards again after it."""
+        if self.mesh is None:
+            yield
+            return
+        self._gather()
+        yield
+        self._reshard()
+
+    def _sharded_steps(self):
+        """parallel/steps.py's steps for the current budgets."""
+        from opengaussian_tpu_torch.parallel.steps import make_sharded_steps
+
+        key = (self.rcfg, self.spatial_lr_scale)
+        if key not in self._psteps:
+            self._psteps = {key: make_sharded_steps(self.mesh, self.rcfg, self.cfg.opt,
+                                                    self.spatial_lr_scale)}
+        return self._psteps[key]
+
+    def _sweeps(self):
+        """parallel/sweeps.py's sweep functions for the current budgets and
+        codebook sizes; None on one device."""
+        if self.mesh is None:
+            return None
+        from opengaussian_tpu_torch.parallel.sweeps import make_sweep_fns
+
+        o = self.cfg.opt
+        key = (self.rcfg, o.root_node_num, o.leaf_node_num, self.bundle.max_masks)
+        if key not in self._psweeps:
+            self._psweeps = {key: make_sweep_fns(self.mesh, self.rcfg, o.root_node_num,
+                                                 o.leaf_node_num, self.bundle.max_masks)}
+        return self._psweeps[key]
+
+    def _run_single_sharded(self, it: int, stage: str) -> torch.Tensor:
+        """One step of `stage` through the sharded steps, with the draws of
+        the single-device step in its order."""
+        vi = self._last_view = self._next_view()
+        bg = self._bg_for(stage)
+        b, svi = self.view(self.bundle, vi)
+        cam = b.camera(svi)
+        steps = self._sharded_steps()
+        alpha_mask = b.alpha_masks[svi] if self.any_alpha else None
+        has_alpha = b.has_alpha[svi]
+        if stage == "0":
+            self.state, self.adam, self.stats, loss, aux = steps.stage0(
+                self.state, self.adam, self.stats, cam, b.gt_images[svi], alpha_mask, it,
+                bg, has_alpha)
+            self._last_lost = aux["n_lost"]
+        elif stage == "1":
+            self.state, self.adam, loss, self._last_lost = steps.stage1(
+                self.state, self.adam, cam, b.sam_ids[svi], alpha_mask, it, bg,
+                self._rescale_factor(it), b.max_masks, has_alpha)
+        elif stage == "2.1":
+            self.state, self.adam, loss, self._last_lost = steps.stage21(
+                self.state, self.adam, self.kms, cam, self._pseudo_feat(vi), alpha_mask, it,
+                bg, self._rescale_factor(it), has_alpha)
+        else:
+            occur = self.pseudo.cluster_occur if self.pseudo is not None else None
+            root_vis = occur[vi, self.root_id] if occur is not None else True
+            self.state, self.adam, loss, _ok, self._last_lost = steps.stage22(
+                self.state, self.adam, self.kms, cam, self._pseudo_feat(vi), self.root_id,
+                root_vis, alpha_mask, it, bg, self._rescale_factor(it), has_alpha)
+        return loss
 
     # -- helpers --
 
@@ -568,10 +710,11 @@ class Trainer:
         the root assignment exists; a change drops the frozen plans and the
         captured steps. Without it, `_fit_max_per_tile`."""
         if not self.autotune_budgets:
-            self._fit_max_per_tile()
+            with self._global():
+                self._fit_max_per_tile()
             return
         cams = [self.bundle.camera(i) for i in range(self.bundle.num_views)]
-        new = budget.tuned_config(self._base_rcfg, self.state, cams)
+        new = budget.tuned_config(self._base_rcfg, self.state, cams, mesh=self.mesh)
         if new != self.rcfg:
             n = self.state.capacity
             print(f"[budget] intersections {self.rcfg.max_intersections(n)}->"
@@ -586,9 +729,12 @@ class Trainer:
         """Per-root budgets of the group renders (stage 2.2, sweep 2, stage 3)
         from a probe of the current root assignment (ops/budget.py:
         tuned_group_config): at stage-2.1 and stage-2.2 entry and with every
-        frame re-tune. A no-op without autotune_budgets and under
-        group_render="dense", whose union binning takes the frame budgets."""
-        if not self.autotune_budgets or self.rcfg.group_render == "dense":
+        frame re-tune. A no-op without autotune_budgets, under
+        group_render="dense", whose union binning takes the frame budgets, and
+        under a mesh, whose sharded sweeps blend every group over one union
+        binning (as in the JAX trainer)."""
+        if (not self.autotune_budgets or self.rcfg.group_render == "dense"
+                or self.mesh is not None):
             return
         cams = [self.bundle.camera(i) for i in range(self.bundle.num_views)]
         new = budget.tuned_group_config(self.rcfg, self.state, cams, self.kms.cls_ids,
@@ -635,18 +781,23 @@ class Trainer:
 
     def _maybe_grow(self):
         """Double the capacity when more than 90% of the slots are alive. The
-        geometry is about to change: any frozen plans are stale."""
+        geometry is about to change: any frozen plans are stale. Under a
+        mesh it runs on the whole table."""
         self._frozen_plans = None
         if int(self.state.num_alive) / self.state.capacity > 0.9:
-            new_cap = G.round_capacity(int(self.state.capacity * 2))
-            self.state = G.grow_capacity(self.state, new_cap)
-            self.adam = opt_mod.AdamState(mu=G.grow_capacity(self.adam.mu, new_cap),
-                                          nu=G.grow_capacity(self.adam.nu, new_cap),
-                                          count=self.adam.count)
-            self.stats = G.grow_capacity(self.stats, new_cap)
-            self.kms = self.kms.grow(new_cap)
+            self._grow_to(G.round_capacity(int(self.state.capacity * 2)))
             self._budgets_tuned = False  # re-probe at the new scale
             self._captured.clear()
+
+    def _grow_to(self, new_cap: int):
+        """Pad the (whole) state, Adam's moments, statistics and k-means
+        assignments to new_cap slots."""
+        self.state = G.grow_capacity(self.state, new_cap)
+        self.adam = opt_mod.AdamState(mu=G.grow_capacity(self.adam.mu, new_cap),
+                                      nu=G.grow_capacity(self.adam.nu, new_cap),
+                                      count=self.adam.count)
+        self.stats = G.grow_capacity(self.stats, new_cap)
+        self.kms = self.kms.grow(new_cap)
 
     def _rescale_factor(self, it: int) -> float:
         """50% chance of a uniform rescale once past start_root_cb_iter
@@ -662,9 +813,10 @@ class Trainer:
         (the JAX trainer's cache, loop.py:795): None when use_frozen_plans is
         off, off the stream layout, or when the cache was turned off because
         a build lost slots (a plan is exact only when lossless) or the stack
-        would pass frozen_plan_bytes_cap."""
+        would pass frozen_plan_bytes_cap; and under a mesh, as in the JAX
+        trainer."""
         if (not self.use_frozen_plans or self._frozen_plans is False
-                or self.rcfg.pallas_input != "stream"):
+                or self.rcfg.pallas_input != "stream" or self.mesh is not None):
             return None
         if self._frozen_plans is not None:
             return self._frozen_plans
@@ -698,7 +850,7 @@ class Trainer:
         self.pseudo = pseudo_mod.construct_pseudo_labels(
             self.state, cams, self.bundle.sam_ids, self.bg, self.bundle.max_masks,
             self.rcfg, mode=mode, cls_ids=self.kms.cls_ids, k1=o.root_node_num,
-            k2=o.leaf_node_num, to_host=self.save_memory)
+            k2=o.leaf_node_num, to_host=self.save_memory, sweep_fns=self._sweeps())
         if mode == "leaf":
             self.kms = dataclasses.replace(self.kms, leaf_sub_num=self.pseudo.leaf_sub_num)
 
@@ -716,15 +868,17 @@ class Trainer:
         if it == o.start_leaf_cb_iter + 1:
             self._ensure_pseudo("leaf")
         if stage == "2.1" and (it % 200 == 1 or it == o.start_root_cb_iter + 1):
-            self.kms = km.assign_root(
-                self.kms, self.state.ins_feat, self.state.means, self.state.alive,
-                o.pos_weight, self.generator, init=(it == o.start_root_cb_iter + 1))
+            with self._global():
+                self.kms = km.assign_root(
+                    self.kms, self.state.ins_feat, self.state.means, self.state.alive,
+                    o.pos_weight, self.generator, init=(it == o.start_root_cb_iter + 1))
             if it == o.start_root_cb_iter + 1:
                 self._tune_group_budgets()  # the first real assignment
         elif stage == "2.2" and (it % 50 == 1 or it == o.start_leaf_cb_iter + 1):
-            self.kms = km.assign_leaf(
-                self.kms, self.state.ins_feat, self.state.alive, self.root_id,
-                o.leaf_node_num, self.generator, init=(it == o.start_leaf_cb_iter + 1))
+            with self._global():
+                self.kms = km.assign_leaf(
+                    self.kms, self.state.ins_feat, self.state.alive, self.root_id,
+                    o.leaf_node_num, self.generator, init=(it == o.start_leaf_cb_iter + 1))
             if it == o.start_leaf_cb_iter + 1:
                 self._tune_group_budgets()
 
@@ -751,8 +905,8 @@ class Trainer:
         """The largest n of BLOCK_SIZES such that steps it..it+n-1 form one
         block: no pre event strictly inside, no post event but after the
         last step (the JAX trainer's rule). 1 under save_memory, whose steps
-        each copy their view's window."""
-        if not self.BLOCK_SIZES or self.save_memory:
+        each copy their view's window, and under a mesh."""
+        if not self.BLOCK_SIZES or self.save_memory or self.mesh is not None:
             return 1
         limit = min(self.BLOCK_SIZES[0], until - it + 1)
         n = 1
@@ -767,22 +921,28 @@ class Trainer:
 
     def _post_events(self, it: int, stage: str):
         """Densification / opacity reset AFTER step `it` (reference
-        train.py:593-605)."""
+        train.py:593-605), on the whole table under a mesh."""
         o = self.cfg.opt
         if stage != "0" or it >= o.densify_until_iter or o.frozen_init_pts:
             return
-        if it > o.densify_from_iter and it % o.densification_interval == 0:
-            self._maybe_grow()
-            self.state, (mu, nu), self.stats, _ = G.densify_and_prune(
-                self.state, (self.adam.mu, self.adam.nu), self.stats,
-                o.densify_grad_threshold, 0.005, self.scene.cameras_extent,
-                20.0 if it > o.opacity_reset_interval else 0.0, o.percent_dense,
-                generator=self.generator)
-            self.adam = opt_mod.AdamState(mu, nu, self.adam.count)
-        if it % o.opacity_reset_interval == 0 or (
-                self.cfg.model.white_background and it == o.densify_from_iter):
-            self.state, (mu, nu) = G.reset_opacity(self.state, (self.adam.mu, self.adam.nu))
-            self.adam = opt_mod.AdamState(mu, nu, self.adam.count)
+        densify = it > o.densify_from_iter and it % o.densification_interval == 0
+        reset = it % o.opacity_reset_interval == 0 or (
+            self.cfg.model.white_background and it == o.densify_from_iter)
+        if not (densify or reset):
+            return
+        with self._global():
+            if densify:
+                self._maybe_grow()
+                self.state, (mu, nu), self.stats, _ = G.densify_and_prune(
+                    self.state, (self.adam.mu, self.adam.nu), self.stats,
+                    o.densify_grad_threshold, 0.005, self.scene.cameras_extent,
+                    20.0 if it > o.opacity_reset_interval else 0.0, o.percent_dense,
+                    generator=self.generator)
+                self.adam = opt_mod.AdamState(mu, nu, self.adam.count)
+            if reset:
+                self.state, (mu, nu) = G.reset_opacity(self.state,
+                                                       (self.adam.mu, self.adam.nu))
+                self.adam = opt_mod.AdamState(mu, nu, self.adam.count)
 
     # -- main loop --
 
@@ -818,7 +978,7 @@ class Trainer:
                           flush=True)
                     self._budgets_tuned = False
                 rec = dict(iteration=it, stage=stage, loss=float(loss),
-                           num_alive=int(self.state.num_alive),
+                           num_alive=self._num_alive(),
                            elapsed=time.time() - t_start)
                 if stage == "2.2":  # one root per step: the loss reads per root
                     rec["root_id"] = self.root_id
@@ -831,6 +991,8 @@ class Trainer:
                       f"pts {rec['num_alive']} ({rec['elapsed']:.0f}s)", flush=True)
 
     def _run_single(self, it: int, stage: str) -> torch.Tensor:
+        if self.mesh is not None:
+            return self._run_single_sharded(it, stage)
         o = self.cfg.opt
         vi = self._last_view = self._next_view()
         bg = self._bg_for(stage)
@@ -955,13 +1117,22 @@ class Trainer:
         rewrites the bundle's SAM ids (void -1 becomes the invalid id 0) and
         raises max_masks to the refined ids, rounded up to a multiple of 8.
         With save_intermediate the refiner's trace writes refine_trace/ into
-        the output directory."""
+        the output directory. Under a mesh the state stays sharded: the
+        refiner's device passes run through parallel/refine.py, and every
+        rank runs the host's graph merge alike."""
         print("Applying multi-view SAM mask refinement...", flush=True)
         cams = [self.bundle.camera(i) for i in range(self.bundle.num_views)]
-        trace = RefinerTrace(self.out_dir) if self.save_intermediate else None
+        trace = (RefinerTrace(self.out_dir, emit=self._writes) if self.save_intermediate
+                 else None)
         sam = self.bundle.sam_ids
         sam = sam.cpu().numpy() if isinstance(sam, torch.Tensor) else np.asarray(sam)
-        refined = refine_sam_masks(self.state, cams, sam, self.rcfg, trace=trace)
+        sharded_fns = None
+        if self.mesh is not None:
+            from opengaussian_tpu_torch.parallel.refine import make_refiner_fns
+
+            sharded_fns = make_refiner_fns(self.mesh, self.rcfg)
+        refined = refine_sam_masks(self.state, cams, sam, self.rcfg, trace=trace,
+                                   sharded_fns=sharded_fns)
         ids = np.maximum(refined, 0).astype(np.int32)
         new_max = int(np.ceil(max(int(ids.max()), 8) / 8) * 8)
         ids = (_host_tensor(ids, self.device) if self.save_memory
@@ -977,10 +1148,16 @@ class Trainer:
         if self.pseudo is None or self.pseudo.cluster_occur is None:
             self._ensure_pseudo("leaf")
         tables = lang.clip_tables_from_views(self.train_views, o.sam_level)
-        return lang.associate_language(
+        sweeps = self._sweeps()
+        leaf, alive = self._whole((self.kms.leaf_cls_ids, self.state.alive))
+        res = lang.associate_language(
             self.state, self.kms, self.bundle, self.pseudo, tables, self.bg,
             o.root_node_num, o.leaf_node_num, self.rcfg,
-            out_path=os.path.join(self.out_dir, "cluster_lang.npz"))
+            out_path=os.path.join(self.out_dir, "cluster_lang.npz") if self._writes else None,
+            view_fn=sweeps.lang_view if sweeps is not None else None,
+            leaf_ind=leaf[alive].cpu().numpy())
+        self._barrier()
+        return res
 
     # -- evaluation / artifacts --
 
@@ -990,27 +1167,39 @@ class Trainer:
         psnrs, l1s, imgs, gts = [], [], [], []
         for i in range(n):
             b, j = self.view(bundle, i)
-            img, p, l1 = eval_view(self.state, b, j, self.bg, self.rcfg)
+            if self.mesh is not None:  # the render stays sharded
+                img, _alpha, _depth = self._sharded_steps().eval_render(
+                    self.state, b.camera(j), self.bg)
+                img = torch.clamp(img, 0.0, 1.0)
+                p, l1 = losses.psnr(img, b.gt_images[j]), losses.l1_loss(img, b.gt_images[j])
+            else:
+                img, p, l1 = eval_view(self.state, b, j, self.bg, self.rcfg)
             psnrs.append(float(p))
             l1s.append(float(l1))
             if len(imgs) < 5:
                 imgs.append(img)
                 gts.append(b.gt_images[j])
         m = dict(psnr=float(np.mean(psnrs)), l1=float(np.mean(l1s)), views=n)
+        opac, alive = self._whole((self.state.opacity, self.state.alive))
         if self.tb is not None:
             split = "test" if self.test_bundle else "train"
             observe.tb_image_grids(self, imgs, gts, split, self._tb_first_eval)
             self._tb_first_eval = False
             self.tb.add_scalar(f"{split}/loss_viewpoint - psnr", m["psnr"], self.iteration)
             self.tb.add_scalar(f"{split}/loss_viewpoint - l1_loss", m["l1"], self.iteration)
-            op = self.state.opacity[self.state.alive].cpu().numpy()
+            op = opac[alive].cpu().numpy()
             self.tb.add_histogram("scene/opacity_histogram", op, self.iteration)
         return m
 
     # -- remote viewer (reference train.py:235-248) --
 
     def _poll_viewer(self):
+        """Serve the viewer's pending requests. Under a mesh rank 0 serves
+        them from the whole table, which every rank gathers for it here."""
         if self.viewer_port is None:
+            return
+        self._viewer_state = self._whole(self.state)
+        if not self._writes:
             return
         if self.viewer is None:
             self.viewer = network_gui.init("127.0.0.1", self.viewer_port)
@@ -1024,7 +1213,8 @@ class Trainer:
         w2c = np.asarray(cam["w2c"], np.float32)
         camera = Camera.from_fov(w2c[:3, :3], w2c[:3, 3], cam["fovx"], cam["fovy"],
                                  cam["width"], cam["height"], self.device)
-        out = render(camera, self.state, self.bg, 3, self.rcfg,
+        state = self._viewer_state if self.mesh is not None else self.state
+        out = render(camera, state, self.bg, 3, self.rcfg,
                      scale_modifier=float(scale_mod))
         img = torch.clamp(out.render, 0.0, 1.0).cpu().numpy()
         return (img * 255).astype(np.uint8).tobytes()
@@ -1032,44 +1222,57 @@ class Trainer:
     def save(self):
         """The PLY and, past start_root_cb_iter, the root codebook (centers and
         one id per alive splat), past start_leaf_cb_iter the leaf codebook,
-        under point_cloud/iteration_<it>/."""
+        under point_cloud/iteration_<it>/ (under a mesh, the whole table, by
+        rank 0)."""
         o = self.cfg.opt
-        pc_dir = os.path.join(self.out_dir, f"point_cloud/iteration_{self.iteration}")
-        os.makedirs(pc_dir, exist_ok=True)
-        save_gaussian_ply(os.path.join(pc_dir, "point_cloud.ply"), self.state)
-        alive = self.state.alive.cpu().numpy()
-        if self.iteration > o.start_root_cb_iter:
-            cb.save_codebook(os.path.join(pc_dir, "root_code_book"),
-                             self.kms.centers.cpu().numpy(),
-                             self.kms.cls_ids.cpu().numpy()[alive])
-        if self.iteration > o.start_leaf_cb_iter:
-            cb.save_codebook(os.path.join(pc_dir, "leaf_code_book"),
-                             self.kms.leaf_centers.cpu().numpy(),
-                             self.kms.leaf_cls_ids.cpu().numpy()[alive])
+        state, cls, leaf = self._whole((self.state, self.kms.cls_ids, self.kms.leaf_cls_ids))
+        if self._writes:
+            pc_dir = os.path.join(self.out_dir, f"point_cloud/iteration_{self.iteration}")
+            os.makedirs(pc_dir, exist_ok=True)
+            save_gaussian_ply(os.path.join(pc_dir, "point_cloud.ply"), state)
+            alive = state.alive.cpu().numpy()
+            if self.iteration > o.start_root_cb_iter:
+                cb.save_codebook(os.path.join(pc_dir, "root_code_book"),
+                                 self.kms.centers.cpu().numpy(), cls.cpu().numpy()[alive])
+            if self.iteration > o.start_leaf_cb_iter:
+                cb.save_codebook(os.path.join(pc_dir, "leaf_code_book"),
+                                 self.kms.leaf_centers.cpu().numpy(),
+                                 leaf.cpu().numpy()[alive])
+        self._barrier()
 
     def save_checkpoint(self):
-        """chkpnt<iteration>.npz in the output directory (train/checkpoint.py)."""
-        ckpt.save(os.path.join(self.out_dir, f"chkpnt{self.iteration}.npz"), self.state,
-                  self.adam, self.stats, self.kms, self.iteration)
+        """chkpnt<iteration>.npz in the output directory (train/checkpoint.py;
+        under a mesh, the whole table, by rank 0)."""
+        state, mu, nu, stats, cls, leaf = self._whole(
+            (self.state, self.adam.mu, self.adam.nu, self.stats, self.kms.cls_ids,
+             self.kms.leaf_cls_ids))
+        if self._writes:
+            ckpt.save(os.path.join(self.out_dir, f"chkpnt{self.iteration}.npz"), state,
+                      opt_mod.AdamState(mu=mu, nu=nu, count=self.adam.count), stats,
+                      dataclasses.replace(self.kms, cls_ids=cls, leaf_cls_ids=leaf),
+                      self.iteration)
+        self._barrier()
 
     def restore_checkpoint(self, path: str):
         """Resume from a checkpoint of either package (.npz) or a reference
-        chkpnt*.pth (scripts/train_scannet.sh:46-48)."""
-        if path.endswith(".pth"):
-            (self.state, self.adam, self.stats, self.iteration,
-             self.spatial_lr_scale) = ckpt.load_torch(path, device=self.device)
-        else:
-            self.state, self.adam, self.stats, kms, self.iteration = ckpt.load(
-                path, self.device)
-            if kms is not None:
-                self.kms = kms
-        self._frozen_plans = None
-        self._captured.clear()
-        self.state = ckpt.ensure_ins_feat(self.state)
-        if self.state.capacity != self.kms.cls_ids.shape[0]:
-            o = self.cfg.opt
-            self.kms = km.KMeansState.create(self.state.capacity, o.root_node_num,
-                                             o.leaf_node_num, self.device)
+        chkpnt*.pth (scripts/train_scannet.sh:46-48). Under a mesh every rank
+        loads the whole file and keeps its shard."""
+        with self._global():
+            if path.endswith(".pth"):
+                (self.state, self.adam, self.stats, self.iteration,
+                 self.spatial_lr_scale) = ckpt.load_torch(path, device=self.device)
+            else:
+                self.state, self.adam, self.stats, kms, self.iteration = ckpt.load(
+                    path, self.device)
+                if kms is not None:
+                    self.kms = kms
+            self._frozen_plans = None
+            self._captured.clear()
+            self.state = ckpt.ensure_ins_feat(self.state)
+            if self.state.capacity != self.kms.cls_ids.shape[0]:
+                o = self.cfg.opt
+                self.kms = km.KMeansState.create(self.state.capacity, o.root_node_num,
+                                                 o.leaf_node_num, self.device)
         self._budgets_tuned = False
 
 

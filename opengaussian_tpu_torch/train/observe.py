@@ -7,7 +7,8 @@ instance-feature halves, silhouette, colorized SAM mask and pseudo features
 under model_path/train_process/; and its TensorBoard image grids at test
 iterations, train.py:976-984). A dump re-renders the step's view once, as
 the JAX package does: one extra render (one or two K1 launches on the GPU)
-per dump.
+per dump. Under a device mesh the dump renders through the sharded renderer
+(`_render_sharded_dump`) on every rank, and rank 0 alone writes the PNGs.
 """
 
 from __future__ import annotations
@@ -44,9 +45,38 @@ def dump_frequency(stage: str) -> int:
     return 100 if stage == "2.2" else 1000  # reference train.py:504-506
 
 
+def _render_sharded_dump(trainer, cam, stage: str, quant):
+    """The color and (past stage 0) instance-feature images of the sharded
+    state in one pass of parallel/render.py:render_sharded (the RGB and
+    feature channels side by side), the splats staying sharded. -> the
+    RenderOutputs fields the dump reads (render, alpha; ins_feat and
+    silhouette past stage 0)."""
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.ops.sh import sh_to_rgb
+    from opengaussian_tpu_torch.parallel.render import render_sharded
+    from opengaussian_tpu_torch.render import RenderOutputs, encoded_ins_feat
+
+    gs = trainer.state
+    cam = cam.to(gs.device)
+    cov = build_cov3d(gs.scales, gs.quats)
+    rgb = sh_to_rgb(3, gs.sh, gs.means, cam.cam_center)
+    if stage == "0":
+        payload, fbg = rgb, trainer.bg
+    else:
+        payload = torch.cat([rgb, encoded_ins_feat(gs, quant)], dim=-1)
+        fbg = torch.cat([trainer.bg] * 3)
+    img, alpha, _d, _r, _l = render_sharded(trainer.mesh, cam, gs.means, cov, gs.opacity,
+                                            payload, fbg, trainer.rcfg)
+    if stage == "0":
+        return RenderOutputs(render=img[..., :3], alpha=alpha)
+    return RenderOutputs(render=img[..., :3], alpha=alpha, ins_feat=img[..., 3:9],
+                         silhouette=alpha)
+
+
 @torch.no_grad()
 def dump_intermediate(trainer, it: int, stage: str, view_idx: int):
-    """Save the reference's train_process/ artifact set for one view."""
+    """Save the reference's train_process/ artifact set for one view (under a
+    mesh every rank renders, rank 0 writes)."""
     from opengaussian_tpu_torch.ops import kmeans as km
     from opengaussian_tpu_torch.render import render
 
@@ -57,8 +87,13 @@ def dump_intermediate(trainer, it: int, stage: str, view_idx: int):
         quant = km.quantize(trainer.kms, trainer.state.ins_feat, "root")
     elif stage == "2.2":
         quant = km.quantize(trainer.kms, trainer.state.ins_feat, "leaf")
-    out = render(b.camera(bi), trainer.state, trainer.bg, 3, trainer.rcfg,
-                 render_color=True, render_feat_map=stage != "0", quantized_feat=quant)
+    if trainer.mesh is not None:
+        out = _render_sharded_dump(trainer, b.camera(bi), stage, quant)
+        if trainer.mesh.rank != 0:
+            return
+    else:
+        out = render(b.camera(bi), trainer.state, trainer.bg, 3, trainer.rcfg,
+                     render_color=True, render_feat_map=stage != "0", quantized_feat=quant)
     tag = f"{it:05d}"
     _save_png(os.path.join(base, "gt", tag + ".png"), b.gt_images[bi])
     _save_png(os.path.join(base, "renders", tag + ".png"), out.render)

@@ -139,7 +139,7 @@ def construct_pseudo_labels(gs: GaussianState, cameras, sam_ids, bg,
                             max_masks: int, config: RasterizeConfig,
                             mode: str = "root", cls_ids: torch.Tensor | None = None,
                             k1: int = 64, k2: int = 5,
-                            to_host: bool = False) -> PseudoLabels:
+                            to_host: bool = False, sweep_fns=None) -> PseudoLabels:
     """Sweep 1 over `cameras` (sorted by image name, as reference
     train.py:673) with their decoded SAM ids [V, H, W] (on the device, in
     host memory or lazy); in leaf mode also sweep 2 with the root assignment
@@ -147,12 +147,20 @@ def construct_pseudo_labels(gs: GaussianState, cameras, sam_ids, bg,
     leaf_sub_num = min(max matched count + 1, k2) (reference train.py:835).
     to_host=True (the save_memory mode) keeps the per-view results, the
     pseudo-feature images above all ([V, H, W, 6] f32, the largest buffer
-    of training), in host memory; the trainer copies one view per step."""
+    of training), in host memory; the trainer copies one view per step.
+    sweep_fns: a namespace with .sweep1(gs, cam, sam_ids, bg) and
+    .sweep2(gs, cam, pseudo_feat, pseudo_ids, cls_ids, bg) in place of the
+    single-device sweeps: parallel/sweeps.py:make_sweep_fns gives the
+    sharded ones, with which gs and cls_ids are this rank's shards."""
     if mode not in ("root", "leaf"):
         raise ValueError(f"mode must be 'root' or 'leaf', got {mode!r}")
+    sweep1 = (sweep_fns.sweep1 if sweep_fns is not None else
+              lambda g, c, s, b: _sweep1_view(g, c, s, b, max_masks, config))
+    sweep2 = (sweep_fns.sweep2 if sweep_fns is not None else
+              lambda g, c, f, m, ci, b: _sweep2_view(g, c, f, m, ci, b, max_masks, k1,
+                                                     config))
     stack = _host_stack if to_host else torch.stack
-    feats, ids = zip(*(_sweep1_view(gs, cam, _view_on(sam_ids, i, gs.device), bg,
-                                    max_masks, config)
+    feats, ids = zip(*(sweep1(gs, cam, _view_on(sam_ids, i, gs.device), bg)
                        for i, cam in enumerate(cameras)))
     feat, mask_ids = stack(feats), stack(ids)
     if mode == "root":
@@ -162,9 +170,8 @@ def construct_pseudo_labels(gs: GaussianState, cameras, sam_ids, bg,
     counts = torch.ones((k1,), dtype=torch.int32, device=gs.device)
     occ = []
     for i, cam in enumerate(cameras):
-        c, o = _sweep2_view(gs, cam, _view_on(feat, i, gs.device),
-                            _view_on(mask_ids, i, gs.device), cls_ids, bg, max_masks, k1,
-                            config)
+        c, o = sweep2(gs, cam, _view_on(feat, i, gs.device),
+                      _view_on(mask_ids, i, gs.device), cls_ids, bg)
         counts = torch.maximum(counts, c)
         occ.append(o)
     return PseudoLabels(feat=feat, mask_ids=mask_ids, cluster_occur=stack(occ),

@@ -99,7 +99,7 @@ def test_bundle_windows_equal_their_slices(scene_dir):
 
 def test_cli_lazy_load_equals_the_eager_run(scene_dir, tmp_path):
     """--lazy_load implies --save_memory and gives the eager run's losses,
-    as does --save_memory alone; --mesh is still refused."""
+    as does --save_memory alone; --mesh 2 in one process is refused."""
     argv = ["-s", scene_dir, "--iterations", "6", "--start_ins_feat_iter", "3",
             "--densify_from_iter", "1000"]
     runs = {name: tcli_train.main([*argv, "-m", str(tmp_path / name), *flags], device="cpu")
@@ -111,5 +111,5 @@ def test_cli_lazy_load_equals_the_eager_run(scene_dir, tmp_path):
     want = torch.stack(runs["eager"].losses)
     for name in ("save_memory", "lazy"):
         assert torch.equal(torch.stack(runs[name].losses), want), name
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="a mesh of 2 devices in a world of 1"):
         tcli_train.main([*argv, "-m", str(tmp_path / "mesh"), "--mesh", "2"], device="cpu")

@@ -28,7 +28,8 @@ def test_port_imports_no_jax():
                   "cli.convert", "cli.scannet2blender", "cli.vis_pts_feat", "train.observe",
                   "viewer.network_gui", "refine.sam_refiner", "refine.introspect",
                   "cli.vis_refinement", "data.lazy", "ops.budget", "parallel.mesh",
-                  "parallel.distributed", "parallel.render", "parallel.steps"):
+                  "parallel.distributed", "parallel.render", "parallel.steps",
+                  "parallel.kmeans", "parallel.sweeps", "parallel.refine"):
             assert "opengaussian_tpu_torch." + m in names, m
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -163,9 +163,12 @@ def test_cli_train_writes_a_ply_that_cli_render_renders(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--mesh", "2"]])
 def test_cli_train_refuses_what_the_port_lacks(tmp_path, flags):
-    with pytest.raises(NotImplementedError):
+    """A mesh larger than the processes started is refused, before the scene
+    loads, and the process group the CLI started for it is gone again."""
+    with pytest.raises(ValueError, match="a mesh of 2 devices in a world of 1"):
         tcli_train.main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), *flags],
                         device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_train_port_starts_the_viewer(tmp_path):

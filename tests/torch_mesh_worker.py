@@ -160,11 +160,6 @@ def main(rank: int, world: int, store: str, out: str) -> None:
     res.update({f"stage0/nu/{k}": v for k, v in a1.nu.items()})
     res.update({f"stage0/stats/{f.name}": getattr(st1, f.name)
                 for f in dataclasses.fields(st1)})
-    for name in ("stage1", "stage21", "stage22", "eval_render"):
-        try:
-            getattr(steps, name)()
-        except NotImplementedError as e:
-            res[f"left_out/{name}"] = "14b" in str(e)
     step = make_sharded_train_step(mesh, cam0, RasterizeConfig(**CFG), ocfg, 1.0)
     losses = []
     for it in range(STEPS):
