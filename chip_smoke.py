@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero:
      C = 7 (features + depth), bit for bit; the backward replay K2, the
      compact backward K4 (both bit for bit) and the per-splat reduce K3 on
      the C = 4 stream, with the cotangents of an L1 + SSIM loss against the
-     view's image, K4 again on the same stream made of flat opaque splats
+     view's image (K3's deterministic entry bit for bit against the plain
+     version on the CPU, and with itself from launch to launch), K4 again on the same stream made of flat opaque splats
      (every tile stops after one chunk), K4 + K3 against K2 + K3 per splat,
      and K4 + K3 under torch.cuda.set_sync_debug_mode("error") (no host
      sync). The dense layout's forward K5 and its backward K6 (both bit for
@@ -151,6 +152,32 @@ Phases, in order; any failure exits non-zero:
      ones, and in turns; the sharded refiner's ids against the single-device
      refiner's on the two-blob scene; the group entry of K5 at a tile offset
      bit for bit with its plain version.
+ 11. the quality run and the long-run regime:
+     `opengaussian_tpu_torch.tools.quality_run.run` at full size (320x240,
+     20 + 4 views, 2,600 iterations through every stage, stage 3, the
+     render_by_text path over the 4 objects) in three configurations of the
+     Trainer: (a) the port's defaults (eager steps, the stream sized per
+     frame), (b) the JAX package's (autotune_budgets, use_frozen_plans) and
+     (c) (b) with BLOCK_SIZES = (50, 10, 5) (captured steps); then
+     `tools.synthetic_convergence.run` (640x480, stage 0 to 4,000
+     iterations) at the port's defaults. Each run's figures beside the JAX
+     package's (QUALITY_r05.json, the convergence script's docstring), its
+     wall seconds, its own peak device memory and its K1, K2 and K3
+     launches against its schedule; the gates: stage-0 PSNR >= 48.164 and
+     mIoU >= 0.3677 (the JAX package's least on this scene, on the CPU,
+     less 1 dB and 0.10), root and leaf purity >= 0.95, text retrieval >=
+     0.5 in each configuration and >= 0.75 in one, some root's stage-2.2
+     loss positive and falling, no slot lost in any step; the convergence
+     PSNR >= 38.0 at 4,000, rising at each checkpoint from 1,000 on, and at
+     least 4,000 splats alive at the end. The phase runs under
+     torch.use_deterministic_algorithms (cuBLAS's workspace fixed by
+     CUBLAS_WORKSPACE_CONFIG, set at the top of this script), so K3 takes
+     its sorted entry and every run repeats bit for bit: configuration (c)
+     runs a second time and must score the same, figure for figure. Before
+     that, K2 and K3's sorted entry on the quality run's first stage-0 step
+     against their plain versions. Under K3's atomic order the runs forked
+     from call to call and the gates missed about one call in 5 (PERF.md
+     §6). Phase 5 logs each training run's own peak device memory.
 Then a JSON line of per-kernel numbers (K5's and K6's rows count their
 group entries' launches and errors), the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}.
@@ -158,6 +185,7 @@ result line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -168,7 +196,12 @@ import tempfile
 import time
 
 import numpy as np
-import torch
+
+# cuBLAS's fixed workspace, which phase 11's deterministic algorithms need;
+# it is read when CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 WIDTH, HEIGHT = 1296, 968
 N_SPLATS = 200_000
@@ -184,7 +217,8 @@ REFINE_SPLATS, REFINE_VIEWS, REFINE_IDS, REFINE_STRIDE = 100_000, 60, 32, 1000
 TOL = dict(atol=3e-5, rtol=1e-4)
 # K3 sums a splat's slots in atomic order, so its tolerance is relative to
 # each field's largest magnitude: |kernel - plain| <= 1e-5 * max|plain field|
-# + 1e-4 * |plain|. K2, K4 and K6 sum in a fixed order and match bit for bit.
+# + 1e-4 * |plain|. K2, K4 and K6 sum in a fixed order and match bit for bit,
+# and so does K3's sorted entry against the plain version on the CPU.
 GRAD_TOL = dict(norm_atol=1e-5, rtol=1e-4)
 # fp32 operations per (slot, pixel) pair of the blend, by what the pair needs:
 # every pair that must be evaluated (its warp's pixels meet the slot's cull
@@ -415,7 +449,17 @@ def check_grad_kernels(stream, cot, chunk: int, n: int) -> dict:
     per_p = rk.segment_reduce_plain(d_p, bins.sorted_gauss, n)
     k3 = compare("segment_reduce per-splat", per, per_p, grad_atol(per_p),
                  GRAD_TOL["rtol"])
-    return dict(k2_err=k2, k3_err=k3, work=work, d_rows=d_p)
+    # K3's deterministic entry: bit for bit with the plain version on the
+    # CPU, which adds each splat's rows in the same (row) order, and with
+    # itself from launch to launch
+    sums = [rk.segment_reduce_sorted(d_p, bins.sorted_gauss, n) for _ in range(2)]
+    torch.cuda.synchronize()
+    cpu = rk.segment_reduce_plain(d_p.cpu(), bins.sorted_gauss.cpu(), n)
+    k3s = compare("segment_reduce_sorted per-splat (plain version on the CPU)",
+                  sums[0].cpu(), cpu, 0.0, 0.0)
+    if not torch.equal(sums[0], sums[1]):
+        raise AssertionError("segment_reduce_sorted: two launches differ")
+    return dict(k2_err=k2, k3_err=k3, k3s_err=k3s, work=work, d_rows=d_p)
 
 
 def check_against_oracle(dev):
@@ -1392,6 +1436,9 @@ def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
         wrappers = launch_counts()
         for w in wrappers.values():
             w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         flags = [x for k, v in STAGE_ENDS.items() for x in (f"--{k}", str(v))]
         tr = cli_train.main(
@@ -1401,14 +1448,19 @@ def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
              "--checkpoint_iterations", str(TRAIN_ITERS), *extra], device=dev, rcfg=rcfg)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        peak_abs = torch.cuda.max_memory_allocated()
     finally:
         loop.refine_sam_masks = real_refine
         cli_train.Trainer = real_trainer
     tr.refined = refine
+    # the run's own peak: what it allocated above what earlier phases hold
+    tr.peak_device_mib = (peak_abs - base) / 2**20
     launches = {k: w.launches for k, w in wrappers.items()}
     what = f"training path ({name})"
     log(f"{what}: {TRAIN_ITERS} iterations and stage 3 in {seconds:.2f} s (scene load, "
-        f"setup, sweeps, stage 3, saves and the checkpoint included), launches {launches}")
+        f"setup, sweeps, stage 3, saves and the checkpoint included), launches {launches}; "
+        f"peak device memory {tr.peak_device_mib:.1f} MiB (peak less the {base / 2**20:.1f} "
+        f"MiB held before the run; {peak_abs / 2**20:.1f} MiB in all)")
     want = expected_launches(tr, rcfg)
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
@@ -2144,7 +2196,7 @@ def group_block(tr, K: int, G: int):
             bins.sorted_gauss.shape[0], gx)
 
 
-def dense_groups_phase(tr, tr_b, chunk: int, card: str) -> dict:
+def dense_groups_phase(tr, tr_b, chunk: int, card: str, peak_flops, peak_bytes) -> dict:
     """group_render="dense" at full width. The group entries of K5 and K6
     on the training frame's block at G = 1 and G = 5 (roots 0-4) against
     their plain versions, bit for bit, and their times; rasterize_groups
@@ -2152,8 +2204,10 @@ def dense_groups_phase(tr, tr_b, chunk: int, card: str) -> dict:
     the option runs, its launches counted: sweep 2 and stage 3 of view 0
     (stage 3 in the dense layout, which renders each root's leaves as
     groups) and 5 stage-2.2 steps of the blocked trainer, one captured
-    block; and sweep 2 and stage 3 per view beside the stream numbers.
-    -> {"errs", "launches", "leaf_ms"}."""
+    block; and sweep 2 and stage 3 per view beside the stream numbers. Each
+    group entry's bound: `group_bounds`, from K5's and K6's plain versions'
+    work counts on each group's block.
+    -> {"errs", "launches", "leaf_ms", "group_err", "bounds"}."""
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
     from opengaussian_tpu_torch.ops.projection import build_cov3d
     from opengaussian_tpu_torch.ops.rasterize import rasterize_groups, rasterize_scan_groups
@@ -2162,7 +2216,7 @@ def dense_groups_phase(tr, tr_b, chunk: int, card: str) -> dict:
     from opengaussian_tpu_torch.train import pseudo as pseudo_mod
 
     K = tr.rcfg.max_per_tile
-    errs = {}
+    errs, bounds = {}, {}
     for G in (1, 5):
         gdata, gidx, opac_g, counts, tstart, P, gx = group_block(tr, K, G)
         fargs = (gdata, gidx, opac_g, counts, gx, chunk)
@@ -2188,10 +2242,14 @@ def dense_groups_phase(tr, tr_b, chunk: int, card: str) -> dict:
                             "blend_tiles_bwd_groups_kernel")
         k5 = device_ms(lambda: rk.blend_tiles_fwd(gdata, counts, gx, chunk), 5,
                        "blend_tiles_fwd_kernel")
+        bounds[G] = group_bounds(gdata, gidx, opac_g, counts, tstart, P, acc, tf, cot, gx,
+                                 chunk, peak_flops, peak_bytes)
+        (fb, fby), (bb, bby) = bounds[G]
         log(f"timing: group entries G={G} on the training frame's block {list(gdata.shape)}: "
-            f"forward kernel {fwd_dev:.4f} ms, backward kernel {bwd_dev:.4f} ms (K5 on the "
-            f"block's own opacities {k5:.4f} ms), bit for bit with their plain versions "
-            f"[{card}]")
+            f"forward kernel {fwd_dev:.4f} ms against a {fb:.4f} ms bound ({fby}; at "
+            f"{fb / fwd_dev:.3f} of it), backward kernel {bwd_dev:.4f} ms against {bb:.4f} ms "
+            f"({bby}; at {bb / bwd_dev:.3f}) (K5 on the block's own opacities {k5:.4f} ms), "
+            f"bit for bit with their plain versions [{card}]")
     # the dense group render against the scan of per-group renders, roots 0-4
     st, cam = tr.state, tr.bundle.camera(0)
     cov3d = build_cov3d(st.scales, st.quats)
@@ -2239,7 +2297,36 @@ def dense_groups_phase(tr, tr_b, chunk: int, card: str) -> dict:
         leaf_ms = time_leaf_events(tr, card, "dense groups")
     finally:
         tr.rcfg = saved
-    return dict(errs=errs, launches=launches, leaf_ms=leaf_ms, group_err=g_err)
+    return dict(errs=errs, launches=launches, leaf_ms=leaf_ms, group_err=g_err, bounds=bounds)
+
+
+def group_bounds(gdata, gidx, opac_g, counts, tstart, P: int, acc, tf, cot, gx, chunk,
+                 peak_flops, peak_bytes) -> tuple:
+    """The least time of the group entries of K5 and K6 (`fwd_bound` and
+    `bwd_bound`'s model over the groups): the block, its ids, counts and
+    starts and the [G, N] opacity table read once, each group's outputs
+    written once; the operations each group's data needs, from K5's and
+    K6's plain versions' work counts on that group's block.
+    -> ((forward ms, by), (backward ms, by))."""
+    from opengaussian_tpu_torch.ops import rasterize_kernels as rk
+
+    G, N = opac_g.shape
+    T, _, F = gdata.shape
+    C, live = F - 6, int(counts.sum())
+    ops_f = ops_b = 0
+    for g in range(G):
+        block = rk._group_block(gdata, gidx, opac_g, g)
+        *_o, wf = rk.blend_tiles_fwd_plain(block, counts, gx, chunk, count_work=True)
+        _d, wb = rk.blend_tiles_bwd_plain(block, counts, tstart, P, acc[g], tf[g], *(
+            c[g] for c in cot), gx, chunk, count_work=True)
+        ops_f += walk_ops(wf) + wf["blended"] * ops_blended(C)
+        ops_b += walk_ops(wb) + wb["blended"] * ops_grad(C) + T * 256 * (2 * C + 1)
+    tables = live * (F + 1) * 4 + T * 4 + G * N * 4  # rows, their ids, counts, opacities
+    fwd = bound_of(f"blend_tiles_fwd_groups G={G}", tables + G * T * 256 * (C + 1) * 4, ops_f,
+                   peak_flops, peak_bytes)
+    bwd = bound_of(f"blend_tiles_bwd_groups G={G}", tables + T * 4 + G * P * F * 4
+                   + G * 2 * T * 256 * (C + 1) * 4, ops_b, peak_flops, peak_bytes)
+    return fwd, bwd
 
 
 def time_on_frame(name: str, kernel: str, full, alone, bound: float, by: str,
@@ -3663,6 +3750,225 @@ def mesh_trainer_phase(scene_dir: str, root: str, dev, chunk: int, card: str) ->
                 live=live in sweep_ok, k5_offset_err=k5_offset_err)
 
 
+# --- phase 11: the quality run and the long-run regime ---
+
+# the Trainer's options of each quality run
+QUALITY_CONFIGS = {
+    "a": {},  # the port's defaults: eager steps, the stream sized per frame
+    "b": dict(autotune_budgets=True, use_frozen_plans=True),  # the JAX package's defaults
+    "c": dict(autotune_budgets=True, use_frozen_plans=True, BLOCK_SIZES=BLOCKS),
+}
+# The JAX package's own regime on this scene: its tools/quality_run.py at
+# full size on the CPU reads stage-0 PSNR 49.164 / 50.096 / 49.835 dB and mIoU
+# 0.6055 / 0.4963 / 0.4677 with the Trainer's seed 0 / 1 / 2 (PERF.md §6),
+# from the repository's root (seed 2 here; 25-35 minutes on a CPU):
+#   JAX_PLATFORMS=cpu python -c "import runpy, sys; \
+#     from opengaussian_tpu.train import loop; init = loop.Trainer.__init__; \
+#     loop.Trainer.__init__ = lambda self, *a, **k: init(self, *a, **dict(k, seed=2)); \
+#     sys.argv = ['quality_run.py', '--out', 'q_seed2.json']; \
+#     runpy.run_path('tools/quality_run.py', run_name='__main__')"
+# QUALITY_r05.json (26.57 dB, 15,427 splats, mIoU 0.6819) is a TPU's regime,
+# kept as the figures logged beside the port's.
+QUALITY_PSNR_MIN = 48.164  # the JAX package's least stage-0 PSNR, 49.164, less 1 dB
+PURITY_MIN = 0.95
+RETRIEVAL_MIN, RETRIEVAL_BEST_MIN = 0.5, 0.75  # in each configuration; in one
+MIOU_MIN = 0.3677  # the JAX package's least mIoU, 0.4677, less 0.10, in each configuration
+# examples/synthetic_convergence.py's docstring (the JAX package, 2026-08):
+# test PSNR by iteration, and 6,381 splats at 4,000
+CONVERGENCE_REF = {0: 16.8, 500: 26.2, 2000: 36.1, 4000: 39.0}
+CONVERGENCE_PSNR_MIN = 38.0  # 39.0 less 1 dB, at 4,000
+CONVERGENCE_ALIVE_MIN = 4000
+REPEAT = "c"  # the configuration run twice, which must score the same
+# what the repeated run must reproduce exactly
+SCORED = ("stage0_psnr", "final_psnr", "final_l1", "num_alive", "stage22_loss_trajectory",
+          "root_cluster_purity", "leaf_cluster_purity", "text_retrieval_acc",
+          "text_query_miou", "retrieval_diagnostics", "slots_lost")
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms for the block: torch's own ops take
+    their deterministic kernels (or raise where they have none) and K3 its
+    sorted entry, so a training run on the card repeats bit for bit."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def reduce_kernel() -> str:
+    """The K3 entry that backward passes launch in the current mode."""
+    return ("segment_reduce_sorted" if torch.are_deterministic_algorithms_enabled()
+            else "segment_reduce")
+
+
+def hold_sorted_reduce(dev) -> float:
+    """K2 and K3's deterministic entry at the quality run's shapes: its
+    first stage-0 step (the initial cloud, training view 0 at 320x240, the
+    L1 + SSIM cotangents), each against its plain version, K3's entry on the
+    CPU bit for bit. -> K3's entry's max abs error."""
+    from opengaussian_tpu_torch.models.gaussians import create_from_pcd
+    from opengaussian_tpu_torch.tools import synthetic
+
+    q = synthetic.quality_scene(synthetic.QUALITY_FULL, dev)
+    sc, v = q.scene, q.scene.train_views[0]
+    state = create_from_pcd(sc.points, sc.colors, capacity=len(sc.points), device=dev)
+    with torch.no_grad():
+        streams = frame_streams(v.camera, state, q.rcfg)
+    grids = (streams[4][4], (q.size.height + 15) // 16)
+    cot = loss_cotangents(v.camera.to(dev), grids, streams[4], q.rcfg.chunk,
+                          torch.as_tensor(v.gt_image, device=dev))
+    return check_grad_kernels(streams[4], cot, q.rcfg.chunk, state.capacity)["k3s_err"]
+
+
+def quality_launches(res: dict) -> dict:
+    """K1, K2 and K3 launches of a quality run, from its schedule: the GT
+    renders (color and one-hot object, per view), one forward and backward
+    per step, the three evaluations (one render per held-out view), sweep 1
+    at the entries to stages 2.1 and 2.2, sweep 2 (one render per root and
+    view) and stage 3 (one partition render per root and view), one
+    render_selection per object and held-out view, the PNG's render."""
+    w = res["workload"]
+    V, T, k1 = w["n_train"], w["n_test"], w["k1"]
+    want = dict.fromkeys(launch_counts(), 0)
+    want["blend_stream_fwd"] = (2 * (V + T) + w["iters"] + 3 * T + 2 * V + 2 * k1 * V
+                                + w["objects"] * T + 1)
+    want["blend_stream_bwd"] = want[reduce_kernel()] = w["iters"]
+    return want
+
+
+def convergence_launches(res: dict, size) -> dict:
+    """A convergence run's launches: a GT render per view, one forward and
+    backward per step, one render per held-out view at each evaluation, and
+    at the end one render per view (the PSNR by view)."""
+    iters = res["curve"][-1]["iteration"]
+    want = dict.fromkeys(launch_counts(), 0)
+    want["blend_stream_fwd"] = (size.n_views + iters + len(res["curve"]) * size.n_test
+                                + size.n_views)
+    want["blend_stream_bwd"] = want[reduce_kernel()] = iters
+    return want
+
+
+def quality_gates(name: str, res: dict) -> list[str]:
+    """The gates each configuration must pass. -> the misses."""
+    miss = []
+    if res["stage0_psnr"] < QUALITY_PSNR_MIN:
+        miss.append(f"stage-0 PSNR {res['stage0_psnr']} < {QUALITY_PSNR_MIN}")
+    for k in ("root_cluster_purity", "leaf_cluster_purity"):
+        if res[k] < PURITY_MIN:
+            miss.append(f"{k} {res[k]} < {PURITY_MIN}")
+    if res["text_retrieval_acc"] < RETRIEVAL_MIN:
+        miss.append(f"text retrieval {res['text_retrieval_acc']} < {RETRIEVAL_MIN}")
+    if res["text_query_miou"] < MIOU_MIN:
+        miss.append(f"mIoU {res['text_query_miou']} < {MIOU_MIN}")
+    falls = [r for r, v in res["stage22_per_root_loss"].items()
+             if v["n"] >= 2 and v["first"] > 0 and v["last"] < v["first"]]
+    if not falls:
+        miss.append(f"no root's stage-2.2 loss is positive and falls: "
+                    f"{res['stage22_per_root_loss']}")
+    if res["slots_lost"] != 0:
+        miss.append(f"a step lost {res['slots_lost']} slots")
+    return [f"quality run ({name}): {m}" for m in miss]
+
+
+def quality_phase(root: str, dev, card: str) -> dict:
+    """tools/quality_run.run at full size in each of QUALITY_CONFIGS, every
+    kernel's launches counted around it, and configuration REPEAT once more.
+    Logs each figure beside QUALITY_r05.json's (the JAX package's), the wall
+    seconds, the run's own peak device memory and the launches; checks the
+    launches against the schedule, every gate, and that the repeated run
+    scores the same, figure for figure; the misses of all runs raised
+    together at the end of the phase, after the convergence run."""
+    from opengaussian_tpu_torch.tools import quality_run
+
+    k3s_err = hold_sorted_reduce(dev)
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "QUALITY_r05.json")) as f:
+        ref = json.load(f)
+    keys = ("stage0_psnr", "final_psnr", "final_l1", "num_alive", "root_cluster_purity",
+            "leaf_cluster_purity", "text_retrieval_acc", "text_query_miou")
+    runs, misses = {}, []
+    for name, opts in [*QUALITY_CONFIGS.items(), (REPEAT + "'", QUALITY_CONFIGS[REPEAT])]:
+        wrappers = launch_counts()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        res = quality_run.run(fast=False, device=dev, trainer_options=opts,
+                              out=os.path.join(root, f"quality_{name}"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        want = quality_launches(res)
+        if launches != want:
+            misses.append(f"quality run ({name}): launches {launches}, expected {want}")
+        log(f"quality run ({name}, {opts or 'the port defaults'}): "
+            + ", ".join(f"{k} {res[k]} (JAX {ref[k]})" for k in keys)
+            + f"; stage-2.2 loss per root {res['stage22_per_root_loss']} (JAX "
+            f"{ref['stage22_per_root_loss']}); retrieval "
+            + ", ".join(f"object {d['object']}: leaves {d['selected_leaves']} composition "
+                        f"{d['composition']}" for d in res["retrieval_diagnostics"])
+            + f"; the most slots a step lost {res['slots_lost']}; {res['wall_s']} s in the "
+            f"run ({seconds:.1f} s with its writes), peak device memory "
+            f"{res['peak_device_mib']} MiB; launches {launches} [{card}]")
+        misses += quality_gates(name, res)
+        runs[name] = dict(res, seconds=seconds, launches=launches)
+    if max(r["text_retrieval_acc"] for r in runs.values()) < RETRIEVAL_BEST_MIN:
+        misses.append(f"quality runs: text retrieval below {RETRIEVAL_BEST_MIN} in every "
+                      "configuration")
+    again = [k for k in SCORED if runs[REPEAT][k] != runs[REPEAT + "'"][k]]
+    log(f"quality run ({REPEAT}) repeated: " + (f"differs in {again}" if again else
+                                                 "every scored figure equal"))
+    if again:
+        misses.append(f"quality run ({REPEAT}) does not repeat: {again} differ")
+    for m in misses:
+        log(f"FAILED: {m}")
+    return dict(runs=runs, misses=misses, k3s_err=k3s_err)
+
+
+def convergence_phase(root: str, dev, card: str) -> dict:
+    """tools/synthetic_convergence.run at its full size and the port's
+    defaults: the curve beside the JAX script's docstring, the wall seconds,
+    the run's own peak device memory, the launches against the schedule and
+    the gates. -> the result with its launches and misses."""
+    from opengaussian_tpu_torch.tools import synthetic, synthetic_convergence
+
+    wrappers = launch_counts()
+    for w in wrappers.values():
+        w.launches = 0
+    res = synthetic_convergence.run(device=dev, out=os.path.join(root, "convergence"))
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    want = convergence_launches(res, synthetic.CONVERGENCE_FULL)
+    curve = {c["iteration"]: c for c in res["curve"]}
+    misses = []
+    if launches != want:
+        misses.append(f"launches {launches}, expected {want}")
+    last = res["curve"][-1]
+    if last["psnr"] < CONVERGENCE_PSNR_MIN:
+        misses.append(f"PSNR {last['psnr']} at {last['iteration']} < {CONVERGENCE_PSNR_MIN}")
+    rising = [c["psnr"] for c in res["curve"] if c["iteration"] >= 1000]
+    if not all(a < b for a, b in zip(rising, rising[1:])):
+        misses.append(f"PSNR does not rise at each checkpoint from 1,000 on: {rising}")
+    if last["num_alive"] < CONVERGENCE_ALIVE_MIN:
+        misses.append(f"{last['num_alive']} splats alive < {CONVERGENCE_ALIVE_MIN}")
+    if res["slots_lost"] != 0:
+        misses.append(f"a step lost {res['slots_lost']} slots")
+    log("convergence run: test PSNR / L1 / alive by iteration "
+        + ", ".join(f"{k}: {c['psnr']} / {c['l1']} / {c['num_alive']}"
+                    + (f" (JAX {CONVERGENCE_REF[k]})" if k in CONVERGENCE_REF else "")
+                    for k, c in curve.items())
+        + f" (JAX 6381 alive at 4000); at {last['iteration']} held-out PSNR by view "
+        f"{res['test_psnr_by_view']}, training views' PSNR mean {res['train_psnr']} (least "
+        f"{res['train_psnr_min']}); {res['wall_s']} s, peak device memory "
+        f"{res['peak_device_mib']} MiB; launches {launches} [{card}]")
+    misses = [f"convergence run: {m}" for m in misses]
+    for m in misses:
+        log(f"FAILED: {m}")
+    return dict(res, launches=launches, misses=misses)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3800,10 +4106,11 @@ def main(argv=None) -> int:
         # events are timed from its own trained state
         runs = {"stream": RasterizeConfig(), "dense": RasterizeConfig(pallas_input="dense"),
                 "compact": RasterizeConfig(bwd_layout="compact")}
-        train_launches, s22_ms, leaf_ms, train_s = {}, {}, {}, {}
+        train_launches, s22_ms, leaf_ms, train_s, tr_peak = {}, {}, {}, {}, {}
         for run, rcfg in runs.items():
             tr_r, train_launches[run], out_r, train_s[run] = train_path(scene_dir, root, dev,
                                                                         run, rcfg)
+            tr_peak[run] = tr_r.peak_device_mib
             if run == "stream":
                 tr, out = tr_r, out_r
                 check_trained_render(out, scene_dir, dev)
@@ -3830,6 +4137,7 @@ def main(argv=None) -> int:
         tr_l, train_launches["lazy_refine"], out_l, _ = train_path(
             scene_dir, root, dev, "lazy_refine", RasterizeConfig(),
             ("--enable_multiview_sam_refinement", "--lazy_load"))
+        tr_peak["lazy_refine"] = tr_l.peak_device_mib
         l_s, l_r = float(tr.losses[0]), float(tr_l.losses[0])
         if not tr_l.save_memory or not math.isclose(l_r, l_s, rel_tol=1e-5):
             raise AssertionError(f"first loss: lazy_refine run {l_r!r}, stream {l_s!r}, "
@@ -3843,6 +4151,7 @@ def main(argv=None) -> int:
         # fixed budgets, frozen plans and captured blocks of steps
         tr_b, train_launches["blocked"], out_b, train_s["blocked"] = train_path(
             scene_dir, root, dev, "blocked", RasterizeConfig(), trainer=blocked_trainer)
+        tr_peak["blocked"] = tr_b.peak_device_mib
         blocked = check_blocked_run(tr_b, out_b, tr, out, train_s, card)
         # the refiner's fused path at the ScanNet shape
         refine = refine_phase(dev, card)
@@ -3928,6 +4237,16 @@ def main(argv=None) -> int:
                 f"K3 call: " + ", ".join(f"{x:.4f}" for x in turns) + f" ms; device time by "
                 f"torch.profiler: K3 {k3_dev:.4f} ms (kernel {k3_kernel:.4f}, the rest its "
                 f"zero fill), library {lib_dev:.4f} ms; plain {k3_plain:.4f} ms [{card}]")
+            # K3's deterministic entry on the same rows: the stable sort of
+            # the ids, the zero fill and the kernel
+            k3s = lambda: rk.segment_reduce_sorted(d_rows, ids, n)  # noqa: E731
+            s_turns = [cuda_ms(f, iters=50, warmup=5) for f in (k3s, k3, k3, k3s)]
+            k3s_dev = device_ms(k3s, 10)
+            k3s_kernel = device_ms(k3s, 10, "segment_reduce_sorted")
+            log(f"timing: segment_reduce_sorted on the same rows, in turns sorted call, K3 "
+                f"call, K3 call, sorted call: " + ", ".join(f"{x:.4f}" for x in s_turns)
+                + f" ms; device time by torch.profiler: {k3s_dev:.4f} ms (kernel "
+                f"{k3s_kernel:.4f}, the rest the sort and the zero fill) [{card}]")
             # K5 and K6 on the dense block of phase 3
             gdata, dcounts, dstart, dgauss, gx, _ = block
             T, K, F = gdata.shape
@@ -4020,7 +4339,8 @@ def main(argv=None) -> int:
         k3_b, k3_by = reduce_bound(d_rows, n, peak_flops, peak_bytes)
         log(f"bound: segment_reduce: {k3_b:.4f} ms/launch ({k3_by}), kernel (device time, "
             f"its zero fill included) at {k3_b / k3_dev:.3f} of it, the call at "
-            f"{k3_b / k3_ms:.3f} [{card}]")
+            f"{k3_b / k3_ms:.3f}; segment_reduce_sorted (device time, its sort and zero fill "
+            f"included) at {k3_b / k3s_dev:.3f} [{card}]")
         live = int(dcounts.sum())
         k5_b, k5_by = fwd_bound(f"blend_tiles_fwd C={F - 6}", live, F, T, 1,
                                 dense["work_fwd"], peak_flops, peak_bytes)
@@ -4037,7 +4357,7 @@ def main(argv=None) -> int:
         tuned = budgets_phase(tr, card)
         frozen = frozen_phase(tr, tuned, card)
         captured = captured_phase(tr, tuned, card)
-        groups = dense_groups_phase(tr, tr_b, chunk, card)
+        groups = dense_groups_phase(tr, tr_b, chunk, card, peak_flops, peak_bytes)
 
         # 9. tile windows, tile bands and the mesh at world size 1
         windows = windows_phase(tr, chunk, card)
@@ -4047,11 +4367,20 @@ def main(argv=None) -> int:
         # 10. the mesh trainer at world size 1 on NCCL
         meshtr = mesh_trainer_phase(scene_dir, root, dev, chunk, card)
 
+        # 11. the quality run in three configurations and the convergence run
+        del tr, tr_b
+        with deterministic():
+            quality = quality_phase(root, dev, card)
+            converge = convergence_phase(root, dev, card)
+        misses = quality["misses"] + converge["misses"]
+        if misses:
+            raise AssertionError("phase 11: " + "; ".join(misses))
+
     k1_b = [b for b, _ in k1_bound.values()]
 
-    def row(name, launches, err, ms, plain, bound, by, lib=None, line=None):
+    def row(name, launches, err, ms, plain, bound, by, lib=None, line=None, source=None):
         return {"name": name, "route": "cuda",
-                "source": f"opengaussian_tpu_torch/csrc/{name}.cu",
+                "source": f"opengaussian_tpu_torch/csrc/{source or name}.cu",
                 "replaces": f"opengaussian_tpu/ops/rasterize_pallas.py:{line}",
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by, "library_ms": lib}
@@ -4059,14 +4388,17 @@ def main(argv=None) -> int:
     main_paths = (render_launches, *train_launches.values(), *queries["launches"].values(),
                   refine["launches"], groups["launches"], windows["launches"],
                   bands["launches"], meshed["launches"], meshtr["launches"],
-                  meshtr["hold_launches"])
+                  meshtr["hold_launches"], *(r["launches"] for r in quality["runs"].values()),
+                  converge["launches"])
     total = {k: sum(p[k] for p in main_paths) for k in render_launches}
     log(f"launches on the main paths: render {render_launches}, "
         + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()) + ", "
         + ", ".join(f"{q} {v}" for q, v in queries["launches"].items())
         + f", refiner {refine['launches']}, dense groups {groups['launches']}, windows "
         f"{windows['launches']}, bands {bands['launches']}, mesh {meshed['launches']}, "
-        f"mesh trainer {meshtr['launches']}, its sharded holds {meshtr['hold_launches']}")
+        f"mesh trainer {meshtr['launches']}, its sharded holds {meshtr['hold_launches']}, "
+        + ", ".join(f"quality run ({n}) {r['launches']}" for n, r in quality["runs"].items())
+        + f", convergence run {converge['launches']}")
     for k, kname, render_dev in (("k1", "K1", k1_dev), ("k2", "K2", {4: k2_dev}),
                                  ("k4", "K4", {4: k4_dev}), ("k6", "K6", {7: k6_dev})):
         t = train[k]
@@ -4103,6 +4435,9 @@ def main(argv=None) -> int:
             f"share {r['eager'][2]:.3f} / {r['captured'][2]:.3f}, kernels per step "
             f"{r['eager'][3]} / {r['captured'][3]}, captured against eager {r['err']:.1e} "
             f"[{card}]")
+    log("summary: dense groups: group entries' bounds (forward / backward) "
+        + ", ".join(f"G = {G} {f[0]:.4f} ({f[1]}) / {b[0]:.4f} ms ({b[1]})"
+                    for G, (f, b) in groups["bounds"].items()) + f" [{card}]")
     log(f"summary: dense groups: group entries bit for bit at G = 1, 5; sweep 2 / stage 3 "
         f"ms per view stream {leaf_ms['stream']['sweep2']:.3f} / "
         f"{leaf_ms['stream']['stage3']:.3f}, dense layout {leaf_ms['dense']['sweep2']:.3f} / "
@@ -4140,6 +4475,20 @@ def main(argv=None) -> int:
         + "; view 0 ms single / sharded "
         + ", ".join(f"{k} {(v[0] + v[3]) / 2:.3f} / {(v[1] + v[2]) / 2:.3f}"
                     for k, v in meshtr["sweep_t"].items()) + f" [{card}]")
+    log(f"summary: peak device memory of training (phase 5, each run's own, 80 iterations at "
+        f"{WIDTH}x{HEIGHT} from {N_SPLATS} points) stream {tr_peak['stream']:.1f} MiB, "
+        + ", ".join(f"{k} {v:.1f}" for k, v in tr_peak.items() if k != "stream")
+        + f" MiB [{card}]")
+    log("summary: quality runs (320x240, 2,600 iterations; JAX: QUALITY_r05.json) "
+        + "; ".join(f"({n}) stage-0 PSNR {r['stage0_psnr']}, purity "
+                    f"{r['root_cluster_purity']} / {r['leaf_cluster_purity']}, retrieval "
+                    f"{r['text_retrieval_acc']}, mIoU {r['text_query_miou']}, alive "
+                    f"{r['num_alive']}, {r['wall_s']} s, peak {r['peak_device_mib']} MiB"
+                    for n, r in quality["runs"].items())
+        + "; convergence (640x480) PSNR by iteration "
+        + ", ".join(f"{c['iteration']}: {c['psnr']}" for c in converge["curve"])
+        + f", alive {converge['curve'][-1]['num_alive']}, {converge['wall_s']} s, peak "
+        f"{converge['peak_device_mib']} MiB [{card}]")
     kernels = [
         row("blend_stream_fwd", total["blend_stream_fwd"],
             max(k1_err, train["k1"]["err"], refine["k1_err"], windows["k1_err"]),
@@ -4155,6 +4504,9 @@ def main(argv=None) -> int:
         row("segment_reduce", total["segment_reduce"],
             max(grad["k3_err"], dense["k3_err"], compact["k43_err"], windows["k3_err"]),
             k3_dev, k3_plain, k3_b, k3_by, lib=lib_dev, line=1196),
+        row("segment_reduce_sorted", total["segment_reduce_sorted"],
+            max(grad["k3s_err"], quality["k3s_err"]), k3s_dev, k3_plain, k3_b, k3_by,
+            lib=lib_dev, line=1196, source="segment_reduce"),
         row("blend_tiles_fwd", total["blend_tiles_fwd"] + total["blend_tiles_fwd_groups"],
             max(dense["k5_err"], *groups["errs"].values(), meshtr["k5_offset_err"]), k5_ms,
             k5_plain, k5_b, k5_by,

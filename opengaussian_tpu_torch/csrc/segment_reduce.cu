@@ -31,6 +31,16 @@
 //     of slots that no pixel composited cost their read and no atomic.
 // Atomic order changes from run to run, so the sums agree with the plain
 // version (index_add_) to rounding, not bit for bit.
+//
+// The sorted entry (og_segment_reduce_sorted) is the deterministic order,
+// taken under torch.use_deterministic_algorithms: the caller sorts the ids
+// stably, as the JAX package sorts its rows by id before its kernel, and
+// one thread per segment of equal ids sums that segment's rows, gathered
+// through the sort's permutation, in row order from 0 and writes the sum
+// once. The sums repeat bit for bit from run to run and equal the CPU's
+// index_add_, which adds the rows in the same order. A long segment (a
+// splat over many tiles) runs serially in its thread; the sort and the
+// gathered reads make it slower than the atomic entry.
 // Left for later work: a warp-level pre-sum of neighbouring rows that share
 // an id (the stream keeps a splat's slots of one tile apart, so few do).
 //
@@ -124,6 +134,37 @@ segment_reduce_scalar(const float* __restrict__ rows,
   }
 }
 
+// keys: the ids sorted stably, order: the row of each sorted position. The
+// thread at the head of a run of equal keys in [0, n) sums the run's rows
+// in sorted (= row) order and writes out[key]; other ids keep the fill.
+__global__ void __launch_bounds__(kThreads)
+segment_reduce_sorted(const float* __restrict__ rows,
+                      const int* __restrict__ keys,
+                      const int64_t* __restrict__ order, int n_rows,
+                      int n_fields, int n, float* __restrict__ out) {
+  for (unsigned p = blockIdx.x * kThreads + threadIdx.x;
+       p < static_cast<unsigned>(n_rows); p += gridDim.x * kThreads) {
+    const int id = keys[p];
+    if (static_cast<unsigned>(id) >= static_cast<unsigned>(n)) continue;
+    if (p > 0 && keys[p - 1] == id) continue;  // not the head of its run
+    float* dst = out + static_cast<size_t>(id) * n_fields;
+    for (int j = 0; j < n_fields; j += kPiece) {
+      float acc[kPiece];
+#pragma unroll
+      for (int q = 0; q < kPiece; ++q) acc[q] = 0.0f;
+      for (unsigned r = p; r < static_cast<unsigned>(n_rows) && keys[r] == id; ++r) {
+        const float* src = rows + static_cast<size_t>(order[r]) * n_fields + j;
+#pragma unroll
+        for (int q = 0; q < kPiece; ++q)
+          if (j + q < n_fields) acc[q] += src[q];
+      }
+#pragma unroll
+      for (int q = 0; q < kPiece; ++q)
+        if (j + q < n_fields) dst[j + q] = acc[q];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -150,6 +191,28 @@ int og_segment_reduce(const float* rows, const int* ids, int n_rows,
     else
       segment_reduce_scalar<<<blocks, kThreads, 0, s>>>(rows, ids, n_rows,
                                                         n_fields, n, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The deterministic order: zero-fills out [n, n_fields] and writes each
+// id's sum of its rows in row order, both on `stream`. keys [n_rows] are the
+// ids sorted stably and order [n_rows] the row of each sorted position;
+// returns the first CUDA error (0 on success).
+int og_segment_reduce_sorted(const float* rows, const int* keys,
+                             const int64_t* order, int n_rows, int n_fields,
+                             int n, float* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > 0 && n_fields > 0) {
+    const cudaError_t err = cudaMemsetAsync(
+        out, 0, static_cast<size_t>(n) * n_fields * sizeof(float), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (n_rows > 0 && n > 0 && n_fields > 0) {
+    const int want = n_rows / kThreads + (n_rows % kThreads != 0);
+    const int blocks = want < kMaxBlocks ? want : kMaxBlocks;
+    segment_reduce_sorted<<<blocks, kThreads, 0, s>>>(rows, keys, order, n_rows,
+                                                      n_fields, n, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

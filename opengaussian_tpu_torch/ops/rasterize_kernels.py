@@ -11,7 +11,11 @@
     counterpart of `blend_stream_pallas_bwd_compact`: the same replay, its
     rows written at chunk-compacted offsets beside their splat ids.
   * `segment_reduce` (csrc/segment_reduce.cu) is the counterpart of
-    `sorted_segment_reduce`: the per-splat sum of those rows.
+    `sorted_segment_reduce`: the per-splat sum of those rows, in atomic
+    order; under `torch.use_deterministic_algorithms` it hands the rows to
+    `segment_reduce_sorted`, the same source's deterministic entry, which
+    sorts the ids as the JAX package does and sums each id's rows in row
+    order.
   * `blend_tiles_fwd` (csrc/blend_tiles_fwd.cu) and `blend_tiles_bwd`
     (csrc/blend_tiles_bwd.cu) are the counterparts of `blend_tiles_pallas_fwd`
     and `blend_tiles_pallas_bwd`: the same blend and replay over a dense
@@ -75,6 +79,7 @@ _ENTRIES = {
                                     [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
                                      _p, _p, _p, _p, _p, _p, _p]),
     "og_segment_reduce": ("segment_reduce", [_p, _p, _i, _i, _i, _p, _p]),
+    "og_segment_reduce_sorted": ("segment_reduce", [_p, _p, _p, _i, _i, _i, _p, _p]),
     "og_blend_tiles_fwd": ("blend_tiles_fwd", [_p, _i, _i, _i, _p, _i, _i, _i, _p, _p,
                                                _p]),
     "og_blend_tiles_bwd": ("blend_tiles_bwd", [_p, _i, _i, _i, _p, _p, _i, _i, _i,
@@ -661,13 +666,16 @@ def segment_reduce(rows, ids, n: int):
     outside [0, n) are dropped.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel, whose
-    atomic adds sum in an order that changes from run to run.
-    `segment_reduce.launches` counts kernel launches."""
+    atomic adds sum in an order that changes from run to run, or, while
+    torch.are_deterministic_algorithms_enabled(), `segment_reduce_sorted`.
+    `segment_reduce.launches` counts the atomic kernel's launches."""
     dev = rows.device
     if dev.type == "cpu":
         return segment_reduce_plain(rows, ids, n)
     if dev.type != "cuda":
         raise ValueError(f"segment_reduce runs on cpu or cuda, not {dev}")
+    if torch.are_deterministic_algorithms_enabled():
+        return segment_reduce_sorted(rows, ids, n)
     _check_reduce(rows, ids, n)
     R, F = rows.shape
     # the C entry zero-fills out on the stream before it adds the rows
@@ -681,6 +689,32 @@ def segment_reduce(rows, ids, n: int):
 
 
 segment_reduce.launches = 0
+
+
+def segment_reduce_sorted(rows, ids, n: int):
+    """`segment_reduce` in a fixed order: the ids sorted stably, then one
+    thread per id sums its rows in row order. The sums repeat bit for bit
+    and equal the plain version's on the CPU. Arguments and output as for
+    `segment_reduce`; CPU tensors run the plain version.
+    `segment_reduce_sorted.launches` counts kernel launches."""
+    dev = rows.device
+    if dev.type == "cpu":
+        return segment_reduce_plain(rows, ids, n)
+    if dev.type != "cuda":
+        raise ValueError(f"segment_reduce_sorted runs on cpu or cuda, not {dev}")
+    _check_reduce(rows, ids, n)
+    R, F = rows.shape
+    out = torch.empty((n, F), dtype=torch.float32, device=dev)
+    if R == 0 or n * F == 0:
+        return out.zero_()
+    keys, order = torch.sort(ids, stable=True)
+    _launch("og_segment_reduce_sorted", dev, rows.data_ptr(), keys.data_ptr(),
+            order.data_ptr(), R, F, n, out.data_ptr())
+    segment_reduce_sorted.launches += 1
+    return out
+
+
+segment_reduce_sorted.launches = 0
 
 
 def _check_dense(gdata, counts, chunk: int) -> None:
@@ -990,5 +1024,5 @@ blend_tiles_bwd_groups.launches = 0
 # every kernel wrapper, with its launch counter (a captured training step
 # adds its launches to these on each replay)
 KERNEL_WRAPPERS = (blend_stream_fwd, blend_stream_bwd, blend_stream_bwd_compact,
-                   segment_reduce, blend_tiles_fwd, blend_tiles_bwd,
+                   segment_reduce, segment_reduce_sorted, blend_tiles_fwd, blend_tiles_bwd,
                    blend_tiles_fwd_groups, blend_tiles_bwd_groups)

@@ -530,6 +530,9 @@ class Trainer:
         self._captured: dict[str, _CapturedStep] = {}  # by stage, CUDA only
         self._view_queue: list[int] = []
         self._last_lost: torch.Tensor | None = None
+        # the most slots any step (or block) has lost, logged or not: a 0-d
+        # device tensor, updated without a sync (None before the first step)
+        self.lost_max: torch.Tensor | None = None
         self._last_view = 0
         self.losses: list[torch.Tensor] = []  # every step's loss, on the device
         self.history: list[dict] = []
@@ -967,6 +970,8 @@ class Trainer:
                 self.losses.append(loss)
             it = it + n - 1
             self.iteration = it
+            self.lost_max = (self._last_lost if self.lost_max is None
+                             else torch.maximum(self.lost_max, self._last_lost))
             self._post_events(it, stage)
             if self.save_intermediate and it % observe.dump_frequency(stage) == 0:
                 observe.dump_intermediate(self, it, stage, self._last_view)

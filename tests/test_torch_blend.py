@@ -40,6 +40,7 @@ from opengaussian_tpu_torch.ops.rasterize_kernels import (
     blend_stream_fwd_plain,
     segment_reduce,
     segment_reduce_plain,
+    segment_reduce_sorted,
     slot_box_plain,
 )
 from tests.test_torch_gpu import CHUNK, GRID_X, make_bwd_stream, make_stream
@@ -218,6 +219,40 @@ def test_plain_reduce_matches_pallas(R, n):
     assert got.shape == (n, 11)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
     assert (ids == n).any()
+
+
+def sorted_reduce_model(rows: np.ndarray, ids: np.ndarray, n: int) -> np.ndarray:
+    """K3's deterministic entry (csrc/segment_reduce.cu:segment_reduce_sorted)
+    in numpy: the ids sorted stably, each run of one id in [0, n) summed in
+    sorted order from 0 in float32."""
+    order = np.argsort(ids, kind="stable")
+    out = np.zeros((n, rows.shape[1]), np.float32)
+    for p, r in enumerate(order):
+        i = ids[r]
+        if 0 <= i < n:
+            acc = rows[r] if p == 0 or ids[order[p - 1]] != i else acc + rows[r]
+            out[i] = acc
+    return out
+
+
+@pytest.mark.parametrize("R,n", [(3000, 700), (5000, WSEG * 2), (2000, 33)])
+def test_sorted_reduce_order_is_the_plain_order(R, n):
+    """The deterministic entry's order (a stable sort, then each id's rows
+    in sorted order) is the row order in which the plain version adds on
+    the CPU, so the two agree bit for bit; both within K3's tolerance of
+    the JAX kernel. The wrapper runs the plain version on the CPU."""
+    rng = np.random.default_rng(7)
+    rows = rng.normal(0, 1, (R, 10)).astype(np.float32)
+    ids = rng.integers(-3, n + 3, R).astype(np.int32)
+    ids[rng.uniform(size=R) < 0.1] = n // 2  # one long run
+    got = sorted_reduce_model(rows, ids, n)
+    plain = segment_reduce_plain(torch.as_tensor(rows), torch.as_tensor(ids), n)
+    np.testing.assert_array_equal(got, plain.numpy())
+    assert torch.equal(segment_reduce_sorted(torch.as_tensor(rows), torch.as_tensor(ids), n),
+                       plain)
+    keep = (ids >= 0) & (ids < n)
+    want = np.asarray(sorted_segment_reduce(jnp.asarray(rows[keep]), jnp.asarray(ids[keep]), n))
+    np.testing.assert_allclose(got, want, atol=1e-4)
 
 
 def test_reduce_wrapper_validates_inputs():

@@ -36,6 +36,7 @@ from opengaussian_tpu_torch.ops.rasterize_kernels import (
     compact_rows,
     segment_reduce,
     segment_reduce_plain,
+    segment_reduce_sorted,
 )
 
 GRID_X, GRID_Y = 4, 3
@@ -476,6 +477,38 @@ def test_reduce_kernel_matches_plain(cuda, F, aligned):
     assert segment_reduce.launches == before + 1
     torch.testing.assert_close(out, segment_reduce_plain(rows, ids, n),
                                atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("F", [10, 13])
+def test_sorted_reduce_is_bit_for_bit_and_reproducible(cuda, F):
+    """K3's deterministic entry: the same sums, bit for bit, as the plain
+    version on the CPU (index_add_ in row order), on every launch; ids
+    outside [0, n) dropped, long runs of one id (a splat over many tiles)
+    included; `segment_reduce` takes it under deterministic algorithms."""
+    rng = np.random.default_rng(6)
+    R, n = 60_000, 3000
+    x = rng.normal(0, 1, (R, F)).astype(np.float32)
+    x[rng.uniform(size=R) < 0.5] = 0.0
+    ids_np = rng.integers(-5, n + 5, R).astype(np.int32)
+    ids_np[rng.uniform(size=R) < 0.05] = 17  # one id over 3,000 rows
+    ids_np[:4] = [-(2**31), 2**31 - 1, n, -1]
+    rows, ids = torch.as_tensor(x), torch.as_tensor(ids_np)
+    want = segment_reduce_plain(rows, ids, n)
+    poison = torch.full((n, F), float("nan"), device=cuda)
+    del poison
+    before = (segment_reduce.launches, segment_reduce_sorted.launches)
+    got = [segment_reduce_sorted(rows.to(cuda), ids.to(cuda), n) for _ in range(2)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        got.append(segment_reduce(rows.to(cuda), ids.to(cuda), n))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    assert (segment_reduce.launches, segment_reduce_sorted.launches) == (before[0],
+                                                                          before[1] + 3)
+    for g in got:
+        assert torch.equal(g.cpu(), want)
 
 
 @pytest.mark.gpu

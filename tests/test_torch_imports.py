@@ -29,7 +29,8 @@ def test_port_imports_no_jax():
                   "viewer.network_gui", "refine.sam_refiner", "refine.introspect",
                   "cli.vis_refinement", "data.lazy", "ops.budget", "parallel.mesh",
                   "parallel.distributed", "parallel.render", "parallel.steps",
-                  "parallel.kmeans", "parallel.sweeps", "parallel.refine"):
+                  "parallel.kmeans", "parallel.sweeps", "parallel.refine",
+                  "tools.synthetic", "tools.quality_run", "tools.synthetic_convergence"):
             assert "opengaussian_tpu_torch." + m in names, m
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

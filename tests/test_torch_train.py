@@ -208,3 +208,31 @@ def test_trainer_never_truncates_a_tile(tmp_path):
     assert 32 < small.rcfg.max_per_tile < 1024 and big.rcfg.max_per_tile == 1024
     assert int(small._last_lost) == 0
     assert [r["loss"] for r in small.history] == [r["loss"] for r in big.history]
+
+
+def test_trainer_counts_slots_lost_in_every_step(tmp_path):
+    """`Trainer.lost_max` is the most slots any step lost, logged or not:
+    with the cap cut below the deepest tile after the probe and only the
+    last step logged, it equals the most that the steps, read one by one,
+    lost."""
+    root = str(tmp_path / "scene")
+    make_colmap_scene(root, n_views=3, with_sidecars=False)
+    tr = tloop.Trainer(tdataset.load_scene(root), TConfig(opt=TOpt(iterations=4)),
+                       str(tmp_path / "out"), rcfg=TRaster(max_per_tile=1024, chunk=32),
+                       device="cpu")
+    tr.save_intermediate = False
+    tr._tune_budgets()
+    tr.rcfg = TRaster(max_per_tile=32, chunk=32)
+    per_step, run_single = [], tr._run_single
+
+    def spy(it, stage):
+        loss = run_single(it, stage)
+        per_step.append(int(tr._last_lost))
+        return loss
+
+    tr._run_single = spy
+    assert tr.lost_max is None
+    tr.train(until=4, log_every=10 ** 9)
+    assert len(per_step) == 4 and [r["iteration"] for r in tr.history] == [4]
+    assert max(per_step) > 0
+    assert int(tr.lost_max) == max(per_step)
