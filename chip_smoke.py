@@ -16,8 +16,11 @@ Phases, in order; any failure exits non-zero:
      C = 7 (features + depth), bit for bit; the backward replay K2, the
      compact backward K4 (both bit for bit) and the per-splat reduce K3 on
      the C = 4 stream, with the cotangents of an L1 + SSIM loss against the
-     view's image (K3's deterministic entry bit for bit against the plain
-     version on the CPU, and with itself from launch to launch), K4 again on the same stream made of flat opaque splats
+     view's image (K3's atomic entry to its tolerance; its permutation
+     entry, the default, and its sorted entry bit for bit against the plain
+     versions on the CPU, with each other and with themselves from launch
+     to launch; the permutation entry also on the training frame and the
+     windowed one), K4 again on the same stream made of flat opaque splats
      (every tile stops after one chunk), K4 + K3 against K2 + K3 per splat,
      and K4 + K3 under torch.cuda.set_sync_debug_mode("error") (no host
      sync). The dense layout's forward K5 and its backward K6 (both bit for
@@ -51,9 +54,11 @@ Phases, in order; any failure exits non-zero:
      finite and the stage-0 loss falls, that the geometry is bit for bit the
      same in the PLYs saved at iterations 40 and 80 while ins_feat moved,
      the root and leaf codebooks and cluster_lang.npz, that the checkpoint
-     reloads bit for bit, and that `cli.render` renders the saved PLY. The
-     same schedule runs with RasterizeConfig(pallas_input="dense") (K5, K6,
-     K3), with bwd_layout="compact" (K1, K4, K3) and, fourth, with
+     reloads bit for bit, and that `cli.render` renders the saved PLY; K3
+     launches its permutation entry, never its atomic one. The same
+     schedule runs with RasterizeConfig(pallas_input="dense",
+     reduce_backend="scatter") (K5, K6, K3's atomic entry), with
+     bwd_layout="compact" (K1, K4, K3) and, fourth, with
      --enable_multiview_sam_refinement --lazy_load (host-resident views
      decoded from disk per step; the refiner, traced, before step 41: one
      more K1 launch per view; the bundle's SAM ids rewritten); their first
@@ -89,7 +94,9 @@ Phases, in order; any failure exits non-zero:
      render_selection alone, LPIPS per full-width view and a viewer frame.
   7. timings (CUDA events after warm-up), each line with the card's name:
      each kernel against its plain version and its bound, K3's call and
-     device time in turns with its index_add_ yardstick, K2 + K3 against
+     device time in turns with its index_add_ yardstick, its permutation,
+     atomic and sorted entries and the library in turns on the render and
+     training frames, K2 + K3 against
      K4 + K3 on the C = 4 frame and K2 + K3, K4 + K3 and K6 + K3 on the
      C = 7 frame, in turns, K1, K2, K4 and K6 on the training frame (the
      stage-1 step's feature pass from the trained state, each held bit for
@@ -126,7 +133,8 @@ Phases, in order; any failure exits non-zero:
      under it, S, Tv, the live and dead windows, nothing truncated or
      dropped, K1, K2 and K4 bit for bit with their plain versions on the
      virtual tiles (the dead windows start over NaN rows), K3 over K2's
-     rows, the folded tiles within T_EPS_TOL of the unwindowed ones; in
+     rows (its permutation entry bit for bit: every row stays at its stream
+     position), the folded tiles within T_EPS_TOL of the unwindowed ones; in
      turns windowed and unwindowed, K1, K2 and K4 device time, the deepest
      walk alone, the fold, and a stage-1 step eager and captured through
      each config's frozen plans (the captured windowed step against the
@@ -169,15 +177,15 @@ Phases, in order; any failure exits non-zero:
      0.5 in each configuration and >= 0.75 in one, some root's stage-2.2
      loss positive and falling, no slot lost in any step; the convergence
      PSNR >= 38.0 at 4,000, rising at each checkpoint from 1,000 on, and at
-     least 4,000 splats alive at the end. The phase runs under
-     torch.use_deterministic_algorithms (cuBLAS's workspace fixed by
-     CUBLAS_WORKSPACE_CONFIG, set at the top of this script), so K3 takes
-     its sorted entry and every run repeats bit for bit: configuration (c)
-     runs a second time and must score the same, figure for figure. Before
-     that, K2 and K3's sorted entry on the quality run's first stage-0 step
-     against their plain versions. Under K3's atomic order the runs forked
-     from call to call and the gates missed about one call in 5 (PERF.md
-     §6). Phase 5 logs each training run's own peak device memory.
+     least 4,000 splats alive at the end. The phase runs in torch's default
+     mode, where K3 sums in the binning's fixed order (its permutation
+     entry) and the refiner's votes in row order: configurations (a) and
+     (c) and the convergence run each run a second time and must score the
+     same, figure for figure. Before that, K2 and K3's entries on the
+     quality run's first stage-0 step against their plain versions. Under
+     K3's atomic order the runs forked from call to call and the gates
+     missed about one call in 5 (PERF.md §6). Phase 5 logs each training
+     run's own peak device memory.
 Then a JSON line of per-kernel numbers (K5's and K6's rows count their
 group entries' launches and errors), the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}.
@@ -185,7 +193,6 @@ result line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import math
@@ -197,11 +204,7 @@ import time
 
 import numpy as np
 
-# cuBLAS's fixed workspace, which phase 11's deterministic algorithms need;
-# it is read when CUDA starts
-os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-
-import torch  # noqa: E402
+import torch
 
 WIDTH, HEIGHT = 1296, 968
 N_SPLATS = 200_000
@@ -343,7 +346,7 @@ def frame_streams(camera, state, rcfg=None):
     """The blend inputs of one view's two render passes, built by the
     render path's own _prepare and gather_rows (rcfg: the rasterizer's
     settings, RasterizeConfig() by default; under tile windows toff holds
-    each virtual tile's real tile):
+    each virtual tile's real tile; the bins carry the reduce's order):
     {C: (rows, counts, tstart, toff, grid_x, bins, proj)}."""
     from opengaussian_tpu_torch.ops.projection import build_cov3d
     from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, _prepare, gather_rows
@@ -357,7 +360,7 @@ def frame_streams(camera, state, rcfg=None):
     out = {}
     for payload in (rgb, feat):
         proj, bins, (gx, _) = _prepare(camera, state.means, cov3d, state.opacity,
-                                       rcfg or RasterizeConfig())
+                                       rcfg or RasterizeConfig(), reduce_order=True)
         opac = torch.where(proj.valid, state.opacity, 0.0)
         rows = gather_rows(proj.mean2d, proj.conic, opac,
                            torch.cat([payload, proj.depth[:, None]], dim=-1),
@@ -430,9 +433,9 @@ def loss_cotangents(camera, grids, stream, chunk, gt):
 
 
 def check_grad_kernels(stream, cot, chunk: int, n: int) -> dict:
-    """blend_stream_bwd (K2) and segment_reduce (K3) against their plain
+    """blend_stream_bwd (K2) and K3's three entries against their plain
     versions on the card, on one frame's stream and loss cotangents.
-    -> {"k2_err", "k3_err", "work", "d_rows"}."""
+    -> {"k2_err", "k3_err", "k3s_err", "k3p_err", "work", "d_rows"}."""
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 
     rows, counts, tstart, toff, gx, bins, _ = stream
@@ -449,7 +452,7 @@ def check_grad_kernels(stream, cot, chunk: int, n: int) -> dict:
     per_p = rk.segment_reduce_plain(d_p, bins.sorted_gauss, n)
     k3 = compare("segment_reduce per-splat", per, per_p, grad_atol(per_p),
                  GRAD_TOL["rtol"])
-    # K3's deterministic entry: bit for bit with the plain version on the
+    # K3's sorted entry: bit for bit with the plain version on the
     # CPU, which adds each splat's rows in the same (row) order, and with
     # itself from launch to launch
     sums = [rk.segment_reduce_sorted(d_p, bins.sorted_gauss, n) for _ in range(2)]
@@ -459,7 +462,37 @@ def check_grad_kernels(stream, cot, chunk: int, n: int) -> dict:
                   sums[0].cpu(), cpu, 0.0, 0.0)
     if not torch.equal(sums[0], sums[1]):
         raise AssertionError("segment_reduce_sorted: two launches differ")
-    return dict(k2_err=k2, k3_err=k3, k3s_err=k3s, work=work, d_rows=d_p)
+    k3p = hold_perm_reduce(d_p, bins, n, "render frame", sums[0])
+    return dict(k2_err=k2, k3_err=k3, k3s_err=k3s, k3p_err=k3p, work=work, d_rows=d_p)
+
+
+def hold_perm_reduce(d_rows, bins, n: int, what: str, by_sort=None) -> float:
+    """K3's permutation entry (the default backend's) on K2's rows of a
+    binned frame, in the binning's order (bins.slot_pos, splat_end): bit for
+    bit with its plain version and the atomic entry's on the CPU, with the
+    sorted entry on the card (by_sort, else launched here), and with itself
+    from launch to launch. -> the max abs error against the plain version."""
+    from opengaussian_tpu_torch.ops import rasterize_kernels as rk
+
+    order = (bins.slot_pos, bins.splat_end)
+    sums = [rk.segment_reduce_perm(d_rows, *order, n) for _ in range(2)]
+    if by_sort is None:
+        by_sort = rk.segment_reduce_sorted(d_rows, bins.sorted_gauss, n)
+    torch.cuda.synchronize()
+    cpu = [x.cpu() for x in (d_rows, bins.sorted_gauss, *order)]
+    plain = rk.segment_reduce_perm_plain(cpu[0], *cpu[2:], n)
+    err = compare(f"segment_reduce_perm per-splat, {what} (plain version on the CPU)",
+                  sums[0].cpu(), plain, 0.0, 0.0)
+    if not torch.equal(plain, rk.segment_reduce_plain(cpu[0], cpu[1], n)):
+        raise AssertionError(f"segment_reduce_perm, {what}: the plain version's sums are not "
+                             "the atomic entry's plain version's")
+    if not (torch.equal(sums[0], sums[1]) and torch.equal(sums[0], by_sort)):
+        raise AssertionError(f"segment_reduce_perm, {what}: two launches differ, or it "
+                             "differs from the sorted entry")
+    log(f"segment_reduce_perm, {what}: {d_rows.shape[0]} rows x {d_rows.shape[1]} into {n} "
+        f"splats bit for bit with the plain version on the CPU and the sorted entry, the "
+        f"same in two launches")
+    return err
 
 
 def check_against_oracle(dev):
@@ -1044,7 +1077,8 @@ def check_refiner_against_cpu(dev, layout: str = "stream") -> dict:
     """On refiner_two_blobs' scene, the SAM refiner on the card against the
     same on the CPU: each view's votes (splat_id_votes on the CPU's depth
     map) and its stage-2 weights on seeded inputs to a normalised 1e-5 (the
-    card's index_add_ sums in atomic order), the visibility equal, and
+    card's matrix products round otherwise), the votes the same from call
+    to call (their scatter in K3's sorted order), the visibility equal, and
     refine_sam_masks' refined masks equal, with one depth render per view
     through the layout's forward kernel (K1, or K5 for "dense").
     -> {"votes", "weights"}: the largest normalised errors."""
@@ -1066,6 +1100,10 @@ def check_refiner_against_cpu(dev, layout: str = "stream") -> dict:
         vc, visc = sr.splat_id_votes(st, cam, torch.as_tensor(sam[v]), depth, M, cfg)
         vg, visg = sr.splat_id_votes(st_g, cam, torch.as_tensor(sam[v], device=dev),
                                      depth.to(dev), M, cfg)
+        vg2, _ = sr.splat_id_votes(st_g, cam, torch.as_tensor(sam[v], device=dev),
+                                   depth.to(dev), M, cfg)
+        if not torch.equal(vg, vg2):
+            raise AssertionError(f"refiner view {v}: the card's votes differ from call to call")
         if not torch.equal(visg.cpu(), visc):
             raise AssertionError(f"refiner view {v}: visibility differs on the card")
         gid = torch.as_tensor(np.where(st.alive.numpy(), rng.integers(0, M + 3, 128), 0))
@@ -1083,7 +1121,8 @@ def check_refiner_against_cpu(dev, layout: str = "stream") -> dict:
     wrappers = zero_launches()
     got = sr.refine_sam_masks(st_g, cams, sam, cfg, anchor_stride=1)
     fwd = {"blend_tiles_fwd": len(cams)} if layout == "dense" else {}
-    read_launches(wrappers, 0 if fwd else len(cams), f"refiner, {layout} layout", **fwd)
+    read_launches(wrappers, 0 if fwd else len(cams), f"refiner, {layout} layout",
+                  segment_reduce_sorted=vote_launches(len(cams), cfg), **fwd)
     want = sr.refine_sam_masks(st, cams, sam, cfg, anchor_stride=1)
     if not np.array_equal(got, want) or not (want > 0).any():
         raise AssertionError(f"refiner, {layout} layout: the card's refined masks differ "
@@ -1154,7 +1193,8 @@ def refine_phase(dev, card: str) -> dict:
     card) at tools/refine_bench.py's shape, through refine_sam_masks, the
     function the trainer calls. max_per_tile is fitted to the deepest tile of
     the refiner's own binning (no opacities: the 3-sigma rect), so no slot
-    is truncated. Checks exactly one K1 launch per view and no other kernel,
+    is truncated. Checks exactly one K1 launch per view, the votes'
+    scatters (`vote_launches`) and no other kernel,
     K1 bit for bit with its plain version on view 0's depth stream (C = 2),
     and refined ids in [-1, n_gids]; logs the phase seconds, n_gids, the
     void fraction, the peak device memory, and the device time of one
@@ -1206,7 +1246,8 @@ def refine_phase(dev, card: str) -> dict:
         total = time.perf_counter() - t0
         peak_abs = torch.cuda.max_memory_allocated()
         peak = peak_abs - base
-        launches = read_launches(wrappers, REFINE_VIEWS, "refiner phase")
+        launches = read_launches(wrappers, REFINE_VIEWS, "refiner phase",
+                                 segment_reduce_sorted=vote_launches(REFINE_VIEWS, rcfg))
     finally:
         sr.pixel_weight_expand = expand
     n_gids = first["args"][6]
@@ -1282,8 +1323,9 @@ def device_ms(fn, n: int, *names: str) -> float:
     of their wrapper. Each name's time is its mean over the launches the
     profiler recorded (it can miss one of a window, and now and then a
     whole window, which is then profiled again, up to 3 times), times its
-    launches per call. With no names, every device event of the window, per
-    call."""
+    launches per call. With no names, every kernel the calls launch, each
+    by its own name in the same way (a plain sum of the recorded events
+    would drop the launches the profiler missed)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -1293,19 +1335,24 @@ def device_ms(fn, n: int, *names: str) -> float:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if all(any(name in e.name for e in events) for name in names):
+        if events and all(any(name in e.name for e in events) for name in names):
             break
-        log(f"profile: a window of {n} calls recorded none of {names}; profiling again")
-    if not names:
-        return sum(e.time_range.end - e.time_range.start for e in events) / 1e3 / n
+        log(f"profile: a window of {n} calls recorded none of {names or 'its kernels'}; "
+            "profiling again")
+    if names:
+        groups = {name: [e for e in events if name in e.name] for name in names}
+    else:
+        groups = {}
+        for e in events:
+            groups.setdefault(e.name, []).append(e)
     total = 0.0
-    for name in names:
-        us = [e.time_range.end - e.time_range.start for e in events if name in e.name]
+    for name, evs in groups.items():
+        us = [e.time_range.end - e.time_range.start for e in evs]
         if not us:
             raise AssertionError(f"the profiler recorded no {name}")
         per_call = max(1, round(len(us) / n))
         if len(us) != per_call * n:
-            log(f"profile: {len(us)} {name} launches recorded of {n} calls")
+            log(f"profile: {len(us)} {name[:60]} launches recorded of {n} calls")
         total += sum(us) / len(us) * per_call / 1e3
     return total
 
@@ -1356,11 +1403,65 @@ def reduce_bound(d_rows, n, peak_flops, peak_bytes) -> tuple[float, str]:
                     peak_flops, peak_bytes)
 
 
+def time_reduce(d_rows, bins, n: int, what: str, card: str, peak_flops,
+                peak_bytes) -> dict:
+    """K3's entries on one frame's K2 rows [P, F] (bins: the frame's, with
+    the reduce's order), in turns: the permutation entry's call, the
+    atomic entry's, the sorted entry's and the library's (zeros +
+    index_add_), then the same in reverse; each one's device time by
+    torch.profiler (every kernel of its call: the fill, the sort); the
+    permutation entry's kernel alone, its plain version and its bound.
+    -> {"ms", "dev", "kernel", "plain", "atomic_dev", "sorted_dev",
+    "sorted_kernel", "lib_dev", "bound", "by"}."""
+    from opengaussian_tpu_torch.ops import rasterize_kernels as rk
+
+    ids, order = bins.sorted_gauss, (bins.slot_pos, bins.splat_end)
+    ids64 = ids.to(torch.int64)
+    fns = {"permutation": lambda: rk.segment_reduce_perm(d_rows, *order, n),
+           "atomic": lambda: rk.segment_reduce(d_rows, ids, n),
+           "sorted": lambda: rk.segment_reduce_sorted(d_rows, ids, n),
+           "library": lambda: torch.zeros((n, d_rows.shape[1]), device=d_rows.device)
+           .index_add_(0, ids64, d_rows)}
+    seq = list(fns) + list(fns)[::-1]
+    turns = [cuda_ms(fns[k], iters=50, warmup=5) for k in seq]
+    dev = {k: device_ms(f, 10) for k, f in fns.items()}
+    kernel = device_ms(fns["permutation"], 10, "segment_reduce_perm")
+    sorted_kernel = device_ms(fns["sorted"], 10, "segment_reduce_sorted")
+    plain = cuda_ms(lambda: rk.segment_reduce_perm_plain(d_rows, *order, n), iters=3)
+    bound, by = perm_bound(d_rows, bins, n, peak_flops, peak_bytes)
+    log(f"timing: K3, {what}, {d_rows.shape[0]} rows x {d_rows.shape[1]} fields into {n} "
+        f"splats ({bins.slot_pos.shape[0]} expanded slots), calls in turns "
+        + ", ".join(f"{k} {x:.4f}" for k, x in zip(seq, turns)) + " ms; device time by "
+        "torch.profiler " + ", ".join(f"{k} {x:.4f}" for k, x in dev.items())
+        + f" ms (the permutation kernel {kernel:.4f}, the sorted kernel {sorted_kernel:.4f}); "
+        f"the permutation entry's plain version {plain:.4f} ms; its bound {bound:.4f} ms "
+        f"({by}), the entry at {bound / dev['permutation']:.3f} of it [{card}]")
+    return dict(ms=(turns[0] + turns[-1]) / 2, dev=dev["permutation"], kernel=kernel,
+                plain=plain, atomic_dev=dev["atomic"], sorted_dev=dev["sorted"],
+                sorted_kernel=sorted_kernel, lib_dev=dev["library"], bound=bound, by=by)
+
+
+def perm_bound(d_rows, bins, n, peak_flops, peak_bytes) -> tuple[float, str]:
+    """K3's permutation entry: rows, the [L] slot positions and the [n]
+    range ends read once, [n, F] written once; one add per element."""
+    R, F = d_rows.shape
+    L = bins.slot_pos.shape[0]
+    return bound_of("segment_reduce_perm", R * F * 4 + L * 4 + n * 4 + n * F * 4, R * F,
+                    peak_flops, peak_bytes)
+
+
 def launch_counts() -> dict:
     """{wrapper: the module attribute whose .launches it counts}."""
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 
     return {w.__name__: w for w in rk.KERNEL_WRAPPERS}
+
+
+def vote_launches(views: int, config) -> int:
+    """The SAM refiner's launches of K3's sorted entry under config (the
+    one it was given): one vote scatter per chunk of max_per_tile in each
+    view's vote pass; none under reduce_backend "scatter"."""
+    return views * (config.max_per_tile // config.chunk) if config.fixed_reduce_order() else 0
 
 
 def expected_launches(tr, rcfg) -> dict:
@@ -1369,7 +1470,8 @@ def expected_launches(tr, rcfg) -> dict:
     entries to stages 2.1 and 2.2; sweep 2 at stage-2.2 entry, one render per
     root and view; stage 3, per view one partition render per root (stream)
     or one render per leaf (dense); with the SAM refiner, one depth render
-    per view before stage 1."""
+    per view before stage 1 and its vote scatters (`vote_launches`, for the
+    config it was called with, in tr.refined)."""
     o, V = tr.cfg.opt, tr.bundle.num_views
     k1, k2 = o.root_node_num, o.leaf_node_num
     dense = rcfg.pallas_input == "dense"
@@ -1380,7 +1482,8 @@ def expected_launches(tr, rcfg) -> dict:
     want[fwd] = TRAIN_ITERS + 2 * V + k1 * V + (k1 * k2 if dense else k1) * V
     if o.enable_multiview_sam_refinement:
         want[fwd] += V
-    want[bwd] = want["segment_reduce"] = TRAIN_ITERS
+        want["segment_reduce_sorted"] = vote_launches(V, tr.refined["config"])
+    want[bwd] = want[reduce_kernel(rcfg)] = TRAIN_ITERS
     return want
 
 
@@ -2282,7 +2385,7 @@ def dense_groups_phase(tr, tr_b, chunk: int, card: str, peak_flops, peak_bytes) 
     launches = {k: w.launches for k, w in wrappers.items()}
     want = dict.fromkeys(launches, 0)
     want.update(blend_tiles_fwd_groups=1 + k1 + 5, blend_tiles_bwd_groups=5,
-                segment_reduce=5, blend_stream_fwd=5 if tr_b.any_alpha else 0)
+                segment_reduce_perm=5, blend_stream_fwd=5 if tr_b.any_alpha else 0)
     if launches != want:
         raise AssertionError(f"dense group path: launches {launches}, expected {want}")
     losses = [float(x) for x in tr_b.losses[-5:]]
@@ -2406,9 +2509,11 @@ def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes,
     and K6's rows against K2's, counts the frame's pairs, and times each
     (call and device time) beside its bound and the deepest tile alone
     (every other tile's count set to 0), which sets the launch's least
-    time. With prks ({path: another tree's kernels}, the parent's), also
-    K2, K4 and K6 in turns with each. -> {"k1": {"err", "ms", "dev",
-    "deep_ms", "deep_dev", "bound", "by"}, "k2", "k4", "k6": the same}."""
+    time. K3's permutation entry on K2's rows, held and timed with the
+    other entries (`time_reduce`). With prks ({path: another tree's
+    kernels}, the parent's), also K2, K4 and K6 in turns with each.
+    -> {"k1": {"err", "ms", "dev", "deep_ms", "deep_dev", "bound", "by"},
+    "k2", "k4", "k6": the same, "k3p": `time_reduce`'s and "err"}."""
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 
     cam = tr.bundle.camera(0)
@@ -2430,6 +2535,7 @@ def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes,
     err = compare("blend_stream_bwd C=7 training frame d_rows", d, d_p, 0.0, 0.0)
     if float(d_p.abs().max()) == 0.0:
         raise AssertionError("K2, training frame: the stage-1 loss gave no gradient")
+    k3p_err = hold_perm_reduce(d_p, bins, tr.state.capacity, "training frame")
     deep = int(torch.argmax(counts))
     depth = int(counts[deep])
     only = torch.where(torch.arange(counts.shape[0], device=counts.device) == deep, counts, 0)
@@ -2506,6 +2612,8 @@ def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes,
     out["k6"] = dict(err=k6_err, bound=bound, by=by, **time_on_frame(
         "blend_tiles_bwd", "blend_tiles_bwd_kernel", lambda: rk.blend_tiles_bwd(*bargs),
         lambda: rk.blend_tiles_bwd(gdata, only, *bargs[2:]), bound, by, card))
+    out["k3p"] = dict(err=k3p_err, **time_reduce(d_p, bins, n, "training frame (C=7)", card,
+                                                  peak_flops, peak_bytes))
     for path, prk in (prks or {}).items():
         log(f"parent tree {path}, training frame:")
         time_against_parent(prk, {
@@ -2878,7 +2986,8 @@ def viewer_round_trip(scene_dir: str, root: str, dev, card) -> dict:
             reader.start()
             tr.train(until=3, log_every=1)
             reader.join(timeout=120)
-        launches = read_launches(wrappers, 3, "viewer", blend_stream_bwd=2, segment_reduce=2)
+        launches = read_launches(wrappers, 3, "viewer", blend_stream_bwd=2,
+                                 segment_reduce_perm=2)
         if reader.is_alive() or "img" not in reply or reply.get("path") != out:
             raise AssertionError(f"viewer: no reply ({reply.get('error')})")
         if tr.iteration != 3 or tr.viewer.conn is not None:
@@ -3079,6 +3188,9 @@ def windows_phase(tr, chunk: int, card: str) -> dict:
     per_p = rk.segment_reduce_plain(d_p, bins.sorted_gauss, n)
     k3 = compare("segment_reduce per-splat (K2's windowed rows)", per, per_p, grad_atol(per_p),
                  GRAD_TOL["rtol"])
+    # the windows leave every slot's row at its stream position: the
+    # binning's order holds over them
+    k3p = hold_perm_reduce(d[:P], bins, n, "windowed training frame")
     cargs = (counts, tstart, toff)
     d4, ids4 = rk.blend_stream_bwd_compact(prow, *cargs, pids, acc, t_fin, *cot, gx, chunk, n)
     torch.cuda.synchronize()
@@ -3184,7 +3296,7 @@ def windows_phase(tr, chunk: int, card: str) -> dict:
                 launches = path_launches(wrappers, "windowed stage-1 steps (eager stream and "
                                          "compact, captured)", "blend_stream_fwd",
                                          "blend_stream_bwd", "blend_stream_bwd_compact",
-                                         "segment_reduce")
+                                         "segment_reduce_perm")
             tr._captured.clear()  # one graph per stage: keep each aside
         cap_ms = {k: [] for k in cfgs}
         for k in ("windowed", "unwindowed", "unwindowed", "windowed"):
@@ -3204,7 +3316,7 @@ def windows_phase(tr, chunk: int, card: str) -> dict:
         f"(relative), the captured windowed step against the eager one {cap_err:.2e} [{card}]")
     return dict(win_cfg=win_cfg, flat_cfg=flat_cfg, S=S, Tv=Tv, band=band, used=used,
                 dead=int(dead.sum()), deepest=deepest, k1_err=k1, k2_err=k2, k3_err=k3,
-                k4_err=k4, fold_err=fold_err, times=times, fold_ms=fold_ms, fold_dev=fold_dev,
+                k3p_err=k3p, k4_err=k4, fold_err=fold_err, times=times, fold_ms=fold_ms, fold_dev=fold_dev,
                 eager_ms=eager_ms, cap_ms=cap_ms, cap_err=cap_err, launches=launches)
 
 
@@ -3263,8 +3375,8 @@ def bands_phase(state, cam_r, tr, k_render: int, card: str) -> dict:
             bwd = {"stream": "blend_stream_bwd", "dense": "blend_tiles_bwd",
                    "compact": "blend_stream_bwd_compact"}[lay]
             got = path_launches(wrappers, f"rasterize_banded, {fname}, {lay}", fwd, bwd,
-                                "segment_reduce")
-            if (got[fwd], got[bwd], got["segment_reduce"]) != (bands, bands, bands):
+                                "segment_reduce_perm")
+            if (got[fwd], got[bwd], got["segment_reduce_perm"]) != (bands, bands, bands):
                 raise AssertionError(f"rasterize_banded: launches {got}, not {bands} each")
             total = {k: total.get(k, 0) + v for k, v in got.items()}
             full, gf = run(rasterize)
@@ -3381,8 +3493,8 @@ def mesh_phase(tr, cfg, card: str, backend: str = "nccl") -> dict:
             loss_sh.append(float(loss))
         launches = path_launches(wrappers, "the mesh at world size 1 (4 sharded renders "
                                  f"with their backward, {MESH_STEPS} sharded stage-0 steps)",
-                                 "blend_stream_fwd", "blend_stream_bwd", "segment_reduce",
-                                 "blend_tiles_fwd", "blend_tiles_bwd",
+                                 "blend_stream_fwd", "blend_stream_bwd",
+                                 "segment_reduce_perm", "blend_tiles_fwd", "blend_tiles_bwd",
                                  "blend_stream_bwd_compact")
         errs = {}
         for k, c in cases.items():
@@ -3544,13 +3656,24 @@ def mesh_trainer_phase(scene_dir: str, root: str, dev, chunk: int, card: str) ->
 
     out = os.path.join(root, "trained_mesh")
     flags = [x for k, v in STAGE_ENDS.items() for x in (f"--{k}", str(v))]
+    real_refine, refined = loop.refine_sam_masks, {}
+
+    def recorded_refine(gs, cams, sam_ids, config, **kw):
+        refined["config"] = config
+        return real_refine(gs, cams, sam_ids, config, **kw)
+
+    loop.refine_sam_masks = recorded_refine
     wrappers = zero_launches()
     t0 = time.perf_counter()
-    tr = cli_train.main(
-        ["-s", scene_dir, "-m", out, "--iterations", str(TRAIN_ITERS), *flags,
-         "--densify_from_iter", "10", "--densification_interval", "10",
-         "--leaf_update_fr", str(LEAF_UPDATE_FR), "--checkpoint_iterations", str(TRAIN_ITERS),
-         "--enable_multiview_sam_refinement", *MESH_RUN_FLAGS, "--mesh", "1"], device=dev)
+    try:
+        tr = cli_train.main(
+            ["-s", scene_dir, "-m", out, "--iterations", str(TRAIN_ITERS), *flags,
+             "--densify_from_iter", "10", "--densification_interval", "10",
+             "--leaf_update_fr", str(LEAF_UPDATE_FR), "--checkpoint_iterations",
+             str(TRAIN_ITERS), "--enable_multiview_sam_refinement", *MESH_RUN_FLAGS,
+             "--mesh", "1"], device=dev)
+    finally:
+        loop.refine_sam_masks = real_refine
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
@@ -3564,8 +3687,9 @@ def mesh_trainer_phase(scene_dir: str, root: str, dev, chunk: int, card: str) ->
         # root and view in stage 3
         want = dict.fromkeys(launches, 0)
         want["blend_stream_fwd"] = TRAIN_ITERS + 3 * V
-        want["blend_stream_bwd"] = want["segment_reduce"] = TRAIN_ITERS
+        want["blend_stream_bwd"] = want["segment_reduce_perm"] = TRAIN_ITERS
         want["blend_tiles_fwd_groups"] = V + o.root_node_num * V
+        want["segment_reduce_sorted"] = vote_launches(V, refined["config"])
         if launches != want:
             raise AssertionError(f"{what}: launches {launches}, expected {want}")
         losses = torch.stack(tr.losses).cpu().numpy()
@@ -3659,8 +3783,9 @@ def mesh_trainer_phase(scene_dir: str, root: str, dev, chunk: int, card: str) ->
                                     ("depth", depth, ref.depth)))
         log(f"launches, the mesh trainer's sharded holds: {hold_launches}")
         if not all(hold_launches[k] for k in ("blend_stream_fwd", "blend_stream_bwd",
-                                              "blend_stream_bwd_compact", "segment_reduce",
-                                              "blend_tiles_fwd", "blend_tiles_bwd")):
+                                              "blend_stream_bwd_compact",
+                                              "segment_reduce_perm", "blend_tiles_fwd",
+                                              "blend_tiles_bwd")):
             raise AssertionError(f"{what}: a kernel of the sharded holds never launched")
 
         # the sweeps and the stage-3 association, per view, against one device
@@ -3778,36 +3903,32 @@ MIOU_MIN = 0.3677  # the JAX package's least mIoU, 0.4677, less 0.10, in each co
 CONVERGENCE_REF = {0: 16.8, 500: 26.2, 2000: 36.1, 4000: 39.0}
 CONVERGENCE_PSNR_MIN = 38.0  # 39.0 less 1 dB, at 4,000
 CONVERGENCE_ALIVE_MIN = 4000
-REPEAT = "c"  # the configuration run twice, which must score the same
-# what the repeated run must reproduce exactly
+REPEAT = ("a", "c")  # the configurations run twice, each of which must score the same
+# what a repeated run must reproduce exactly
 SCORED = ("stage0_psnr", "final_psnr", "final_l1", "num_alive", "stage22_loss_trajectory",
           "root_cluster_purity", "leaf_cluster_purity", "text_retrieval_acc",
           "text_query_miou", "retrieval_diagnostics", "slots_lost")
 
 
-@contextlib.contextmanager
-def deterministic():
-    """torch.use_deterministic_algorithms for the block: torch's own ops take
-    their deterministic kernels (or raise where they have none) and K3 its
-    sorted entry, so a training run on the card repeats bit for bit."""
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
+CONVERGENCE_SCORED = ("curve", "test_psnr_by_view", "train_psnr", "train_psnr_min",
+                      "slots_lost")
 
 
-def reduce_kernel() -> str:
-    """The K3 entry that backward passes launch in the current mode."""
-    return ("segment_reduce_sorted" if torch.are_deterministic_algorithms_enabled()
+def reduce_kernel(rcfg=None) -> str:
+    """The K3 entry a backward under rcfg (RasterizeConfig() by default)
+    launches: the permutation entry under reduce_backend "sorted_mxu", the
+    atomic one under "scatter"."""
+    from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig
+
+    return ("segment_reduce_perm" if (rcfg or RasterizeConfig()).fixed_reduce_order()
             else "segment_reduce")
 
 
-def hold_sorted_reduce(dev) -> float:
-    """K2 and K3's deterministic entry at the quality run's shapes: its
-    first stage-0 step (the initial cloud, training view 0 at 320x240, the
-    L1 + SSIM cotangents), each against its plain version, K3's entry on the
-    CPU bit for bit. -> K3's entry's max abs error."""
+def hold_quality_reduce(dev) -> float:
+    """K2 and K3's entries at the quality run's shapes: its first stage-0
+    step (the initial cloud, training view 0 at 320x240, the L1 + SSIM
+    cotangents), each against its plain version, the permutation entry
+    (the run's) on the CPU bit for bit. -> its max abs error."""
     from opengaussian_tpu_torch.models.gaussians import create_from_pcd
     from opengaussian_tpu_torch.tools import synthetic
 
@@ -3819,7 +3940,7 @@ def hold_sorted_reduce(dev) -> float:
     grids = (streams[4][4], (q.size.height + 15) // 16)
     cot = loss_cotangents(v.camera.to(dev), grids, streams[4], q.rcfg.chunk,
                           torch.as_tensor(v.gt_image, device=dev))
-    return check_grad_kernels(streams[4], cot, q.rcfg.chunk, state.capacity)["k3s_err"]
+    return check_grad_kernels(streams[4], cot, q.rcfg.chunk, state.capacity)["k3p_err"]
 
 
 def quality_launches(res: dict) -> dict:
@@ -3874,15 +3995,16 @@ def quality_gates(name: str, res: dict) -> list[str]:
 
 def quality_phase(root: str, dev, card: str) -> dict:
     """tools/quality_run.run at full size in each of QUALITY_CONFIGS, every
-    kernel's launches counted around it, and configuration REPEAT once more.
-    Logs each figure beside QUALITY_r05.json's (the JAX package's), the wall
-    seconds, the run's own peak device memory and the launches; checks the
-    launches against the schedule, every gate, and that the repeated run
-    scores the same, figure for figure; the misses of all runs raised
-    together at the end of the phase, after the convergence run."""
+    kernel's launches counted around it, and each configuration of REPEAT
+    once more, all in torch's default (not deterministic) mode. Logs each
+    figure beside QUALITY_r05.json's (the JAX package's), the wall seconds,
+    the run's own peak device memory and the launches; checks the launches
+    against the schedule, every gate, and that each repeated run scores the
+    same, figure for figure; the misses of all runs raised together at the
+    end of the phase, after the convergence runs."""
     from opengaussian_tpu_torch.tools import quality_run
 
-    k3s_err = hold_sorted_reduce(dev)
+    k3p_err = hold_quality_reduce(dev)
 
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "QUALITY_r05.json")) as f:
@@ -3890,7 +4012,8 @@ def quality_phase(root: str, dev, card: str) -> dict:
     keys = ("stage0_psnr", "final_psnr", "final_l1", "num_alive", "root_cluster_purity",
             "leaf_cluster_purity", "text_retrieval_acc", "text_query_miou")
     runs, misses = {}, []
-    for name, opts in [*QUALITY_CONFIGS.items(), (REPEAT + "'", QUALITY_CONFIGS[REPEAT])]:
+    for name, opts in [*QUALITY_CONFIGS.items(),
+                       *((r + "'", QUALITY_CONFIGS[r]) for r in REPEAT)]:
         wrappers = launch_counts()
         for w in wrappers.values():
             w.launches = 0
@@ -3917,34 +4040,46 @@ def quality_phase(root: str, dev, card: str) -> dict:
     if max(r["text_retrieval_acc"] for r in runs.values()) < RETRIEVAL_BEST_MIN:
         misses.append(f"quality runs: text retrieval below {RETRIEVAL_BEST_MIN} in every "
                       "configuration")
-    again = [k for k in SCORED if runs[REPEAT][k] != runs[REPEAT + "'"][k]]
-    log(f"quality run ({REPEAT}) repeated: " + (f"differs in {again}" if again else
-                                                 "every scored figure equal"))
-    if again:
-        misses.append(f"quality run ({REPEAT}) does not repeat: {again} differ")
+    for r in REPEAT:
+        again = [k for k in SCORED if runs[r][k] != runs[r + "'"][k]]
+        log(f"quality run ({r}) repeated: " + (f"differs in {again}" if again else
+                                                "every scored figure equal"))
+        if again:
+            misses.append(f"quality run ({r}) does not repeat: {again} differ")
     for m in misses:
         log(f"FAILED: {m}")
-    return dict(runs=runs, misses=misses, k3s_err=k3s_err)
+    return dict(runs=runs, misses=misses, k3p_err=k3p_err)
 
 
 def convergence_phase(root: str, dev, card: str) -> dict:
     """tools/synthetic_convergence.run at its full size and the port's
-    defaults: the curve beside the JAX script's docstring, the wall seconds,
-    the run's own peak device memory, the launches against the schedule and
-    the gates. -> the result with its launches and misses."""
+    defaults, twice in torch's default mode: the curve beside the JAX
+    script's docstring, the wall seconds, the run's own peak device memory,
+    the launches of each run against the schedule, the gates, and that the
+    second run scores the same (CONVERGENCE_SCORED). -> the first run's
+    result with the launches of both ("launches", "launches2") and the
+    misses."""
     from opengaussian_tpu_torch.tools import synthetic, synthetic_convergence
 
-    wrappers = launch_counts()
-    for w in wrappers.values():
-        w.launches = 0
-    res = synthetic_convergence.run(device=dev, out=os.path.join(root, "convergence"))
-    torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
-    want = convergence_launches(res, synthetic.CONVERGENCE_FULL)
+    results, misses = [], []
+    for i in range(2):
+        wrappers = zero_launches()
+        res = synthetic_convergence.run(device=dev, out=os.path.join(root, f"convergence{i}"))
+        torch.cuda.synchronize()
+        res["launches"] = {k: w.launches for k, w in wrappers.items()}
+        want = convergence_launches(res, synthetic.CONVERGENCE_FULL)
+        if res["launches"] != want:
+            misses.append(f"run {i + 1}: launches {res['launches']}, expected {want}")
+        results.append(res)
+    res, res2 = results
+    again = [k for k in CONVERGENCE_SCORED if res[k] != res2[k]]
+    log("convergence run repeated: " + (f"differs in {again}: {res2['curve']}" if again
+                                        else "every scored figure equal")
+        + f" ({res2['wall_s']} s)")
+    if again:
+        misses.append(f"does not repeat: {again} differ")
+    launches = res["launches"]
     curve = {c["iteration"]: c for c in res["curve"]}
-    misses = []
-    if launches != want:
-        misses.append(f"launches {launches}, expected {want}")
     last = res["curve"][-1]
     if last["psnr"] < CONVERGENCE_PSNR_MIN:
         misses.append(f"PSNR {last['psnr']} at {last['iteration']} < {CONVERGENCE_PSNR_MIN}")
@@ -3966,7 +4101,7 @@ def convergence_phase(root: str, dev, card: str) -> dict:
     misses = [f"convergence run: {m}" for m in misses]
     for m in misses:
         log(f"FAILED: {m}")
-    return dict(res, launches=launches, misses=misses)
+    return dict(res, launches2=res2["launches"], misses=misses)
 
 
 def main(argv=None) -> int:
@@ -4103,14 +4238,21 @@ def main(argv=None) -> int:
 
         # 5. training path, through the CLI a user runs, in each input layout
         # and with the compact backward; each run's stage-2.2 step and leaf
-        # events are timed from its own trained state
-        runs = {"stream": RasterizeConfig(), "dense": RasterizeConfig(pallas_input="dense"),
+        # events are timed from its own trained state. The dense run takes
+        # K3's atomic entry (reduce_backend "scatter"), the others its
+        # permutation entry (the default)
+        runs = {"stream": RasterizeConfig(),
+                "dense": RasterizeConfig(pallas_input="dense", reduce_backend="scatter"),
                 "compact": RasterizeConfig(bwd_layout="compact")}
         train_launches, s22_ms, leaf_ms, train_s, tr_peak = {}, {}, {}, {}, {}
         for run, rcfg in runs.items():
             tr_r, train_launches[run], out_r, train_s[run] = train_path(scene_dir, root, dev,
                                                                         run, rcfg)
             tr_peak[run] = tr_r.peak_device_mib
+            atomic = train_launches[run]["segment_reduce"]
+            if atomic != (0 if rcfg.fixed_reduce_order() else TRAIN_ITERS):
+                raise AssertionError(f"training path ({run}): K3's atomic entry launched "
+                                     f"{atomic} times under {rcfg.reduce_backend!r}")
             if run == "stream":
                 tr, out = tr_r, out_r
                 check_trained_render(out, scene_dir, dev)
@@ -4237,16 +4379,11 @@ def main(argv=None) -> int:
                 f"K3 call: " + ", ".join(f"{x:.4f}" for x in turns) + f" ms; device time by "
                 f"torch.profiler: K3 {k3_dev:.4f} ms (kernel {k3_kernel:.4f}, the rest its "
                 f"zero fill), library {lib_dev:.4f} ms; plain {k3_plain:.4f} ms [{card}]")
-            # K3's deterministic entry on the same rows: the stable sort of
-            # the ids, the zero fill and the kernel
-            k3s = lambda: rk.segment_reduce_sorted(d_rows, ids, n)  # noqa: E731
-            s_turns = [cuda_ms(f, iters=50, warmup=5) for f in (k3s, k3, k3, k3s)]
-            k3s_dev = device_ms(k3s, 10)
-            k3s_kernel = device_ms(k3s, 10, "segment_reduce_sorted")
-            log(f"timing: segment_reduce_sorted on the same rows, in turns sorted call, K3 "
-                f"call, K3 call, sorted call: " + ", ".join(f"{x:.4f}" for x in s_turns)
-                + f" ms; device time by torch.profiler: {k3s_dev:.4f} ms (kernel "
-                f"{k3s_kernel:.4f}, the rest the sort and the zero fill) [{card}]")
+            # K3's permutation and sorted entries on the same rows, in turns
+            # with the atomic entry and the library
+            k3r = time_reduce(d_rows, bins, n, "render frame (C=4)", card, peak_flops,
+                              peak_bytes)
+            k3s_dev = k3r["sorted_dev"]
             # K5 and K6 on the dense block of phase 3
             gdata, dcounts, dstart, dgauss, gx, _ = block
             T, K, F = gdata.shape
@@ -4340,7 +4477,9 @@ def main(argv=None) -> int:
         log(f"bound: segment_reduce: {k3_b:.4f} ms/launch ({k3_by}), kernel (device time, "
             f"its zero fill included) at {k3_b / k3_dev:.3f} of it, the call at "
             f"{k3_b / k3_ms:.3f}; segment_reduce_sorted (device time, its sort and zero fill "
-            f"included) at {k3_b / k3s_dev:.3f} [{card}]")
+            f"included) at {k3_b / k3s_dev:.3f}; segment_reduce_perm: {k3r['bound']:.4f} "
+            f"ms/launch ({k3r['by']}), device time at {k3r['bound'] / k3r['dev']:.3f} of it "
+            f"[{card}]")
         live = int(dcounts.sum())
         k5_b, k5_by = fwd_bound(f"blend_tiles_fwd C={F - 6}", live, F, T, 1,
                                 dense["work_fwd"], peak_flops, peak_bytes)
@@ -4369,9 +4508,8 @@ def main(argv=None) -> int:
 
         # 11. the quality run in three configurations and the convergence run
         del tr, tr_b
-        with deterministic():
-            quality = quality_phase(root, dev, card)
-            converge = convergence_phase(root, dev, card)
+        quality = quality_phase(root, dev, card)
+        converge = convergence_phase(root, dev, card)
         misses = quality["misses"] + converge["misses"]
         if misses:
             raise AssertionError("phase 11: " + "; ".join(misses))
@@ -4389,7 +4527,7 @@ def main(argv=None) -> int:
                   refine["launches"], groups["launches"], windows["launches"],
                   bands["launches"], meshed["launches"], meshtr["launches"],
                   meshtr["hold_launches"], *(r["launches"] for r in quality["runs"].values()),
-                  converge["launches"])
+                  converge["launches"], converge["launches2"])
     total = {k: sum(p[k] for p in main_paths) for k in render_launches}
     log(f"launches on the main paths: render {render_launches}, "
         + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()) + ", "
@@ -4504,9 +4642,12 @@ def main(argv=None) -> int:
         row("segment_reduce", total["segment_reduce"],
             max(grad["k3_err"], dense["k3_err"], compact["k43_err"], windows["k3_err"]),
             k3_dev, k3_plain, k3_b, k3_by, lib=lib_dev, line=1196),
-        row("segment_reduce_sorted", total["segment_reduce_sorted"],
-            max(grad["k3s_err"], quality["k3s_err"]), k3s_dev, k3_plain, k3_b, k3_by,
-            lib=lib_dev, line=1196, source="segment_reduce"),
+        row("segment_reduce_sorted", total["segment_reduce_sorted"], grad["k3s_err"],
+            k3s_dev, k3_plain, k3_b, k3_by, lib=lib_dev, line=1196, source="segment_reduce"),
+        row("segment_reduce_perm", total["segment_reduce_perm"],
+            max(grad["k3p_err"], train["k3p"]["err"], windows["k3p_err"],
+                quality["k3p_err"]), k3r["dev"], k3r["plain"], k3r["bound"], k3r["by"],
+            lib=k3r["lib_dev"], line=1196, source="segment_reduce"),
         row("blend_tiles_fwd", total["blend_tiles_fwd"] + total["blend_tiles_fwd_groups"],
             max(dense["k5_err"], *groups["errs"].values(), meshtr["k5_offset_err"]), k5_ms,
             k5_plain, k5_b, k5_by,

@@ -32,17 +32,39 @@
 // Atomic order changes from run to run, so the sums agree with the plain
 // version (index_add_) to rounding, not bit for bit.
 //
-// The sorted entry (og_segment_reduce_sorted) is the deterministic order,
-// taken under torch.use_deterministic_algorithms: the caller sorts the ids
-// stably, as the JAX package sorts its rows by id before its kernel, and
-// one thread per segment of equal ids sums that segment's rows, gathered
-// through the sort's permutation, in row order from 0 and writes the sum
-// once. The sums repeat bit for bit from run to run and equal the CPU's
-// index_add_, which adds the rows in the same order. A long segment (a
-// splat over many tiles) runs serially in its thread; the sort and the
-// gathered reads make it slower than the atomic entry.
-// Left for later work: a warp-level pre-sum of neighbouring rows that share
-// an id (the stream keeps a splat's slots of one tile apart, so few do).
+// The atomic entry is RasterizeConfig(reduce_backend="scatter"). The two
+// other entries sum in a fixed order, so their sums repeat bit for bit from
+// run to run and equal the CPU's index_add_, which adds the rows in the same
+// order:
+//   * the permutation entry (og_segment_reduce_perm), the rasterizer's
+//     default ("sorted_mxu", the JAX package's default backend, whose
+//     ReducePlan caches the same kind of order for frozen geometry). The
+//     binning expands each splat's slots contiguously, in ascending splat
+//     order and, within a splat, in ascending tile order; its stable sort by
+//     (tile, depth rank) therefore keeps each splat's live slots in that
+//     order. The inverse of the sort's permutation (`pos`: the stream
+//     position of each expanded slot) read over a splat's range of expanded
+//     slots (`ends`, the running end of each splat's range) lists the
+//     splat's stream positions in ascending order: the order in which the
+//     sorted entry sums them, without the sort. The slots the cull moved
+//     past the last tile sit out of that order, but no tile walks them, so
+//     their rows are zero and adding them changes no bit (the running sum
+//     starts at +0 and never becomes -0). A negative position is skipped
+//     (the compact layout's rows that no tile owns). One thread per (group,
+//     splat, field) sums that field of the splat's rows serially and writes
+//     it once: no zero fill, no atomics; the threads of one splat read the
+//     fields of each row together. A splat over many tiles runs long in its
+//     threads. Its bound is bytes too: rows (R*F*4), pos (L*4), ends (n*4)
+//     and out (n*F*4), each moved once.
+//   * the sorted entry (og_segment_reduce_sorted), for rows that carry no
+//     such order (the SAM refiner's votes): the caller sorts the ids
+//     stably, as the JAX package sorts its rows by id before its kernel, and
+//     one thread per segment of equal ids sums that segment's rows, gathered
+//     through the sort's permutation, in row order and writes the sum once,
+//     from 0 or, with `accumulate`, from the value out holds (index_add_
+//     into an existing tensor). The sort and the gathered reads make it
+//     slower than the atomic entry.
+// Left for later work: a warp per long splat in the permutation entry.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared.
 
@@ -136,12 +158,14 @@ segment_reduce_scalar(const float* __restrict__ rows,
 
 // keys: the ids sorted stably, order: the row of each sorted position. The
 // thread at the head of a run of equal keys in [0, n) sums the run's rows
-// in sorted (= row) order and writes out[key]; other ids keep the fill.
+// in sorted (= row) order, from 0 or from out[key] (accumulate), and
+// writes out[key]; other ids keep their value.
 __global__ void __launch_bounds__(kThreads)
 segment_reduce_sorted(const float* __restrict__ rows,
                       const int* __restrict__ keys,
                       const int64_t* __restrict__ order, int n_rows,
-                      int n_fields, int n, float* __restrict__ out) {
+                      int n_fields, int n, bool accumulate,
+                      float* __restrict__ out) {
   for (unsigned p = blockIdx.x * kThreads + threadIdx.x;
        p < static_cast<unsigned>(n_rows); p += gridDim.x * kThreads) {
     const int id = keys[p];
@@ -151,7 +175,8 @@ segment_reduce_sorted(const float* __restrict__ rows,
     for (int j = 0; j < n_fields; j += kPiece) {
       float acc[kPiece];
 #pragma unroll
-      for (int q = 0; q < kPiece; ++q) acc[q] = 0.0f;
+      for (int q = 0; q < kPiece; ++q)
+        acc[q] = accumulate && j + q < n_fields ? dst[j + q] : 0.0f;
       for (unsigned r = p; r < static_cast<unsigned>(n_rows) && keys[r] == id; ++r) {
         const float* src = rows + static_cast<size_t>(order[r]) * n_fields + j;
 #pragma unroll
@@ -162,6 +187,31 @@ segment_reduce_sorted(const float* __restrict__ rows,
       for (int q = 0; q < kPiece; ++q)
         if (j + q < n_fields) dst[j + q] = acc[q];
     }
+  }
+}
+
+// One thread per (group, splat, field): out[(g n + i) F + f] = the sum, in
+// the order of i's range of pos, of rows[(g n_rows + pos[p]) F + f]; pos[p]
+// < 0 is skipped. ends: the running end of each splat's range in pos.
+__global__ void __launch_bounds__(kThreads)
+segment_reduce_perm(const float* __restrict__ rows, const int* __restrict__ pos,
+                    const int* __restrict__ ends, int n_rows, int n_fields,
+                    int n, long long total, float* __restrict__ out) {
+  for (long long t = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
+       t < total; t += static_cast<long long>(gridDim.x) * kThreads) {
+    const long long gi = t / n_fields;  // g n + i
+    const int f = static_cast<int>(t - gi * n_fields);
+    const long long g = gi / n;
+    const int i = static_cast<int>(gi - g * n);
+    const int lo = i > 0 ? ends[i - 1] : 0;
+    const int hi = ends[i];
+    const float* src = rows + static_cast<size_t>(g) * n_rows * n_fields + f;
+    float acc = 0.0f;
+    for (int p = lo; p < hi; ++p) {
+      const int q = pos[p];
+      if (q >= 0) acc += src[static_cast<size_t>(q) * n_fields];
+    }
+    out[t] = acc;
   }
 }
 
@@ -195,15 +245,16 @@ int og_segment_reduce(const float* rows, const int* ids, int n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The deterministic order: zero-fills out [n, n_fields] and writes each
-// id's sum of its rows in row order, both on `stream`. keys [n_rows] are the
-// ids sorted stably and order [n_rows] the row of each sorted position;
-// returns the first CUDA error (0 on success).
+// The sorted order: zero-fills out [n, n_fields] (unless accumulate) and
+// writes each id's sum of its rows in row order, from 0 (from out's value
+// with accumulate), both on `stream`. keys [n_rows] are the ids sorted
+// stably and order [n_rows] the row of each sorted position; returns the
+// first CUDA error (0 on success).
 int og_segment_reduce_sorted(const float* rows, const int* keys,
                              const int64_t* order, int n_rows, int n_fields,
-                             int n, float* out, void* stream) {
+                             int n, int accumulate, float* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0 && n_fields > 0) {
+  if (!accumulate && n > 0 && n_fields > 0) {
     const cudaError_t err = cudaMemsetAsync(
         out, 0, static_cast<size_t>(n) * n_fields * sizeof(float), s);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -211,8 +262,26 @@ int og_segment_reduce_sorted(const float* rows, const int* keys,
   if (n_rows > 0 && n > 0 && n_fields > 0) {
     const int want = n_rows / kThreads + (n_rows % kThreads != 0);
     const int blocks = want < kMaxBlocks ? want : kMaxBlocks;
-    segment_reduce_sorted<<<blocks, kThreads, 0, s>>>(rows, keys, order, n_rows,
-                                                      n_fields, n, out);
+    segment_reduce_sorted<<<blocks, kThreads, 0, s>>>(
+        rows, keys, order, n_rows, n_fields, n, accumulate != 0, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The permutation order: writes out [groups n, n_fields], group g's splat
+// i the sum of rows [g n_rows + pos[p]] over p in [ends[i - 1], ends[i])
+// (ends[-1] = 0), skipping pos[p] < 0, on `stream`. Every element of out is
+// written: no fill. Returns the first CUDA error (0 on success).
+int og_segment_reduce_perm(const float* rows, const int* pos, const int* ends,
+                           int n_rows, int n_fields, int n, int groups,
+                           float* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long total = static_cast<long long>(groups) * n * n_fields;
+  if (total > 0) {
+    const long long want = (total + kThreads - 1) / kThreads;
+    const int blocks = static_cast<int>(want < 65536 ? want : 65536);
+    segment_reduce_perm<<<blocks, kThreads, 0, s>>>(rows, pos, ends, n_rows,
+                                                    n_fields, n, total, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

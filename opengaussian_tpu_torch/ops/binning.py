@@ -71,6 +71,11 @@ class TileBins:
     vt_first: torch.Tensor | None = None  # [band] int32 first virtual tile of
     # each real tile
     vt_n: torch.Tensor | None = None  # [band] int32 windows of each real tile
+    # the per-splat reduce's fixed order (reduce_order=True): the stream
+    # position of each expanded slot (the inverse of the sort's permutation)
+    # and the running end of each splat's range of expanded slots
+    slot_pos: torch.Tensor | None = None  # [P] int32
+    splat_end: torch.Tensor | None = None  # [N] int32
 
 
 def depth_rank(depth: torch.Tensor) -> torch.Tensor:
@@ -86,7 +91,7 @@ def bin_gaussians(
     rank: torch.Tensor | None = None, group_of: torch.Tensor | None = None,
     num_groups: int = 1, max_intersections: int = 0, tile_lo: int = 0,
     tile_hi: int | None = None, band_size: int | None = None, window_depth: int = 0,
-    window_extra: int = 0,
+    window_extra: int = 0, reduce_order: bool = False,
 ) -> TileBins:
     """Sort the frame's (splat, tile) slots by (tile, depth rank); with
     dense, also build the [T, max_per_tile] splat-index matrix.
@@ -104,7 +109,12 @@ def bin_gaussians(
     (stream layout): tile windows of at most max_per_tile slots, up to S per
     tile, within Tv = band + (window_extra or max(P // max_per_tile, 1))
     virtual tiles, P the stream's length; slots past S windows and windows
-    past Tv are counted in n_truncated."""
+    past Tv are counted in n_truncated. reduce_order: also return the
+    order in which the per-splat reduce sums each splat's slots
+    (`slot_pos`, `splat_end`; rasterize_kernels.segment_reduce_perm): a
+    splat's slots are expanded in ascending tile order and the sort is
+    stable, so a splat's live slots read off `slot_pos` in expansion order
+    lie in ascending stream order."""
     if group_of is not None and dense:
         raise ValueError("partition binning is stream-only")
     if group_of is not None and (tile_lo or tile_hi is not None or band_size is not None):
@@ -183,11 +193,15 @@ def bin_gaussians(
         pos = torch.clamp(tstart[:, None] + k[None, :], max=max(g_sorted.shape[0] - 1, 0))
         src = g_sorted if g_sorted.numel() else torch.zeros(1, dtype=g.dtype, device=dev)
         gauss_idx = i32(torch.where(k[None, :] < counts[:, None], src[pos], 0))
-    windows = {}
+    extra = {}  # the optional fields of TileBins
     if window_depth > 0:
-        counts, tstart, n_truncated, windows = _windows(
+        counts, tstart, n_truncated, extra = _windows(
             full_counts, tstart, window_depth, max_per_tile, window_extra,
             g_sorted.shape[0])
+    if reduce_order:  # the inverse of the sort's permutation; ranges cut at P
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=dev)
+        extra.update(slot_pos=inv, splat_end=torch.clamp(ends, max=order.shape[0]))
     total = nt.sum()
     n_dropped = (torch.clamp(total - P, min=0) if P > 0
                  else torch.zeros((), dtype=torch.int64, device=dev))
@@ -200,7 +214,7 @@ def bin_gaussians(
         n_truncated=i32(n_truncated),
         deepest=i32(full_counts.max()),
         gauss_idx=gauss_idx,
-        **{k: i32(v) for k, v in windows.items()},
+        **{k: i32(v) for k, v in extra.items()},
     )
 
 

@@ -10,14 +10,28 @@ channel. The blend takes one of two input layouts, as in the JAX package
     backward launches `blend_stream_bwd` (K2, per-slot gradient rows at the
     stream positions) or, with `bwd_layout="compact"`,
     `blend_stream_bwd_compact` (K4, the same rows compacted by chunk with
-    their splat ids), and then `segment_reduce` (K3, per-splat sums).
+    their splat ids), and then K3, the per-splat sums.
   * "dense": `DenseBlend`, the counterpart of the custom VJP
     `blend_tiles_pallas`. Its forward gathers a [T, K, 6 + C] block and
     launches `blend_tiles_fwd` (K5), its backward `blend_tiles_bwd` (K6,
-    the live rows at their stream positions, as K2 gives them) and then
-    `segment_reduce` over those rows with the stream's ids.
+    the live rows at their stream positions, as K2 gives them) and then K3
+    over those rows.
 All give the same images and gradients. On the CPU each kernel runs its
 plain PyTorch version.
+
+K3 sums per splat in the order `RasterizeConfig.reduce_backend` names, as
+in the JAX package, whose "auto" means "sorted_mxu" (`REDUCE_BACKEND`):
+  * "sorted_mxu": a fixed order, so a step's gradients repeat bit for bit
+    from run to run. The binning returns its sort's inverse permutation and
+    each splat's range of expanded slots (`TileBins.slot_pos`,
+    `splat_end`), and `segment_reduce_perm` sums each splat's rows in that
+    order, which is the order of its slots in the stream: no sort, where
+    the JAX package sorts the rows by id (and caches the sort for frozen
+    geometry in its ReducePlan, as `FrozenPlan` caches this order). The
+    compact backward's rows take it through `compact_positions`, the group
+    renders' per group;
+  * "scatter": `segment_reduce`'s atomic adds, in an order that changes from
+    run to run (the JAX package's segment_sum).
 
 Group renders (stage 2.2, the pseudo-label sweeps, stage 3) render G subsets
 of one scene: `rasterize_scan_groups` re-bins each group with its own masked
@@ -71,12 +85,19 @@ from opengaussian_tpu_torch.ops.rasterize_kernels import (
     blend_tiles_bwd_groups,
     blend_tiles_fwd,
     blend_tiles_fwd_groups,
+    compact_positions,
     segment_reduce,
+    segment_reduce_perm,
 )
 
 LAYOUTS = ("stream", "dense")
 BWD_LAYOUTS = ("auto", "dense", "compact")
 GROUP_RENDERS = ("auto", "scan", "dense")
+REDUCE_BACKENDS = ("auto", "sorted_mxu", "scatter")
+# what reduce_backend "auto" means (the JAX package's
+# rasterize_pallas.REDUCE_BACKEND): the per-splat reduce in the binning's
+# fixed order
+REDUCE_BACKEND = "sorted_mxu"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +128,12 @@ class RasterizeConfig:
     # same per-splat sums); "compact" = K4, rows compacted by chunk with
     # their splat ids
     bwd_layout: str = "auto"
+    # the backward's per-splat reduce (K3): "sorted_mxu" = each splat's rows
+    # summed in the binning's fixed order (segment_reduce_perm), so steps
+    # repeat bit for bit; "scatter" = atomic adds (segment_reduce), in an
+    # order that changes from run to run; "auto" = REDUCE_BACKEND (the JAX
+    # package's field, values and default)
+    reduce_backend: str = "auto"
     # group renders: "auto" and "scan" = rasterize_scan_groups (each group
     # re-binned under group_config()); "dense" = rasterize_groups (one dense
     # union binning at the frame budgets, the blend and its replay batched
@@ -150,6 +177,17 @@ class RasterizeConfig:
         if self.group_render not in GROUP_RENDERS:
             raise ValueError(f"group_render must be one of {GROUP_RENDERS}, got "
                              f"{self.group_render!r}")
+        if self.reduce_backend not in REDUCE_BACKENDS:
+            raise ValueError(f"reduce_backend must be one of {REDUCE_BACKENDS}, got "
+                             f"{self.reduce_backend!r}")
+
+    def resolved_reduce_backend(self) -> str:
+        """reduce_backend with "auto" read as REDUCE_BACKEND."""
+        return REDUCE_BACKEND if self.reduce_backend == "auto" else self.reduce_backend
+
+    def fixed_reduce_order(self) -> bool:
+        """Whether K3 sums in the binning's fixed order ("sorted_mxu")."""
+        return self.resolved_reduce_backend() == "sorted_mxu"
 
     def group_config(self) -> "RasterizeConfig":
         """The config one group's binning runs under (group_render "scan")."""
@@ -201,9 +239,11 @@ class FrozenPlan:
     ranks and sorted slot stream do not change from step to step: the plan
     keeps the stream's integer plumbing, and a step's whole binning (the
     expansion, the cull, the key sort, the tile ranges) becomes the one row
-    gather by `g_sorted` that the blend makes anyway. The port's reduce
-    (K3) sums by atomics and sorts nothing, so, as with the JAX package's
-    "scatter" reduce backend, the plan carries no reduce plan.
+    gather by `g_sorted` that the blend makes anyway. Under reduce_backend
+    "sorted_mxu" the plan also keeps the per-splat reduce's order
+    (`slot_pos`, `splat_end`: the JAX package's ReducePlan), so the
+    backward's reduce reads it and sorts nothing; under "scatter" it keeps
+    none, as the JAX package's plan does.
 
     Exactness, when the plan lost no slot (n_dropped == n_truncated == 0):
     at the covariance it was built with, the step sees the same stream bit
@@ -225,6 +265,8 @@ class FrozenPlan:
     vt_real: torch.Tensor | None = None  # the windows' maps (TileBins), or None
     vt_first: torch.Tensor | None = None
     vt_n: torch.Tensor | None = None
+    slot_pos: torch.Tensor | None = None  # the reduce's order (TileBins), or None
+    splat_end: torch.Tensor | None = None
 
     def _tensors(self):
         return [(f.name, getattr(self, f.name)) for f in dataclasses.fields(self)
@@ -246,8 +288,9 @@ class FrozenPlan:
 def stack_plans(plans: list[FrozenPlan], n: int) -> FrozenPlan:
     """Per-view plans stacked along a leading view axis; streams of unequal
     length (sized per frame) are padded with slots of id n, past every
-    tile, and windowed plans of unequal virtual-tile counts with dead
-    windows (count 0, start at the padded stream's end)."""
+    tile (and slot_pos with 0, past every splat's range), and windowed plans
+    of unequal virtual-tile counts with dead windows (count 0, start at the
+    padded stream's end)."""
     P = max(p.g_sorted.shape[0] for p in plans)
 
     def stack(name: str, value: int | None = None):
@@ -264,32 +307,44 @@ def stack_plans(plans: list[FrozenPlan], n: int) -> FrozenPlan:
                       counts=stack("counts", 0), total=stack("total"),
                       n_dropped=stack("n_dropped"), n_truncated=stack("n_truncated"),
                       vt_real=stack("vt_real", last), vt_first=stack("vt_first"),
-                      vt_n=stack("vt_n"))
+                      vt_n=stack("vt_n"), slot_pos=stack("slot_pos", 0),
+                      splat_end=stack("splat_end"))
 
 
 @torch.no_grad()
 def build_frozen_plan(camera: Camera, means3d, cov3d, opacities,
                       config: RasterizeConfig) -> FrozenPlan:
     """A view's FrozenPlan: the binning of this camera, geometry and config
-    (at rescale factor 1, the superset the rescaled steps ride)."""
+    (at rescale factor 1, the superset the rescaled steps ride), with the
+    reduce's order under reduce_backend "sorted_mxu"."""
     if config.pallas_input != "stream":
         raise ValueError("frozen plans need pallas_input='stream'")
     camera = camera.to(means3d.device)
-    _, bins, _ = _prepare(camera, means3d, cov3d, opacities, config)
+    _, bins, _ = _prepare(camera, means3d, cov3d, opacities, config,
+                          reduce_order=config.fixed_reduce_order())
     return FrozenPlan(g_sorted=bins.sorted_gauss, tstart=bins.tile_start,
                       counts=bins.counts, total=bins.total, n_dropped=bins.n_dropped,
                       n_truncated=bins.n_truncated, vt_real=bins.vt_real,
-                      vt_first=bins.vt_first, vt_n=bins.vt_n)
+                      vt_first=bins.vt_first, vt_n=bins.vt_n, slot_pos=bins.slot_pos,
+                      splat_end=bins.splat_end)
+
+
+def reduce_order_wanted(config: RasterizeConfig) -> bool:
+    """Whether a binning under config returns the reduce's order: under
+    "sorted_mxu", where autograd records (a backward may follow)."""
+    return config.fixed_reduce_order() and torch.is_grad_enabled()
 
 
 def _prepare(camera: Camera, means3d, cov3d, opacities, config: RasterizeConfig,
              screen_tap=None, proj: Projected | None = None,
              rank: torch.Tensor | None = None, frozen: FrozenPlan | None = None,
-             tile_lo: int = 0,
-             tile_hi: int | None = None) -> tuple[Projected, TileBins, tuple[int, int]]:
+             tile_lo: int = 0, tile_hi: int | None = None,
+             reduce_order: bool | None = None) -> tuple[Projected, TileBins, tuple[int, int]]:
     """Project (unless proj is given) and bin, or take the bins of a
     FrozenPlan. tile_lo / tile_hi: the band of tiles to bin (all by
-    default); the stream layout bins with config.tile_windows."""
+    default); the stream layout bins with config.tile_windows. reduce_order:
+    whether the bins carry the reduce's order (default
+    `reduce_order_wanted`)."""
     grid_x, grid_y = _grids(camera)
     if proj is None:
         proj = _project(camera, means3d, cov3d, opacities, config, screen_tap)
@@ -301,14 +356,17 @@ def _prepare(camera: Camera, means3d, cov3d, opacities, config: RasterizeConfig,
                         sorted_gauss=frozen.g_sorted, total=frozen.total,
                         n_dropped=frozen.n_dropped, n_truncated=frozen.n_truncated,
                         deepest=frozen.counts.max(), vt_real=frozen.vt_real,
-                        vt_first=frozen.vt_first, vt_n=frozen.vt_n)
+                        vt_first=frozen.vt_first, vt_n=frozen.vt_n,
+                        slot_pos=frozen.slot_pos, splat_end=frozen.splat_end)
     else:
         bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile,
                              dense=not stream, rank=rank,
                              max_intersections=config.fixed_budget(means3d.shape[0]),
                              tile_lo=tile_lo, tile_hi=tile_hi,
                              window_depth=config.tile_windows if stream else 0,
-                             window_extra=config.window_extra)
+                             window_extra=config.window_extra,
+                             reduce_order=(reduce_order_wanted(config) if reduce_order is None
+                                           else reduce_order))
     return proj, bins, (grid_x, grid_y)
 
 
@@ -332,22 +390,47 @@ def gather_rows(mean2d, conic, opac, payload, idx) -> torch.Tensor:
     return table[torch.clamp(idx.to(torch.int64), max=table.shape[0] - 1)]
 
 
+def _order(bins: TileBins, config: RasterizeConfig):
+    """The reduce's order the backward takes: (slot_pos, splat_end) under
+    "sorted_mxu" where autograd records, else None (K3's atomic entry, or
+    no backward)."""
+    if not reduce_order_wanted(config):
+        return None
+    if bins.slot_pos is None:
+        raise ValueError("reduce_backend 'sorted_mxu' needs bins with the reduce's order "
+                         "(bin_gaussians(reduce_order=True), or a FrozenPlan built "
+                         "under it)")
+    return bins.slot_pos, bins.splat_end
+
+
+def _per_splat(d_rows, ids, n: int, order, groups: int = 1):
+    """K3: d_rows [G R, F] -> [G n, F], in the order (slot_pos, splat_end)
+    by `segment_reduce_perm`, or, with order None, by ids [G R] in atomic
+    order."""
+    if order is None:
+        return segment_reduce(d_rows, ids, groups * n)
+    return segment_reduce_perm(d_rows, order[0], order[1], n, groups)
+
+
 class StreamBlend(torch.autograd.Function):
     """Blend of the sorted slot stream with a per-splat backward.
 
     forward(mean2d [N,2], conic [N,3], opac [N], payload [N,C], sorted_gauss,
-    tile_start, counts, toff, grid_x, chunk, bwd_layout) -> (accum
+    tile_start, counts, toff, grid_x, chunk, bwd_layout, order) -> (accum
     [T, C, 256], t_final [T, 256]). The rows are gathered inside the
     forward, where autograd records nothing (the JAX package's stop_gradient
     on the carry): the backward reduces the per-slot rows to per-splat
     gradients itself, so autograd must not differentiate the gather as well.
     The backward takes the rows from K2 (at the stream positions, ids from
     sorted_gauss) or, for bwd_layout "compact", from K4 (compacted, with
-    their ids), and sums them per splat with K3."""
+    their ids), and sums them per splat with K3: in the order (slot_pos,
+    splat_end) of `order` (the compact rows' positions through
+    `compact_positions`), or, with order None, in atomic order by the ids."""
 
     @staticmethod
     def forward(ctx, mean2d, conic, opac, payload, sorted_gauss, tile_start,
-                counts, toff, grid_x: int, chunk: int, bwd_layout: str = "auto"):
+                counts, toff, grid_x: int, chunk: int, bwd_layout: str = "auto",
+                order=None):
         rows = gather_rows(mean2d, conic, opac, payload, sorted_gauss)
         accum, t_final = blend_stream_fwd(rows, counts, tile_start, toff, grid_x,
                                           chunk)
@@ -355,6 +438,7 @@ class StreamBlend(torch.autograd.Function):
                               accum, t_final)
         ctx.grid_x, ctx.chunk, ctx.n = grid_x, chunk, mean2d.shape[0]
         ctx.compact = bwd_layout == "compact"
+        ctx.order = order
         return accum, t_final
 
     @staticmethod
@@ -362,15 +446,19 @@ class StreamBlend(torch.autograd.Function):
         rows, sorted_gauss, tile_start, counts, toff, accum, t_final = ctx.saved_tensors
         cot = (accum, t_final, g_accum.contiguous(), g_t.contiguous(), ctx.grid_x,
                ctx.chunk)
+        order = ctx.order
         if ctx.compact:
             d_rows, ids = blend_stream_bwd_compact(rows, counts, tile_start, toff,
                                                    sorted_gauss, *cot, ctx.n)
+            if order is not None:  # the compact row of each expanded slot
+                rows_at = compact_positions(tile_start, counts, ctx.chunk, rows.shape[0])
+                order = (rows_at[order[0].to(torch.int64)], order[1])
         else:
             d_rows = blend_stream_bwd(rows, counts, tile_start, toff, *cot)
             ids = sorted_gauss
-        per = segment_reduce(d_rows, ids, ctx.n)
+        per = _per_splat(d_rows, ids, ctx.n, order)
         return (per[:, 0:2], per[:, 2:5], per[:, 5], per[:, N_GEOM:],
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 class DenseBlend(torch.autograd.Function):
@@ -379,21 +467,22 @@ class DenseBlend(torch.autograd.Function):
 
     forward(mean2d [N,2], conic [N,3], opac [N], payload [N,C], gauss_idx
     [T,K], sorted_gauss [P], tile_start [T], counts [T], grid_x, chunk,
-    tile_offset) -> (accum [T, C, 256], t_final [T, 256]); tile t shades
-    image tile t + tile_offset (a band's first tile). The block gdata [T, K, 6+C] is
-    gathered inside the forward, where autograd records nothing, as in
-    StreamBlend. The backward takes the live rows from the K6 replay, at
-    the stream positions tile_start[t] + k the block was gathered from, and
-    sums them per splat with K3 by sorted_gauss: P rows, not T x K."""
+    tile_offset, order) -> (accum [T, C, 256], t_final [T, 256]); tile t
+    shades image tile t + tile_offset (a band's first tile). The block gdata
+    [T, K, 6+C] is gathered inside the forward, where autograd records
+    nothing, as in StreamBlend. The backward takes the live rows from the K6
+    replay, at the stream positions tile_start[t] + k the block was gathered
+    from, and sums them per splat with K3 (P rows, not T x K) as StreamBlend
+    does: in `order`, or by sorted_gauss in atomic order."""
 
     @staticmethod
     def forward(ctx, mean2d, conic, opac, payload, gauss_idx, sorted_gauss, tile_start,
-                counts, grid_x: int, chunk: int, tile_offset: int = 0):
+                counts, grid_x: int, chunk: int, tile_offset: int = 0, order=None):
         gdata = gather_rows(mean2d, conic, opac, payload, gauss_idx)
         accum, t_final = blend_tiles_fwd(gdata, counts, grid_x, chunk, tile_offset)
         ctx.save_for_backward(gdata, sorted_gauss, tile_start, counts, accum, t_final)
         ctx.grid_x, ctx.chunk, ctx.n = grid_x, chunk, mean2d.shape[0]
-        ctx.tile_offset = tile_offset
+        ctx.tile_offset, ctx.order = tile_offset, order
         return accum, t_final
 
     @staticmethod
@@ -402,9 +491,9 @@ class DenseBlend(torch.autograd.Function):
         d_rows = blend_tiles_bwd(gdata, counts, tile_start, sorted_gauss.shape[0], accum,
                                  t_final, g_accum.contiguous(), g_t.contiguous(),
                                  ctx.grid_x, ctx.chunk, ctx.tile_offset)
-        per = segment_reduce(d_rows, sorted_gauss, ctx.n)
+        per = _per_splat(d_rows, sorted_gauss, ctx.n, ctx.order)
         return (per[:, 0:2], per[:, 2:5], per[:, 5], per[:, N_GEOM:],
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 class GroupDenseBlend(torch.autograd.Function):
@@ -414,17 +503,18 @@ class GroupDenseBlend(torch.autograd.Function):
 
     forward(mean2d [N,2], conic [N,3], opac_g [G,N], payload [N,C],
     gauss_idx [T,K], sorted_gauss [P], tile_start [T], counts [T], grid_x,
-    chunk) -> (accum [G, T, C, 256], t_final [G, T, 256]). One block
+    chunk, order) -> (accum [G, T, C, 256], t_final [G, T, 256]). One block
     [T, K, 6+C] is gathered for all groups (its opacity column is unused),
     and the group entry of K5 blends it with each group's opacity by splat
     id. The backward's group entry of K6 gives each group's live rows at
-    their stream positions, [G, P, 6+C]; K3 sums them by g n + sorted_gauss
-    into [G, n, 6+C]: the opacity gradient stays per group, the others are
-    summed over the groups."""
+    their stream positions, [G, P, 6+C]; K3 sums them into [G, n, 6+C],
+    each group in `order`, or by g n + sorted_gauss in atomic order: the
+    opacity gradient stays per group, the others are summed over the
+    groups."""
 
     @staticmethod
     def forward(ctx, mean2d, conic, opac_g, payload, gauss_idx, sorted_gauss,
-                tile_start, counts, grid_x: int, chunk: int):
+                tile_start, counts, grid_x: int, chunk: int, order=None):
         n = mean2d.shape[0]
         opac_g = opac_g.contiguous()
         gdata = gather_rows(mean2d, conic, mean2d.new_zeros(n), payload, gauss_idx)
@@ -432,7 +522,7 @@ class GroupDenseBlend(torch.autograd.Function):
                                                 grid_x, chunk)
         ctx.save_for_backward(gdata, gauss_idx, opac_g, sorted_gauss, tile_start,
                               counts, accum, t_final)
-        ctx.grid_x, ctx.chunk = grid_x, chunk
+        ctx.grid_x, ctx.chunk, ctx.order = grid_x, chunk, order
         return accum, t_final
 
     @staticmethod
@@ -444,14 +534,16 @@ class GroupDenseBlend(torch.autograd.Function):
         d_rows = blend_tiles_bwd_groups(gdata, gauss_idx, opac_g, counts, tile_start, P,
                                         accum, t_final, g_accum.contiguous(),
                                         g_t.contiguous(), ctx.grid_x, ctx.chunk)
-        sg = sorted_gauss.to(torch.int64)
-        base = torch.arange(G, device=sg.device)[:, None] * n
-        ids = torch.where((sg >= 0) & (sg < n), base + sg, G * n).to(torch.int32)
-        per = segment_reduce(d_rows.reshape(G * P, -1), ids.reshape(-1), G * n)
-        per = per.reshape(G, n, -1)
+        ids = None
+        if ctx.order is None:
+            sg = sorted_gauss.to(torch.int64)
+            base = torch.arange(G, device=sg.device)[:, None] * n
+            ids = torch.where((sg >= 0) & (sg < n), base + sg, G * n).to(torch.int32)
+            ids = ids.reshape(-1)
+        per = _per_splat(d_rows.reshape(G * P, -1), ids, n, ctx.order, G).reshape(G, n, -1)
         rest = per.sum(dim=0)
         return (rest[:, 0:2], rest[:, 2:5], per[:, :, 5], rest[:, N_GEOM:],
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def _untile(x: torch.Tensor, grid_x: int, grid_y: int, H: int, W: int) -> torch.Tensor:
@@ -515,14 +607,15 @@ def _blend(proj: Projected, bins: TileBins, opac, full_payload, grid_x: int,
         return DenseBlend.apply(
             proj.mean2d, proj.conic, opac, full_payload, bins.gauss_idx,
             bins.sorted_gauss, bins.tile_start, bins.counts, grid_x, config.chunk,
-            tile_lo)
+            tile_lo, _order(bins, config))
     if toff is None:
         vt = (bins.vt_real if bins.vt_real is not None else
               torch.arange(bins.counts.shape[0], device=bins.counts.device))
         toff = (tile_lo + vt).to(torch.int32)
     accum, t_final = StreamBlend.apply(
         proj.mean2d, proj.conic, opac, full_payload, bins.sorted_gauss,
-        bins.tile_start, bins.counts, toff, grid_x, config.chunk, config.bwd_layout)
+        bins.tile_start, bins.counts, toff, grid_x, config.chunk, config.bwd_layout,
+        _order(bins, config))
     if bins.vt_real is not None:
         accum, t_final = _fold_windows(accum, t_final, bins.vt_first, bins.vt_n,
                                        config.tile_windows)
@@ -682,7 +775,7 @@ def rasterize_groups(
     full_payload = torch.cat([payload, proj.depth[:, None]], dim=-1)
     accum, t_final = GroupDenseBlend.apply(
         proj.mean2d, proj.conic, opac_g, full_payload, bins.gauss_idx, bins.sorted_gauss,
-        bins.tile_start, bins.counts, grids[0], config.chunk)
+        bins.tile_start, bins.counts, grids[0], config.chunk, _order(bins, dense))
     image, alpha, depth = _images(camera, grids, accum.flatten(0, 1), t_final.flatten(0, 1),
                                   bg)
     return RasterOut(image=image, alpha=alpha, depth=depth, radii=proj.radius,
@@ -724,7 +817,8 @@ def rasterize_partition(
     bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile, rank=rank,
                          group_of=group_of, num_groups=num_groups,
                          max_intersections=config.fixed_budget(means3d.shape[0]),
-                         window_depth=config.tile_windows, window_extra=config.window_extra)
+                         window_depth=config.tile_windows, window_extra=config.window_extra,
+                         reduce_order=reduce_order_wanted(config))
     opac, full_payload = _blend_inputs(proj, opacities, payload)
     vt = (bins.vt_real if bins.vt_real is not None
           else torch.arange(num_groups * T, device=bins.counts.device))

@@ -10,12 +10,15 @@
   * `blend_stream_bwd_compact` (csrc/blend_stream_bwd_compact.cu) is the
     counterpart of `blend_stream_pallas_bwd_compact`: the same replay, its
     rows written at chunk-compacted offsets beside their splat ids.
-  * `segment_reduce` (csrc/segment_reduce.cu) is the counterpart of
-    `sorted_segment_reduce`: the per-splat sum of those rows, in atomic
-    order; under `torch.use_deterministic_algorithms` it hands the rows to
-    `segment_reduce_sorted`, the same source's deterministic entry, which
-    sorts the ids as the JAX package does and sums each id's rows in row
-    order.
+  * `segment_reduce_perm`, `segment_reduce` and `segment_reduce_sorted`
+    (csrc/segment_reduce.cu) are the counterparts of
+    `sorted_segment_reduce`: the per-splat sum of those rows. The
+    permutation entry, the rasterizer's default (RasterizeConfig
+    reduce_backend "sorted_mxu"), sums each splat's rows in a fixed order
+    read off the binning's sort, without sorting; `segment_reduce` sums in
+    atomic order (reduce_backend "scatter"); `segment_reduce_sorted` sorts
+    the ids as the JAX package does and sums each id's rows in row order
+    (the SAM refiner's votes).
   * `blend_tiles_fwd` (csrc/blend_tiles_fwd.cu) and `blend_tiles_bwd`
     (csrc/blend_tiles_bwd.cu) are the counterparts of `blend_tiles_pallas_fwd`
     and `blend_tiles_pallas_bwd`: the same blend and replay over a dense
@@ -79,7 +82,8 @@ _ENTRIES = {
                                     [_p, _i, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
                                      _p, _p, _p, _p, _p, _p, _p]),
     "og_segment_reduce": ("segment_reduce", [_p, _p, _i, _i, _i, _p, _p]),
-    "og_segment_reduce_sorted": ("segment_reduce", [_p, _p, _p, _i, _i, _i, _p, _p]),
+    "og_segment_reduce_sorted": ("segment_reduce", [_p, _p, _p, _i, _i, _i, _i, _p, _p]),
+    "og_segment_reduce_perm": ("segment_reduce", [_p, _p, _p, _i, _i, _i, _i, _p, _p]),
     "og_blend_tiles_fwd": ("blend_tiles_fwd", [_p, _i, _i, _i, _p, _i, _i, _i, _p, _p,
                                                _p]),
     "og_blend_tiles_bwd": ("blend_tiles_bwd", [_p, _i, _i, _i, _p, _p, _i, _i, _i,
@@ -666,16 +670,14 @@ def segment_reduce(rows, ids, n: int):
     outside [0, n) are dropped.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel, whose
-    atomic adds sum in an order that changes from run to run, or, while
-    torch.are_deterministic_algorithms_enabled(), `segment_reduce_sorted`.
-    `segment_reduce.launches` counts the atomic kernel's launches."""
+    atomic adds sum in an order that changes from run to run
+    (RasterizeConfig(reduce_backend="scatter")).
+    `segment_reduce.launches` counts the kernel's launches."""
     dev = rows.device
     if dev.type == "cpu":
         return segment_reduce_plain(rows, ids, n)
     if dev.type != "cuda":
         raise ValueError(f"segment_reduce runs on cpu or cuda, not {dev}")
-    if torch.are_deterministic_algorithms_enabled():
-        return segment_reduce_sorted(rows, ids, n)
     _check_reduce(rows, ids, n)
     R, F = rows.shape
     # the C entry zero-fills out on the stream before it adds the rows
@@ -691,30 +693,125 @@ def segment_reduce(rows, ids, n: int):
 segment_reduce.launches = 0
 
 
-def segment_reduce_sorted(rows, ids, n: int):
+def segment_reduce_sorted(rows, ids, n: int, out=None):
     """`segment_reduce` in a fixed order: the ids sorted stably, then one
     thread per id sums its rows in row order. The sums repeat bit for bit
-    and equal the plain version's on the CPU. Arguments and output as for
-    `segment_reduce`; CPU tensors run the plain version.
+    and equal the plain version's on the CPU. Arguments as for
+    `segment_reduce`; out: an [n, F] f32 tensor to add into (index_add_'s
+    order: each id's sum starts from its value in out), else a new one.
+    CPU tensors run the plain version (index_add_).
     `segment_reduce_sorted.launches` counts kernel launches."""
     dev = rows.device
+    if out is not None and (out.dtype != torch.float32 or out.device != dev
+                            or tuple(out.shape) != (n, rows.shape[-1])
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be contiguous float32 [{n}, {rows.shape[-1]}] on "
+                         f"{dev}, got {out.dtype} {tuple(out.shape)} on {out.device}")
     if dev.type == "cpu":
-        return segment_reduce_plain(rows, ids, n)
+        if out is None:
+            return segment_reduce_plain(rows, ids, n)
+        _check_reduce(rows, ids, n)
+        keep = (ids >= 0) & (ids < n)
+        return out.index_add_(0, ids[keep].to(torch.int64), rows[keep])
     if dev.type != "cuda":
         raise ValueError(f"segment_reduce_sorted runs on cpu or cuda, not {dev}")
     _check_reduce(rows, ids, n)
     R, F = rows.shape
-    out = torch.empty((n, F), dtype=torch.float32, device=dev)
+    acc = out is not None
+    if not acc:
+        out = torch.empty((n, F), dtype=torch.float32, device=dev)
     if R == 0 or n * F == 0:
-        return out.zero_()
+        return out if acc else out.zero_()
     keys, order = torch.sort(ids, stable=True)
     _launch("og_segment_reduce_sorted", dev, rows.data_ptr(), keys.data_ptr(),
-            order.data_ptr(), R, F, n, out.data_ptr())
+            order.data_ptr(), R, F, n, int(acc), out.data_ptr())
     segment_reduce_sorted.launches += 1
     return out
 
 
 segment_reduce_sorted.launches = 0
+
+
+def _check_perm(rows, pos, ends, n: int, groups: int) -> None:
+    if rows.dtype != torch.float32 or rows.dim() != 2 or not rows.is_contiguous():
+        raise ValueError(f"rows must be contiguous float32 [G R, F], got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    if groups <= 0 or rows.shape[0] % groups or rows.shape[0] // groups >= 2**31:
+        raise ValueError(f"{rows.shape[0]} rows do not split into {groups} groups of "
+                         "fewer than 2^31")
+    for nm, x, shape in (("pos", pos, (pos.shape[0],)), ("ends", ends, (n,))):
+        if (x.dtype != torch.int32 or x.dim() != 1 or tuple(x.shape) != shape
+                or x.device != rows.device or not x.is_contiguous()):
+            raise ValueError(f"{nm} must be contiguous int32 {list(shape)} on the rows' "
+                             f"device, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if not 0 <= n < 2**31 or pos.shape[0] >= 2**31:
+        raise ValueError(f"n and the length of pos must be below 2^31, got n={n}, "
+                         f"{pos.shape[0]}")
+
+
+def segment_reduce_perm_plain(rows, pos, ends, n: int, groups: int = 1):
+    """Plain PyTorch version of the permutation entry: index_add_ of
+    rows[pos] by the splat of each expanded slot, in expansion order,
+    once per group. Arguments and output as for `segment_reduce_perm`."""
+    _check_perm(rows, pos, ends, n, groups)
+    dev, F = rows.device, rows.shape[1]
+    p = torch.arange(pos.shape[0], device=dev)
+    splat = torch.searchsorted(ends.to(torch.int64), p, right=True)
+    keep = (splat < n) & (pos >= 0)
+    idx, src = splat[keep], pos[keep].to(torch.int64)
+    out = torch.zeros((groups, n, F), dtype=torch.float32, device=dev)
+    for g, rows_g in enumerate(rows.reshape(groups, -1, F)):
+        out[g].index_add_(0, idx, rows_g[src])
+    return out.reshape(groups * n, F)
+
+
+def segment_reduce_perm(rows, pos, ends, n: int, groups: int = 1):
+    """`segment_reduce` in the binning's fixed order, with no sort.
+
+    rows [G R, F] f32: G groups of R rows (the slots' gradient rows at their
+    stream positions, or compacted); pos [L] int32: the row of each
+    expanded slot within its group's R, or < 0 for none
+    (`TileBins.slot_pos`, the inverse of the binning's sort); ends [n]
+    int32: splat i owns expanded slots [ends[i - 1], ends[i]) (ends[-1] =
+    0; `TileBins.splat_end`). -> [G n, F]: row g n + i sums group g's rows
+    of splat i in the order of its slots. Where each splat's live slots
+    lie in ascending stream order and every other row is zero (the binned
+    stream's), the sums equal `segment_reduce_sorted`'s by the stream's ids
+    bit for bit, and repeat from run to run.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    `segment_reduce_perm.launches` counts kernel launches."""
+    dev = rows.device
+    if dev.type == "cpu":
+        return segment_reduce_perm_plain(rows, pos, ends, n, groups)
+    if dev.type != "cuda":
+        raise ValueError(f"segment_reduce_perm runs on cpu or cuda, not {dev}")
+    _check_perm(rows, pos, ends, n, groups)
+    F = rows.shape[1]
+    out = torch.empty((groups * n, F), dtype=torch.float32, device=dev)
+    if n * F == 0:
+        return out
+    _launch("og_segment_reduce_perm", dev, rows.data_ptr(), pos.data_ptr(), ends.data_ptr(),
+            rows.shape[0] // groups, F, n, groups, out.data_ptr())
+    segment_reduce_perm.launches += 1
+    return out
+
+
+segment_reduce_perm.launches = 0
+
+
+def compact_positions(tstart, counts, chunk: int, n_rows: int) -> torch.Tensor:
+    """The compact layout's row of each stream position: [n_rows] int32,
+    cstart[t] * chunk + k for slot tstart[t] + k of tile t (k < counts[t]),
+    -1 for a slot no tile walks. tstart must not decrease (the binned
+    stream's, windows and bands included). No host sync."""
+    q = torch.arange(n_rows, device=counts.device)
+    t = torch.searchsorted(tstart.to(torch.int64), q, right=True) - 1
+    ts = torch.clamp(t, min=0)
+    k = q - tstart.to(torch.int64)[ts]
+    live = (t >= 0) & (k < counts.to(torch.int64)[ts])
+    row = compact_starts(counts, chunk).to(torch.int64)[ts] * chunk + k
+    return torch.where(live, row, -1).to(torch.int32)
 
 
 def _check_dense(gdata, counts, chunk: int) -> None:
@@ -1024,5 +1121,6 @@ blend_tiles_bwd_groups.launches = 0
 # every kernel wrapper, with its launch counter (a captured training step
 # adds its launches to these on each replay)
 KERNEL_WRAPPERS = (blend_stream_fwd, blend_stream_bwd, blend_stream_bwd_compact,
-                   segment_reduce, segment_reduce_sorted, blend_tiles_fwd, blend_tiles_bwd,
-                   blend_tiles_fwd_groups, blend_tiles_bwd_groups)
+                   segment_reduce, segment_reduce_sorted, segment_reduce_perm,
+                   blend_tiles_fwd, blend_tiles_bwd, blend_tiles_fwd_groups,
+                   blend_tiles_bwd_groups)

@@ -45,6 +45,7 @@ from opengaussian_tpu_torch.refine.sam_refiner import (
     _chunk_alphas,
     _tile_pixels,
     _tile_sam_onehot,
+    add_votes,
     fp32_matmuls,
 )
 
@@ -92,8 +93,9 @@ def make_refiner_fns(mesh: Mesh, config: RasterizeConfig) -> SimpleNamespace:
         onehot = _rows(_tile_sam_onehot(sam_ids, grid_x, grid_y, max_ids), mesh.rank * tl, tl)
         opac_f = torch.where(proj.valid, opac_f, 0.0)
         votes = torch.zeros((opac_f.shape[0], max_ids), device=gs.device)
-        for ids, a in _chunk_alphas(proj, bins, opac_f, pix, config):
-            votes.index_add_(0, ids.reshape(-1), torch.bmm(a, onehot).reshape(-1, max_ids))
+        for ids, a, live in _chunk_alphas(proj, bins, opac_f, pix, config):
+            add_votes(votes, ids.reshape(-1), torch.bmm(a, onehot).reshape(-1, max_ids),
+                      live.reshape(-1), config)
         dist.all_reduce(votes, group=mesh.group)
         return votes, visible, depth
 
@@ -115,7 +117,7 @@ def make_refiner_fns(mesh: Mesh, config: RasterizeConfig) -> SimpleNamespace:
         opac_f = torch.where(proj.valid, opac_f, 0.0)
         ids_m = torch.arange(1, max_ids + 1, device=gs.device)
         acc = torch.zeros((pix.shape[0], TILE * TILE, max_ids), device=gs.device)
-        for ids, a in _chunk_alphas(proj, bins, opac_f, pix, config):
+        for ids, a, _live in _chunk_alphas(proj, bins, opac_f, pix, config):
             onehot = (splat_gid[ids][:, :, None] == ids_m).to(torch.float32)
             acc.baddbmm_(a.transpose(1, 2), onehot)  # += tkp,tkm->tpm
         acc = _untile(all_gather(acc, mesh)[:grid_x * grid_y], grid_x, grid_y, H, W)[0]

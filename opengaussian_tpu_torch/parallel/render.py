@@ -36,6 +36,7 @@ from opengaussian_tpu_torch.ops.rasterize import (
     _blend_inputs,
     _grids,
     _untile,
+    reduce_order_wanted,
 )
 from opengaussian_tpu_torch.parallel.mesh import Mesh
 from opengaussian_tpu_torch.parallel.mesh import all_gather as _all_gather
@@ -144,11 +145,13 @@ def render_sharded(mesh: Mesh, camera: Camera, means3d, cov3d, opacities, payloa
                              max_intersections=config.band_intersection_budget,
                              tile_lo=t0, band_size=tl,
                              window_depth=config.tile_windows if stream else 0,
-                             window_extra=config.window_extra)
+                             window_extra=config.window_extra,
+                             reduce_order=reduce_order_wanted(config))
     else:
         bins = _tile_slice(bin_gaussians(proj, grid_x, grid_y, config.max_per_tile,
                                          dense=not stream,
-                                         max_intersections=config.fixed_budget(n_total)),
+                                         max_intersections=config.fixed_budget(n_total),
+                                         reduce_order=reduce_order_wanted(config)),
                            t0, tl)
     opac, full_payload = _blend_inputs(proj, opac_f, pay_f)
     accum, t_final = _blend(proj, bins, opac, full_payload, grid_x, config, t0)

@@ -25,9 +25,13 @@ one-hot ids in one fp32 batched matrix product, so a camera costs about one
 render. The depth render is the rasterizer's (one K1 launch per view in the
 stream layout, K5 in the dense one); the votes and the expansion are plain
 PyTorch, as the JAX package computes them in XLA outside any Pallas kernel.
-The votes' scatter-add is `index_add_`, whose order on the card is atomic:
-votes and weights agree with the CPU's to a tolerance, and the masks agree
-where no decision is near a tie. The host graph merge and `majority_winner`
+The votes' scatter-add (`add_votes`) follows RasterizeConfig.reduce_backend:
+under "sorted_mxu" (the default) K3's sorted entry adds each splat's votes
+in row order, as the CPU's `index_add_` does, so the votes repeat from run
+to run; under "scatter" it is `index_add_`, whose order on the card is
+atomic. Votes and weights agree with the CPU's to a tolerance (the card's
+matrix products round otherwise), and the masks agree where no decision is
+near a tie. The host graph merge and `majority_winner`
 are the JAX package's numpy, unchanged.
 
 Both footprint passes project without opacities (the classic 3-sigma rect,
@@ -65,6 +69,7 @@ import torch
 from opengaussian_tpu_torch.cameras import Camera
 from opengaussian_tpu_torch.models.gaussians import GaussianState
 from opengaussian_tpu_torch.ops import blend
+from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 from opengaussian_tpu_torch.ops.projection import TILE, build_cov3d
 from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, _prepare, rasterize
 
@@ -98,6 +103,21 @@ def fp32_matmuls():
         torch.backends.cuda.matmul.allow_tf32 = allowed
 
 
+def add_votes(votes: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor,
+              live: torch.Tensor, config: RasterizeConfig) -> torch.Tensor:
+    """votes [N, M] += rows [R, M] by splat ids [R], in place: under
+    reduce_backend "sorted_mxu" through K3's sorted entry (each splat's rows
+    in row order, from its value in votes: index_add_'s order, so the sums
+    repeat; the rows that are not live, all zero, left out, so the padding
+    of every tile's chunk is no run of id 0), under "scatter" by index_add_
+    (atomic order on the card)."""
+    if not config.fixed_reduce_order():
+        return votes.index_add_(0, ids, rows)
+    n = votes.shape[0]
+    return rk.segment_reduce_sorted(rows.contiguous(), torch.where(live, ids, n).to(torch.int32),
+                                    n, out=votes)
+
+
 def _tile_pixels(grid_x: int, grid_y: int, dev) -> torch.Tensor:
     """[T, 256, 2] float pixel coordinates (x, y) of every tile's pixels."""
     t = torch.arange(grid_x * grid_y, device=dev)
@@ -118,15 +138,16 @@ def _footprint_bins(gs: GaussianState, camera: Camera, config: RasterizeConfig):
 
 def _chunk_alphas(proj, bins, opac, pix, config: RasterizeConfig):
     """Per chunk of every tile's slots: (ids [T, chunk] int64, raw alpha
-    [T, chunk, 256]) with no 0.99 clamp, 1/255 skip or transmittance; slots
-    past a tile's count have opacity 0."""
+    [T, chunk, 256] with no 0.99 clamp, 1/255 skip or transmittance, live
+    [T, chunk] bool); slots past a tile's count (not live) have id 0 and
+    opacity 0."""
     chunk = config.chunk
     k = torch.arange(chunk, device=pix.device)
     for i in range(config.max_per_tile // chunk):
         ids = bins.gauss_idx[:, i * chunk:(i + 1) * chunk].to(torch.int64)
         kmask = (i * chunk + k)[None, :] < bins.counts[:, None]
         o = torch.where(kmask, opac[ids], 0.0)
-        yield ids, blend.alpha_from_conic(proj.mean2d[ids], proj.conic[ids], o, pix)
+        yield ids, blend.alpha_from_conic(proj.mean2d[ids], proj.conic[ids], o, pix), kmask
 
 
 def _tile_sam_onehot(sam_ids, grid_x: int, grid_y: int, max_ids: int) -> torch.Tensor:
@@ -158,9 +179,10 @@ def splat_id_votes(gs: GaussianState, camera: Camera, sam_ids: torch.Tensor,
     onehot = _tile_sam_onehot(sam_ids, grid_x, grid_y, max_ids)  # [T, 256, M]
     opac = torch.where(proj.valid & gs.alive, gs.opacity, 0.0)
     votes = torch.zeros((gs.capacity, max_ids), dtype=torch.float32, device=gs.device)
-    for ids, alpha in _chunk_alphas(proj, bins, opac, pix, config):
+    for ids, alpha, live in _chunk_alphas(proj, bins, opac, pix, config):
         v_chunk = torch.bmm(alpha, onehot)  # tkp,tpm->tkm
-        votes.index_add_(0, ids.reshape(-1), v_chunk.reshape(-1, max_ids))
+        add_votes(votes, ids.reshape(-1), v_chunk.reshape(-1, max_ids), live.reshape(-1),
+                  config)
     return votes, visible
 
 
@@ -189,7 +211,7 @@ def pixel_weight_accumulation(gs: GaussianState, camera: Camera,
     ids_m = torch.arange(1, max_ids + 1, device=gs.device)
     T = bins.counts.shape[0]
     acc = torch.zeros((T, TILE * TILE, max_ids), dtype=torch.float32, device=gs.device)
-    for ids, alpha in _chunk_alphas(proj, bins, opac, pix, config):
+    for ids, alpha, _live in _chunk_alphas(proj, bins, opac, pix, config):
         onehot = (splat_global_id[ids][:, :, None] == ids_m).to(torch.float32)
         acc.baddbmm_(alpha.transpose(1, 2), onehot)  # += tkp,tkm->tpm
     H, W = camera.height, camera.width

@@ -2,9 +2,10 @@
 render_clusters and the trainer with plans, against the fresh binning and
 the JAX package (tests/test_frozen.py's cases and bounds) on the CPU.
 
-The port's reduce sums by atomics and sorts nothing, so its plans carry no
-reduce plan, as the JAX package's "scatter" backend's do
-(tests/test_frozen.py:217).
+The JAX plans here are built under its "scatter" reduce backend, whose
+plans carry no reduce plan (tests/test_frozen.py:217); the port's plans
+under its default "sorted_mxu" carry the reduce's order, which
+tests/test_torch_reduce_order.py holds against the JAX package's ReducePlan.
 """
 
 import dataclasses

@@ -10,7 +10,8 @@ test skips where torch.cuda.is_available() is false. The stream fixture
 (`make_bwd_stream`, `make_deep_bwd_stream`, `make_flat_bwd_stream`) with
 tests/test_torch_replay.py and tests/test_torch_fwd_walk.py, the dense one
 `make_dense` (with `dense_starts`) with tests/test_torch_dense.py and
-tests/test_torch_fwd_walk.py.
+tests/test_torch_fwd_walk.py, the binnings with the reduce's order
+(`make_order_bins`, `walked_rows`) with tests/test_torch_reduce_order.py.
 """
 
 import numpy as np
@@ -18,8 +19,9 @@ import pytest
 import torch
 
 from opengaussian_tpu_torch.cameras import Camera
+from opengaussian_tpu_torch.ops.binning import bin_gaussians
 from opengaussian_tpu_torch.ops.oracle import rasterize_oracle
-from opengaussian_tpu_torch.ops.projection import build_cov3d
+from opengaussian_tpu_torch.ops.projection import build_cov3d, project
 from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, rasterize
 from opengaussian_tpu_torch.ops.rasterize_kernels import (
     blend_stream_bwd,
@@ -33,8 +35,11 @@ from opengaussian_tpu_torch.ops.rasterize_kernels import (
     blend_tiles_fwd,
     blend_tiles_fwd_plain,
     compact_offsets,
+    compact_positions,
     compact_rows,
     segment_reduce,
+    segment_reduce_perm,
+    segment_reduce_perm_plain,
     segment_reduce_plain,
     segment_reduce_sorted,
 )
@@ -75,6 +80,46 @@ def make_stream(seed=0, C=4):
     rows = np.concatenate(rows).astype(np.float32)
     tstart = (np.cumsum(counts) - counts).astype(np.int32)
     return rows, counts, tstart, toff
+
+
+ORDER_KINDS = ("frame", "dropped", "padded", "band", "windows", "partition")
+
+
+def make_order_bins(kind: str, n: int = 400, seed: int = 0):
+    """A binning with the reduce's order (bin_gaussians(reduce_order=True)) of
+    a 96x80 scene (6 x 5 tiles) of n splats at max_per_tile 64, so some
+    tiles are truncated and the circle test culls slots: sized per frame
+    ("frame"), at a fixed P below the frame's slots ("dropped": ranges cut
+    at P, culled slots of id n) or past them ("padded": dead slots), a band
+    of tile rows 1-3 ("band"), tile windows of K = 16, up to 3 a tile
+    ("windows"), or two partition groups ("partition"). -> (bins, n)."""
+    rng = np.random.default_rng(seed)
+    means = np.stack([rng.normal(0, 0.6, n), rng.normal(0, 0.45, n),
+                      rng.uniform(2, 6, n)], -1).astype(np.float32)
+    scales = np.exp(rng.normal(np.log(0.13), 0.3, (n, 3))).astype(np.float32)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    op = (1.0 / (1.0 + np.exp(-rng.normal(0.5, 1.5, n)))).astype(np.float32)
+    cam = Camera.from_fov(np.eye(3), np.zeros(3), 1.0, 0.8, 96, 80)
+    cov = build_cov3d(torch.as_tensor(scales), torch.as_tensor(quats))
+    proj = project(torch.as_tensor(means), cov, cam, opacities=torch.as_tensor(op))
+    total = int(proj.num_tiles.sum())
+    kw = {"dropped": dict(max_intersections=total * 3 // 4),
+          "padded": dict(max_intersections=total + 700),
+          "band": dict(tile_lo=6, tile_hi=24),
+          "windows": dict(window_depth=3),
+          "partition": dict(group_of=torch.as_tensor(rng.integers(0, 2, n)), num_groups=2),
+          }.get(kind, {})
+    K = 16 if kind == "windows" else 64
+    return bin_gaussians(proj, 6, 5, K, reduce_order=True, **kw), n
+
+
+def walked_rows(bins, F: int, seed: int = 1) -> torch.Tensor:
+    """Random rows [P, F] at the stream positions some tile walks, zero at
+    the others: the layout of K2's and K6's output."""
+    P = bins.sorted_gauss.shape[0]
+    rows = torch.as_tensor(np.random.default_rng(seed).normal(0, 1, (P, F)).astype(np.float32))
+    walked = compact_positions(bins.tile_start, bins.counts, CHUNK, P) >= 0
+    return torch.where(walked[:, None], rows, 0.0)
 
 
 def make_bwd_stream(seed=0, C=4):
@@ -482,10 +527,10 @@ def test_reduce_kernel_matches_plain(cuda, F, aligned):
 @pytest.mark.gpu
 @pytest.mark.parametrize("F", [10, 13])
 def test_sorted_reduce_is_bit_for_bit_and_reproducible(cuda, F):
-    """K3's deterministic entry: the same sums, bit for bit, as the plain
-    version on the CPU (index_add_ in row order), on every launch; ids
-    outside [0, n) dropped, long runs of one id (a splat over many tiles)
-    included; `segment_reduce` takes it under deterministic algorithms."""
+    """K3's sorted entry: the same sums, bit for bit, as the plain version on
+    the CPU (index_add_ in row order), on every launch; ids outside [0, n)
+    dropped, long runs of one id (a splat over many tiles) included; with
+    `out`, added into it in index_add_'s order (the refiner's votes)."""
     rng = np.random.default_rng(6)
     R, n = 60_000, 3000
     x = rng.normal(0, 1, (R, F)).astype(np.float32)
@@ -499,16 +544,62 @@ def test_sorted_reduce_is_bit_for_bit_and_reproducible(cuda, F):
     del poison
     before = (segment_reduce.launches, segment_reduce_sorted.launches)
     got = [segment_reduce_sorted(rows.to(cuda), ids.to(cuda), n) for _ in range(2)]
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        got.append(segment_reduce(rows.to(cuda), ids.to(cuda), n))
-    finally:
-        torch.use_deterministic_algorithms(False)
+    got.append(segment_reduce_sorted(rows.to(cuda), ids.to(cuda), n,
+                                     out=torch.zeros((n, F), device=cuda)))
+    base = torch.as_tensor(rng.normal(0, 1, (n, F)).astype(np.float32))
+    into = segment_reduce_sorted(rows.to(cuda), ids.to(cuda), n, out=base.to(cuda))
     torch.cuda.synchronize()
     assert (segment_reduce.launches, segment_reduce_sorted.launches) == (before[0],
-                                                                          before[1] + 3)
+                                                                          before[1] + 4)
     for g in got:
         assert torch.equal(g.cpu(), want)
+    keep = (ids >= 0) & (ids < n)
+    assert torch.equal(into.cpu(), base.index_add_(0, ids[keep].long(), rows[keep]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ORDER_KINDS)
+@pytest.mark.parametrize("F", [10, 13])
+def test_perm_reduce_is_the_sorted_order(cuda, kind, F):
+    """K3's permutation entry on a real binning's order (culled, truncated,
+    dropped and dead slots, bands, windows, partition groups): bit for bit
+    with the sorted entry on the card and with the plain versions on the
+    CPU, and the same from launch to launch."""
+    bins, n = make_order_bins(kind)
+    rows = walked_rows(bins, F)
+    want = segment_reduce_plain(rows, bins.sorted_gauss, n)
+    assert torch.equal(segment_reduce_perm_plain(rows, bins.slot_pos, bins.splat_end, n), want)
+    args = [x.to(cuda) for x in (rows, bins.slot_pos, bins.splat_end)]
+    before = segment_reduce_perm.launches
+    got = [segment_reduce_perm(*args, n) for _ in range(2)]
+    by_sort = segment_reduce_sorted(args[0], bins.sorted_gauss.to(cuda), n)
+    torch.cuda.synchronize()
+    assert segment_reduce_perm.launches == before + 2
+    assert torch.equal(got[0], got[1])
+    assert torch.equal(got[0].cpu(), want) and torch.equal(by_sort.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["frame", "padded", "windows"])
+def test_perm_reduce_groups_and_compact_rows(cuda, kind):
+    """The permutation entry over G = 3 slabs of rows (the dense group
+    renders') against its plain version per slab, and over the compact
+    layout's rows (NaN where no tile owns a row) through compact_positions,
+    bit for bit with the stream rows' sums."""
+    bins, n = make_order_bins(kind)
+    P = bins.sorted_gauss.shape[0]
+    slabs = [walked_rows(bins, 13, seed) for seed in (1, 2, 3)]
+    pos, ends = bins.slot_pos, bins.splat_end
+    want = torch.cat([segment_reduce_plain(r, bins.sorted_gauss, n) for r in slabs])
+    got = segment_reduce_perm(torch.cat(slabs).to(cuda), pos.to(cuda), ends.to(cuda), n, 3)
+    assert torch.equal(got.cpu(), want)
+    at = compact_positions(bins.tile_start, bins.counts, CHUNK, P)
+    R = compact_rows(P, bins.counts.shape[0], CHUNK)
+    rows_c = torch.full((R, 13), float("nan"))
+    rows_c[at[at >= 0].long()] = slabs[0][at >= 0]
+    pos_c = at[pos.long()]
+    got_c = segment_reduce_perm(rows_c.to(cuda), pos_c.to(cuda), ends.to(cuda), n)
+    assert torch.equal(got_c.cpu(), want[:n])
 
 
 @pytest.mark.gpu
@@ -791,7 +882,8 @@ def test_blocks_on_the_card(cuda, tmp_path):
     tr.train(until=72, log_every=200)
     torch.cuda.synchronize()
     assert tr._captured["2.2"].graph is graph
-    assert rk.segment_reduce.launches - before[rk.segment_reduce] == 10
+    assert rk.segment_reduce_perm.launches - before[rk.segment_reduce_perm] == 10
+    assert rk.segment_reduce.launches == before[rk.segment_reduce]
     assert rk.blend_stream_fwd.launches - before[rk.blend_stream_fwd] == 10
     assert len(tr.losses) == 10 and all(np.isfinite(float(x)) for x in tr.losses)
 
