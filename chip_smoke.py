@@ -42,7 +42,13 @@ Phases, in order; any failure exits non-zero:
      checks the outputs and that K1 ran on this path. One view rendered
      with pallas_input="dense" equals the stream render.
   5. training path: `opengaussian_tpu_torch.cli.train.main` trains 80
-     iterations on the same 3-view scene, whose points3D.bin holds the 200k
+     iterations at the Trainer's defaults (the JAX package's: fixed budgets
+     from the budget probe, re-probed after the capacity growth and after a
+     logged step that lost slots; the group budgets at stage-2.1 and
+     stage-2.2 entry; frozen plans in stages 1 and 2.1 of the stream
+     layout), each run's probes and plan builds logged (P, K, the group P
+     and K, seconds, the plans' bytes against the cap's estimate), on the
+     same 3-view scene, whose points3D.bin holds the 200k
      points and whose sidecars hold 16 level-3 SAM masks and a CLIP table
      per view: 40 stage-0 steps with densify events after steps 20, 30 and
      40 (the first grows the capacity) and an opacity reset after step 30, 10
@@ -64,8 +70,7 @@ Phases, in order; any failure exits non-zero:
      more K1 launch per view; the bundle's SAM ids rewritten); their first
      losses equal the stream run's. The stage-0 and stage-1 step of the
      stream and the lazy run, in turns. A fifth run takes the same schedule
-     with the JAX package's options for fixed shapes switched on
-     (`blocked_trainer`: autotune_budgets, use_frozen_plans, BLOCK_SIZES =
+     with captured blocks switched on (`blocked_trainer`: BLOCK_SIZES =
      (50, 10, 5), so every step but a few runs as a replay of its stage's
      CUDA graph): the same launches (the replays count what the captures
      launched), checks and first loss, its first 20 losses those of the
@@ -103,7 +108,11 @@ Phases, in order; any failure exits non-zero:
      bit against its plain version, with its bound) and their deepest tile
      alone, with --parent K2, K4 and K6 beside the parent's on both frames,
      the render, the stage-0 step and its phases, the stage-1 and stage-2.1
-     steps in both layouts, the stage-2.2 step of each training run, sweeps
+     steps in both layouts, each stage's eager step at the defaults (through
+     the frozen plan in stages 1 and 2.1) against the opt-out (the stream
+     sized per frame, no plan) in turns with busy time and idle share, sweep
+     2 and stage 3 per view at the probed group budgets against the frame
+     budgets, the stage-2.2 step of each training run, sweeps
      1 and 2 and stage 3 per view, the root and leaf k-means, and
      torch.profiler's device time by kernel over one render of each view and
      over one step of each stage, which give the card's idle share in each.
@@ -146,7 +155,9 @@ Phases, in order; any failure exits non-zero:
      ones, the two steps in turns, scaling_bench(sizes=[1]).
  10. the mesh trainer at world size 1 on NCCL: `cli.train.main` with
      --mesh 1 (Trainer(mesh=...) over a process group of one in this
-     process) trains the 80-iteration schedule of phase 5 without its
+     process, at the defaults: the frame's budgets probed over the mesh, no
+     group budgets and no frozen plans, as in the JAX trainer) trains the
+     80-iteration schedule of phase 5 without its
      opacity reset, the SAM refiner on, through stage 3 and a checkpoint:
      every step sharded (K1, K2, K3), the sweeps and stage 3 through the
      group entry of K5 at the rank's tile offset, the refiner's depth
@@ -164,11 +175,12 @@ Phases, in order; any failure exits non-zero:
      `opengaussian_tpu_torch.tools.quality_run.run` at full size (320x240,
      20 + 4 views, 2,600 iterations through every stage, stage 3, the
      render_by_text path over the 4 objects) in three configurations of the
-     Trainer: (a) the port's defaults (eager steps, the stream sized per
-     frame), (b) the JAX package's (autotune_budgets, use_frozen_plans) and
-     (c) (b) with BLOCK_SIZES = (50, 10, 5) (captured steps); then
+     Trainer: (a) the opt-out (autotune_budgets=False, use_frozen_plans =
+     False: eager steps, the stream sized per frame), (b) the defaults, the
+     JAX package's (fixed budgets, frozen plans) and (c) (b) with
+     BLOCK_SIZES = (50, 10, 5) (captured steps); then
      `tools.synthetic_convergence.run` (640x480, stage 0 to 4,000
-     iterations) at the port's defaults. Each run's figures beside the JAX
+     iterations) at the defaults. Each run's figures beside the JAX
      package's (QUALITY_r05.json, the convergence script's docstring), its
      wall seconds, its own peak device memory and its K1, K2 and K3
      launches against its schedule; the gates: stage-0 PSNR >= 48.164 and
@@ -1465,13 +1477,15 @@ def vote_launches(views: int, config) -> int:
 
 
 def expected_launches(tr, rcfg) -> dict:
-    """Each kernel's launches on the training path, from the schedule: one
-    forward and one backward per step; sweep 1 (one render per view) at the
-    entries to stages 2.1 and 2.2; sweep 2 at stage-2.2 entry, one render per
-    root and view; stage 3, per view one partition render per root (stream)
-    or one render per leaf (dense); with the SAM refiner, one depth render
-    per view before stage 1 and its vote scatters (`vote_launches`, for the
-    config it was called with, in tr.refined)."""
+    """Each kernel's launches on the training path, from the schedule (the
+    defaults' budget probes and frozen-plan builds bin without blending, and
+    a plan stands in for a step's binning, not its blend, so they add no
+    launch): one forward and one backward per step; sweep 1 (one render per
+    view) at the entries to stages 2.1 and 2.2; sweep 2 at stage-2.2 entry,
+    one render per root and view; stage 3, per view one partition render per
+    root (stream) or one render per leaf (dense); with the SAM refiner, one
+    depth render per view before stage 1 and its vote scatters
+    (`vote_launches`, for the config it was called with, in tr.refined)."""
     o, V = tr.cfg.opt, tr.bundle.num_views
     k1, k2 = o.root_node_num, o.leaf_node_num
     dense = rcfg.pallas_input == "dense"
@@ -1502,6 +1516,26 @@ def root_alpha_peaks(tr) -> str:
     peak = out.cluster_silhouettes.flatten(1).max(dim=1).values
     return (f"{float(peak.min()):.3f} / {float(peak.median()):.3f} / "
             f"{float(peak.max()):.3f}")
+
+
+def log_retunes(tr, what: str) -> dict:
+    """A training run's re-tunes (Trainer.budget_log: each probe's iteration,
+    kind, P, K, group P and K and seconds) and frozen-plan builds
+    (Trainer.frozen_plan_log: iteration, seconds, nbytes against the
+    estimate the cap is held to), logged. -> {"probes", "probe_s", "plans",
+    "plan_s"}."""
+    probes, plans = tr.budget_log, tr.frozen_plan_log
+    probe_s = sum(p["seconds"] for p in probes)
+    plan_s = sum(p["seconds"] for p in plans)
+    log(f"{what}: {len(probes)} budget probes in {probe_s:.3f} s: "
+        + "; ".join(f"{p['kind']} at {p['iteration']}: P {p['P']}, K {p['K']}, group P "
+                    f"{p['group_P']}, group K {p['group_K']} ({p['seconds']:.3f} s)"
+                    for p in probes)
+        + f"; {len(plans)} frozen-plan builds in {plan_s:.3f} s"
+        + "".join(f"; at {p['iteration']}: {p['nbytes'] / 2**20:.1f} MiB against an estimate "
+                  f"of {p['estimate'] / 2**20:.1f} MiB ({p['seconds']:.3f} s)" for p in plans)
+        + f"; plans held at the end: {type(tr._frozen_plans).__name__}")
+    return dict(probes=probes, probe_s=probe_s, plans=plans, plan_s=plan_s)
 
 
 def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
@@ -1560,6 +1594,7 @@ def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
     tr.peak_device_mib = (peak_abs - base) / 2**20
     launches = {k: w.launches for k, w in wrappers.items()}
     what = f"training path ({name})"
+    tr.retunes = log_retunes(tr, what)
     log(f"{what}: {TRAIN_ITERS} iterations and stage 3 in {seconds:.2f} s (scene load, "
         f"setup, sweeps, stage 3, saves and the checkpoint included), launches {launches}; "
         f"peak device memory {tr.peak_device_mib:.1f} MiB (peak less the {base / 2**20:.1f} "
@@ -1582,7 +1617,8 @@ def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
         + ", ".join(f"{x:.5f}" for x in m)
         + f"; capacity {tr.state.capacity}, alive {int(tr.state.num_alive)}, "
         f"max_per_tile {tr.rcfg.max_per_tile}, slots lost in the last step "
-        f"{int(tr._last_lost)}, last root {tr.root_id}, leaf_sub_num "
+        f"{int(tr._last_lost)} (the most in any step {int(tr.lost_max)}), last root "
+        f"{tr.root_id}, leaf_sub_num "
         f"{tr.kms.leaf_sub_num.tolist()}, roots occurring per view "
         f"{tr.pseudo.cluster_occur.sum(dim=1).tolist()}, the roots' alpha peaks in view 0 "
         f"(min / median / max; sweep 2 needs 0.8) {root_alpha_peaks(tr)}")
@@ -1859,6 +1895,72 @@ def time_stage22(tr, card: str, name: str, profiled: bool = False, rcfg=None) ->
     return ms
 
 
+def defaults_phase(tr, card: str) -> dict:
+    """The training cell's eager steps at the defaults against the opt-out,
+    from the stream run's trained state: each stage's step at the tuned
+    budgets (stages 1 and 2.1 through view 0's frozen plan, stage 2.2 at the
+    group budgets) and at the opt-out's settings (the stream sized per frame
+    at `Trainer._fit_max_per_tile`'s cap, no plan), in turns (defaults,
+    opt-out, opt-out, defaults; 10 steps between CUDA events, each from the
+    same state), torch.profiler's busy time and idle share over 3 steps of
+    each; then sweep 2 and stage 3 per view at the probed group budgets and
+    at the frame budgets, in turns. -> {"steps": {stage: {config: (ms,
+    busy, idle share)}}, "events": {event: {config: ms}}, "opt_out_k"}."""
+    from opengaussian_tpu_torch.train import lang
+    from opengaussian_tpu_torch.train import pseudo as pseudo_mod
+
+    tuned = tr.rcfg
+    plans = tr._ensure_frozen_plans()
+    tr.rcfg = tr._base_rcfg
+    try:
+        tr._fit_max_per_tile()  # the opt-out's cap for this state
+        opt_out = tr.rcfg
+    finally:
+        tr.rcfg = tuned
+    frozen = plans.select(0) if plans is not None else None
+    steps = {}
+    for stage in STAGES:
+        fz = frozen if stage in ("1", "2.1") else None
+        fns = {"defaults": lambda s=stage, fz=fz: eager_step(tr, s, root=0, rcfg=tuned, frozen=fz),
+               "opt-out": lambda s=stage: eager_step(tr, s, root=0, rcfg=opt_out)}
+        ms = {k: [] for k in fns}
+        for k in ("defaults", "opt-out", "opt-out", "defaults"):
+            ms[k].append(cuda_ms(fns[k], iters=10))
+        steps[stage] = {}
+        for k, fn in fns.items():
+            busy, wall = profile(fn, 3, f"stage-{stage} step ({k})")
+            steps[stage][k] = (sum(ms[k]) / 2, busy, 1.0 - busy / wall)
+        log(f"timing: stage-{stage} step, defaults against the opt-out, ms in turns "
+            f"{ms['defaults'][0]:.3f}, {ms['opt-out'][0]:.3f}, {ms['opt-out'][1]:.3f}, "
+            f"{ms['defaults'][1]:.3f}; busy / idle share defaults "
+            f"{steps[stage]['defaults'][1]:.3f} / {steps[stage]['defaults'][2]:.3f}, opt-out "
+            f"{steps[stage]['opt-out'][1]:.3f} / {steps[stage]['opt-out'][2]:.3f} "
+            f"({'through the plan' if fz is not None else 'fresh binning'}) [{card}]")
+    o, V, b = tr.cfg.opt, tr.bundle.num_views, tr.bundle
+    k1, k2 = o.root_node_num, o.leaf_node_num
+    frame = dataclasses.replace(tuned, group_intersection_budget=0, group_max_per_tile=0)
+    cfgs = {"group budgets": tuned, "frame budgets": frame}
+    i = iter(range(1000))
+    events = {"sweep2": {k: [] for k in cfgs}, "stage3": {k: [] for k in cfgs}}
+    for k in ("group budgets", "frame budgets", "frame budgets", "group budgets"):
+        c = cfgs[k]
+        events["sweep2"][k].append(cuda_ms(lambda c=c: pseudo_mod._sweep2_view(
+            tr.state, b.camera(next(i) % V), tr.pseudo.feat[0], tr.pseudo.mask_ids[0],
+            tr.kms.cls_ids, tr.bg, b.max_masks, k1, c), iters=2))
+        events["stage3"][k].append(cuda_ms(lambda c=c: lang._associate_view(
+            tr.state, tr.kms.leaf_cls_ids, b.camera(next(i) % V), tr.pseudo.feat[0],
+            tr.pseudo.mask_ids[0], tr.pseudo.cluster_occur[0], tr.bg, k1, k2, b.max_masks,
+            c), iters=2))
+    events = {e: {k: sum(v) / 2 for k, v in t.items()} for e, t in events.items()}
+    log(f"timing: sweep 2 / stage 3 ms per view at the probed group budgets (P "
+        f"{tuned.group_intersection_budget}, K {tuned.group_max_per_tile}) "
+        f"{events['sweep2']['group budgets']:.3f} / {events['stage3']['group budgets']:.3f}, at "
+        f"the frame budgets (P {tuned.intersection_budget}, K {tuned.max_per_tile}) "
+        f"{events['sweep2']['frame budgets']:.3f} / {events['stage3']['frame budgets']:.3f} "
+        f"(the means of two turns) [{card}]")
+    return dict(steps=steps, events=events, opt_out_k=opt_out.max_per_tile)
+
+
 def time_leaf_events(tr, card: str, name: str) -> dict:
     """Sweep 2 and stage 3 per view, and, once, assign_leaf per call (fresh
     seeds, and from the cached centers)."""
@@ -1910,8 +2012,9 @@ def blob_trainer(dev, rcfg, out_dir: str):
     """A Trainer at 160x120 over blob_scene (one view, its two blobs roots 0
     and 1 under two SAM masks), set up as at stage-2.2 entry: both roots'
     leaves clustered, leaf-mode pseudo labels in which both roots occur, so
-    a stage-2.2 step of root 1 has `ok` true and a nonzero gradient; fixed
-    budgets (autotune_budgets) tuned to the state. -> the Trainer."""
+    a stage-2.2 step of root 1 has `ok` true and a nonzero gradient; the
+    Trainer's defaults (fixed budgets, tuned to the state; frozen plans).
+    -> the Trainer."""
     from opengaussian_tpu_torch.config import Config, OptimizationConfig
     from opengaussian_tpu_torch.data.dataset import Scene, View
     from opengaussian_tpu_torch.models import gaussians as G
@@ -1929,8 +2032,7 @@ def blob_trainer(dev, rcfg, out_dir: str):
                   1.0, out_dir)
     opt = OptimizationConfig(sam_level=0, root_node_num=k1, leaf_node_num=k2,
                              leaf_update_fr=LEAF_UPDATE_FR, **STAGE_ENDS)
-    tr = loop.Trainer(scene, Config(opt=opt), out_dir, rcfg=rcfg, device=dev,
-                      autotune_budgets=True)
+    tr = loop.Trainer(scene, Config(opt=opt), out_dir, rcfg=rcfg, device=dev)
     tr.save_intermediate = False
     st = to_device(base, dev)
     tr.state, tr.adam = st, opt_mod.init(st.params())
@@ -2146,8 +2248,7 @@ def frozen_phase(tr, tuned, card: str) -> dict:
     turns = [(k, cuda_ms(fns[k], iters=10)) for k in ("fresh", "frozen", "frozen", "fresh")]
     # the same step captured (the blocks' step), with and without the plans:
     # what the plan saves on the card once the host no longer sets the pace
-    saved = (tr.rcfg, tr.autotune_budgets)
-    tr.autotune_budgets = True
+    saved = tr.rcfg
     tr._set_rcfg(tuned)
     try:
         row = tr._step_row("1", STEP_ITS["1"], 0, tr._bg_values("1"), 1.0, 0,
@@ -2161,8 +2262,7 @@ def frozen_phase(tr, tuned, card: str) -> dict:
         busy = {k: profile(lambda k=k: steps[k].run(row), 3,
                            f"captured stage-1 step ({k} binning)")[0] for k in steps}
     finally:
-        tr._set_rcfg(saved[0])
-        tr.autotune_budgets = saved[1]
+        tr._set_rcfg(saved)
     log(f"frozen plans: {V} views built in {build_ms:.3f} ms, {plans.nbytes() / 2**20:.1f} MiB "
         f"(P = {plans.g_sorted.shape[1]}), lossless; stage-1 / stage-2.1 step through the plan "
         f"against the fresh binning {errs['1']:.2e} / {errs['2.1']:.2e}; the feature render at "
@@ -2184,8 +2284,7 @@ def captured_phase(tr, tuned, card: str) -> dict:
     step of each (over 3 steps). -> {(layout, stage): {"err", "eager",
     "captured": (ms, busy, idle, launches)}}."""
     out = {}
-    saved = (tr.rcfg, tr.autotune_budgets)
-    tr.autotune_budgets = True
+    saved = tr.rcfg
     try:
         for layout, upd in LAYOUTS.items():
             rcfg = dataclasses.replace(tuned, **upd)
@@ -2216,19 +2315,16 @@ def captured_phase(tr, tuned, card: str) -> dict:
                     f"captured {prof['captured'][1]:.3f} / {prof['captured'][2]:.3f} / "
                     f"{prof['captured'][3]} [{card}]")
     finally:
-        tr._set_rcfg(saved[0])
-        tr.autotune_budgets = saved[1]
+        tr._set_rcfg(saved)
     return out
 
 
 def blocked_trainer(*args, **kw):
-    """cli.train's Trainer with the JAX package's options for fixed shapes
-    switched on, as a user sets them: autotune_budgets, use_frozen_plans and
-    BLOCK_SIZES = BLOCKS."""
+    """cli.train's Trainer at its defaults (fixed budgets, frozen plans) with
+    captured blocks switched on, as a user sets them: BLOCK_SIZES = BLOCKS."""
     from opengaussian_tpu_torch.train import loop
 
-    tr = loop.Trainer(*args, autotune_budgets=True, **kw)
-    tr.use_frozen_plans = True
+    tr = loop.Trainer(*args, **kw)
     tr.BLOCK_SIZES = BLOCKS
     return tr
 
@@ -2503,8 +2599,11 @@ def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes,
                      prks: dict | None = None) -> dict:
     """K1, K2, K4 and K6 on the training frame: the feature pass (C = 7) of
     view 0 of the profiled stage-1 step, from the trained state at the
-    trainer's fitted max_per_tile, the backwards with the stage-1 loss's
-    cotangents, K6 on the same frame's dense block. Holds each against its
+    trainer's max_per_tile (the probe's K), its stream sized per frame (the
+    slots the step at the fixed budget P blends, without the padding past
+    the last tile, so that the figures compare with earlier runs' and the
+    library's index_add_ meets no dropped id), the backwards with the
+    stage-1 loss's cotangents, K6 on the same frame's dense block. Holds each against its
     plain version bit for bit (K4 on the tiles' range, its ids everywhere)
     and K6's rows against K2's, counts the frame's pairs, and times each
     (call and device time) beside its bound and the deepest tile alone
@@ -2518,7 +2617,8 @@ def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes,
 
     cam = tr.bundle.camera(0)
     with torch.no_grad():
-        rows, counts, tstart, toff, gx, bins, _ = frame_streams(cam, tr.state, tr.rcfg)[7]
+        rows, counts, tstart, toff, gx, bins, _ = frame_streams(
+            cam, tr.state, dataclasses.replace(tr.rcfg, intersection_budget=0))[7]
         fwd_args = (rows, counts, tstart, toff, gx, chunk)
         acc, t_final = rk.blend_stream_fwd(*fwd_args)
         torch.cuda.synchronize()
@@ -3273,8 +3373,7 @@ def windows_phase(tr, chunk: int, card: str) -> dict:
     wrappers = zero_launches()
     eager_step(tr, "1", rcfg=win_cfg)
     eager_step(tr, "1", rcfg=dataclasses.replace(win_cfg, bwd_layout="compact"))
-    saved = (tr.rcfg, tr.autotune_budgets)
-    tr.autotune_budgets = True
+    saved = tr.rcfg
     steps, plans = {}, {}
     try:
         row = tr._step_row("1", STEP_ITS["1"], 0, tr._bg_values("1"), 1.0, 0,
@@ -3303,8 +3402,7 @@ def windows_phase(tr, chunk: int, card: str) -> dict:
             steps[k].copy_in(tr)
             cap_ms[k].append(cuda_ms(lambda k=k: steps[k].run(row), iters=10))
     finally:
-        tr._set_rcfg(saved[0])
-        tr.autotune_budgets = saved[1]
+        tr._set_rcfg(saved)
     del steps
     log(f"timing: windows, stage-1 step ms in turns windowed, unwindowed, unwindowed, "
         f"windowed: eager {eager_ms['windowed'][0]:.3f}, {eager_ms['unwindowed'][0]:.3f}, "
@@ -3645,10 +3743,11 @@ def mesh_trainer_phase(scene_dir: str, root: str, dev, chunk: int, card: str) ->
     from opengaussian_tpu_torch.data.ply import load_gaussian_ply
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
     from opengaussian_tpu_torch.ops.projection import build_cov3d
-    from opengaussian_tpu_torch.ops.rasterize import _prepare, gather_rows
+    from opengaussian_tpu_torch.ops.rasterize import _prepare, deepest_tile, gather_rows
     from opengaussian_tpu_torch.parallel.refine import make_refiner_fns
     from opengaussian_tpu_torch.parallel.render import _tile_slice
     from opengaussian_tpu_torch.parallel.steps import make_sharded_steps
+    from opengaussian_tpu_torch.parallel.sweeps import make_sweep_fns
     from opengaussian_tpu_torch.refine import sam_refiner as sr
     from opengaussian_tpu_torch.render import render
     from opengaussian_tpu_torch.train import checkpoint, lang, loop, pseudo
@@ -3680,6 +3779,12 @@ def mesh_trainer_phase(scene_dir: str, root: str, dev, chunk: int, card: str) ->
     try:
         mesh, o, V = tr.mesh, tr.cfg.opt, tr.bundle.num_views
         what = "mesh trainer (world size 1, NCCL)"
+        retunes = log_retunes(tr, what)
+        if not tr.autotune_budgets or not tr.rcfg.intersection_budget or \
+                tr.rcfg.group_intersection_budget or tr._frozen_plans is not None:
+            raise AssertionError(f"{what}: budgets {tr.rcfg}, plans {tr._frozen_plans!r}: "
+                                 f"under a mesh the defaults tune the frame's budgets alone "
+                                 f"and build no plan")
         log(f"{what}: {TRAIN_ITERS} iterations, the refiner and stage 3 through cli.train "
             f"--mesh 1 in {seconds:.2f} s, launches {launches}")
         # the steps; the refiner's depth render and sweep 1 (at 2.1 and 2.2
@@ -3699,7 +3804,8 @@ def mesh_trainer_phase(scene_dir: str, root: str, dev, chunk: int, card: str) ->
         log(f"{what}: loss by step " + " ".join(f"{x:.5f}" for x in losses))
         log(f"{what}: mean loss of steps 1-10, ..., {TRAIN_ITERS - 9}-{TRAIN_ITERS}: "
             + ", ".join(f"{x:.5f}" for x in m) + f"; capacity {tr.state.capacity}, alive "
-            f"{tr._num_alive()}, max_per_tile {tr.rcfg.max_per_tile}, leaf_sub_num "
+            f"{tr._num_alive()}, max_per_tile {tr.rcfg.max_per_tile}, the most slots a step "
+            f"lost {int(tr.lost_max)}, leaf_sub_num "
             f"{tr.kms.leaf_sub_num.tolist()}, roots occurring per view {occur}, the roots' "
             f"alpha peaks in view 0 (min / median / max; sweep 2 needs 0.8) "
             f"{root_alpha_peaks(tr)}, stage-2.2 "
@@ -3788,23 +3894,41 @@ def mesh_trainer_phase(scene_dir: str, root: str, dev, chunk: int, card: str) ->
                                               "blend_tiles_bwd")):
             raise AssertionError(f"{what}: a kernel of the sharded holds never launched")
 
-        # the sweeps and the stage-3 association, per view, against one device
-        fns, k1, k2, M = tr._sweeps(), o.root_node_num, o.leaf_node_num, b0.max_masks
+        # the sweeps and the stage-3 association, per view, against one device,
+        # at a K that covers every view's deepest tile: the sharded sweeps
+        # blend every root over one union binning at the frame's K, the
+        # single-device ones bin each root alone, so the two agree where the
+        # union loses no slot. The trainer's own K is the budget probe's,
+        # whose pool of PROBE_MULTIPLE * N slots drops slots before it counts
+        # the tiles when a view has more (as the JAX package's probe does)
+        k1, k2, M = o.root_node_num, o.leaf_node_num, b0.max_masks
+        cov = build_cov3d(state.scales, state.quats)
+        opac = torch.where(state.alive, state.opacity, 0.0)
+        frame = dataclasses.replace(tr.rcfg, intersection_budget=0)
+        deep = [deepest_tile(b0.camera(v), state.means, cov, opac, frame) for v in range(V)]
+        sweep_cfg = tr.rcfg
+        if max(deep) > tr.rcfg.max_per_tile:
+            sweep_cfg = dataclasses.replace(
+                tr.rcfg, max_per_tile=fitted_max_per_tile(max(deep), chunk))
+        log(f"{what}: deepest tile per view {deep} against the trainer's K "
+            f"{tr.rcfg.max_per_tile} (P {tr.rcfg.intersection_budget}); the sweeps hold at K "
+            f"{sweep_cfg.max_per_tile}")
+        fns = make_sweep_fns(mesh, sweep_cfg, k1, k2, M)
         sweep_t = {"sweep1": [], "sweep2": [], "stage3": []}
         for v in range(V):
             cam, sam, pids = b0.camera(v), b0.sam_ids[v], tr.pseudo.mask_ids[v]
             occ_row = tr.pseudo.cluster_occur[v]
             calls = {
                 "sweep1": (lambda: fns.sweep1(state, cam, sam, bg),
-                           lambda: pseudo._sweep1_view(state, cam, sam, bg, M, tr.rcfg)),
+                           lambda: pseudo._sweep1_view(state, cam, sam, bg, M, sweep_cfg)),
                 "sweep2": (lambda: fns.sweep2(state, cam, pf[v], pids, tr.kms.cls_ids, bg),
                            lambda: pseudo._sweep2_view(state, cam, pf[v], pids, tr.kms.cls_ids,
-                                                       bg, M, k1, tr.rcfg)),
+                                                       bg, M, k1, sweep_cfg)),
                 "stage3": (lambda: fns.lang_view(state, tr.kms.leaf_cls_ids, cam, pf[v], pids,
                                                  occ_row, bg),
                            lambda: lang._associate_view(state, tr.kms.leaf_cls_ids, cam, pf[v],
                                                         pids, occ_row, bg, k1, k2, M,
-                                                        tr.rcfg))}
+                                                        sweep_cfg))}
             for name, (sharded, single) in calls.items():
                 got, want = sharded(), single()
                 if name == "sweep1":
@@ -3872,16 +3996,17 @@ def mesh_trainer_phase(scene_dir: str, root: str, dev, chunk: int, card: str) ->
         + f" [{card}]; more than one GPU: not measured (one card)")
     return dict(launches=launches, hold_launches=hold_launches, errs=errs, turns=turns,
                 sweep_t=sweep_t, occur=occur, s22=float(s22.mean()), seconds=seconds,
-                live=live in sweep_ok, k5_offset_err=k5_offset_err)
+                live=live in sweep_ok, k5_offset_err=k5_offset_err, retunes=retunes)
 
 
 # --- phase 11: the quality run and the long-run regime ---
 
 # the Trainer's options of each quality run
 QUALITY_CONFIGS = {
-    "a": {},  # the port's defaults: eager steps, the stream sized per frame
-    "b": dict(autotune_budgets=True, use_frozen_plans=True),  # the JAX package's defaults
-    "c": dict(autotune_budgets=True, use_frozen_plans=True, BLOCK_SIZES=BLOCKS),
+    # the opt-out: eager steps, the stream sized per frame, no plans
+    "a": dict(autotune_budgets=False, use_frozen_plans=False),
+    "b": {},  # the defaults, the JAX package's: fixed budgets, frozen plans
+    "c": dict(BLOCK_SIZES=BLOCKS),  # (b) with captured blocks
 }
 # The JAX package's own regime on this scene: its tools/quality_run.py at
 # full size on the CPU reads stage-0 PSNR 49.164 / 50.096 / 49.835 dB and mIoU
@@ -4026,7 +4151,7 @@ def quality_phase(root: str, dev, card: str) -> dict:
         want = quality_launches(res)
         if launches != want:
             misses.append(f"quality run ({name}): launches {launches}, expected {want}")
-        log(f"quality run ({name}, {opts or 'the port defaults'}): "
+        log(f"quality run ({name}, {opts or 'the defaults'}): "
             + ", ".join(f"{k} {res[k]} (JAX {ref[k]})" for k in keys)
             + f"; stage-2.2 loss per root {res['stage22_per_root_loss']} (JAX "
             f"{ref['stage22_per_root_loss']}); retrieval "
@@ -4236,19 +4361,20 @@ def main(argv=None) -> int:
             log(f"render, view 0: the dense layout's images equal the stream layout's, "
                 f"max abs err {dense_render_err:.3e}")
 
-        # 5. training path, through the CLI a user runs, in each input layout
-        # and with the compact backward; each run's stage-2.2 step and leaf
-        # events are timed from its own trained state. The dense run takes
+        # 5. training path, through the CLI a user runs at the Trainer's
+        # defaults, in each input layout and with the compact backward; each
+        # run's stage-2.2 step and leaf events are timed from its own trained
+        # state. The dense run (fixed budgets, no plans) takes
         # K3's atomic entry (reduce_backend "scatter"), the others its
         # permutation entry (the default)
         runs = {"stream": RasterizeConfig(),
                 "dense": RasterizeConfig(pallas_input="dense", reduce_backend="scatter"),
                 "compact": RasterizeConfig(bwd_layout="compact")}
-        train_launches, s22_ms, leaf_ms, train_s, tr_peak = {}, {}, {}, {}, {}
+        train_launches, s22_ms, leaf_ms, train_s, tr_peak, retunes = {}, {}, {}, {}, {}, {}
         for run, rcfg in runs.items():
             tr_r, train_launches[run], out_r, train_s[run] = train_path(scene_dir, root, dev,
                                                                         run, rcfg)
-            tr_peak[run] = tr_r.peak_device_mib
+            tr_peak[run], retunes[run] = tr_r.peak_device_mib, tr_r.retunes
             atomic = train_launches[run]["segment_reduce"]
             if atomic != (0 if rcfg.fixed_reduce_order() else TRAIN_ITERS):
                 raise AssertionError(f"training path ({run}): K3's atomic entry launched "
@@ -4279,7 +4405,7 @@ def main(argv=None) -> int:
         tr_l, train_launches["lazy_refine"], out_l, _ = train_path(
             scene_dir, root, dev, "lazy_refine", RasterizeConfig(),
             ("--enable_multiview_sam_refinement", "--lazy_load"))
-        tr_peak["lazy_refine"] = tr_l.peak_device_mib
+        tr_peak["lazy_refine"], retunes["lazy_refine"] = tr_l.peak_device_mib, tr_l.retunes
         l_s, l_r = float(tr.losses[0]), float(tr_l.losses[0])
         if not tr_l.save_memory or not math.isclose(l_r, l_s, rel_tol=1e-5):
             raise AssertionError(f"first loss: lazy_refine run {l_r!r}, stream {l_s!r}, "
@@ -4293,7 +4419,7 @@ def main(argv=None) -> int:
         # fixed budgets, frozen plans and captured blocks of steps
         tr_b, train_launches["blocked"], out_b, train_s["blocked"] = train_path(
             scene_dir, root, dev, "blocked", RasterizeConfig(), trainer=blocked_trainer)
-        tr_peak["blocked"] = tr_b.peak_device_mib
+        tr_peak["blocked"], retunes["blocked"] = tr_b.peak_device_mib, tr_b.retunes
         blocked = check_blocked_run(tr_b, out_b, tr, out, train_s, card)
         # the refiner's fused path at the ScanNet shape
         refine = refine_phase(dev, card)
@@ -4455,6 +4581,7 @@ def main(argv=None) -> int:
                 f"both from that run) [{card}]")
         time_feature_stages(tr, card)
         time_step(tr, card)
+        defaults = defaults_phase(tr, card)
         train = time_train_frame(tr, chunk, card, peak_flops, peak_bytes, prks)
         k1_bound = {C: fwd_bound(f"blend_stream_fwd C={C}", int(counts.sum()), rows.shape[1],
                                  counts.shape[0], 3, work[C], peak_flops, peak_bytes)
@@ -4544,6 +4671,18 @@ def main(argv=None) -> int:
             f"{t['bound']:.4f} ms bound ({t['by']}), the deepest tile alone "
             f"{t['deep_dev']:.4f} ms; on the render frame "
             + ", ".join(f"C={C} {v:.4f} ms" for C, v in render_dev.items()) + f" [{card}]")
+    log("summary: the defaults against the opt-out (K "
+        f"{defaults['opt_out_k']}, per frame), eager step ms / busy / idle share: "
+        + "; ".join(f"stage {s} " + ", ".join(f"{k} {v[0]:.3f} / {v[1]:.3f} / {v[2]:.3f}"
+                                              for k, v in r.items())
+                    for s, r in defaults["steps"].items())
+        + "; ms per view at group / frame budgets: "
+        + ", ".join(f"{e} {v['group budgets']:.3f} / {v['frame budgets']:.3f}"
+                    for e, v in defaults["events"].items())
+        + "; re-tunes by run: " + ", ".join(
+            f"{r} {len(t['probes'])} probes in {t['probe_s']:.3f} s, "
+            f"{len(t['plans'])} plan builds in {t['plan_s']:.3f} s"
+            for r, t in {**retunes, "mesh": meshtr["retunes"]}.items()) + f" [{card}]")
     log(f"summary: stage-2.2 step ms {s22_ms}; sweep 2 / stage 3 ms per view {leaf_ms}; "
         f"partition against scan max abs err {partition_err:.3e} [{card}]")
     log(f"summary: refiner: {REFINE_VIEWS} views {REFINE_W}x{REFINE_H}, {REFINE_SPLATS} "

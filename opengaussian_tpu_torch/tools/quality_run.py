@@ -50,8 +50,8 @@ from opengaussian_tpu_torch.render import render_selection
 from opengaussian_tpu_torch.tools import synthetic
 from opengaussian_tpu_torch.train.loop import Trainer, eval_view
 
-# the Trainer's options a caller may set; the JAX package's defaults turn
-# the first two on, the port's leave them off
+# the Trainer's options a caller may set; at their defaults, as in the JAX
+# package, the first two are on and BLOCK_SIZES is ()
 TRAINER_OPTIONS = ("autotune_budgets", "use_frozen_plans", "BLOCK_SIZES")
 
 

@@ -31,25 +31,28 @@ rewrites the bundle's SAM ids once, before the first stage-1 step.
 Checkpoints (`save_checkpoint`, `restore_checkpoint`) use
 train/checkpoint.py.
 
-By default a step is one eager Python function and the binning sizes the
-slot stream per frame; the trainer then only raises max_per_tile past the
-deepest tile it finds (`_fit_max_per_tile`), so that no slot is truncated.
-The JAX trainer's options for fixed shapes are there, switched on one by
-one under its names:
+By default the trainer runs the JAX trainer's path, with its options for
+fixed shapes at the JAX package's defaults:
   * `Trainer(autotune_budgets=True)`: the budget probe of ops/budget.py
-    fixes the slot budget P and max_per_tile (`_tune_budgets`), and the
+    fixes the slot budget P and max_per_tile K (`_tune_budgets`), and the
     group budgets of the group renders at stage-2.1 and stage-2.2 entry
     (`_tune_group_budgets`); re-tuned after a capacity growth and after a
     logged step that lost slots;
   * `use_frozen_plans = True`: stages 1 and 2.1 take each view's binning
-    from a cached FrozenPlan (`_ensure_frozen_plans`), stage 2.2 re-bins;
-  * `BLOCK_SIZES = (50, 10, 5)` (with fixed budgets): runs of steps with no
-    event between them go as one block (`_block_len`, `_run_block`). On a
-    GPU each stage's step is a CUDA graph over static buffers, captured once
-    and replayed for every step of the block with that step's view,
-    iteration, learning rates, background, rescale factor and root written
-    into a device buffer before the replay; on the CPU the same step runs
-    eagerly. The counterpart of the JAX package's scanned stage*_block.
+    from a cached FrozenPlan (`_ensure_frozen_plans`, stream layout only,
+    within `frozen_plan_bytes_cap`), stage 2.2 re-bins;
+  * `BLOCK_SIZES = ()`: one eager step at a time. `(50, 10, 5)` (with fixed
+    budgets) runs steps with no event between them as one block
+    (`_block_len`, `_run_block`). On a GPU each stage's step is then a CUDA
+    graph over static buffers, captured once and replayed for every step of
+    the block with that step's view, iteration, learning rates, background,
+    rescale factor and root written into a device buffer before the replay;
+    on the CPU the same step runs eagerly. The counterpart of the JAX
+    package's scanned stage*_block.
+`Trainer(..., autotune_budgets=False)` with `use_frozen_plans = False`
+opts out: the binning sizes the slot stream per frame, and the trainer only
+raises max_per_tile past the deepest tile it finds (`_fit_max_per_tile`),
+so that no slot is truncated.
 
 `Trainer(mesh=...)` (parallel/mesh.py) trains over a device mesh, one
 process per device: every rank holds a contiguous shard of the splat
@@ -452,6 +455,34 @@ def eval_view(state: G.GaussianState, bundle: ViewBundle, view_idx: int, bg,
     return img, losses.psnr(img, gt), losses.l1_loss(img, gt)
 
 
+def plan_stack_bytes(rcfg: RasterizeConfig, num_views: int, n: int, tiles: int) -> int:
+    """The bytes of num_views stacked FrozenPlans at rcfg for n splats over
+    `tiles` tiles, in the port's layout (`FrozenPlan.nbytes()`, with P the
+    budget's `max_intersections(n)`, the most a plan holds): g_sorted [P];
+    tstart and counts [T], or under tile windows [Tv] with vt_real [Tv] and
+    vt_first, vt_n [T]; total, n_dropped and n_truncated; under a fixed
+    reduce order slot_pos [P] and splat_end [N]."""
+    P = rcfg.max_intersections(n)
+    words = P + 2 * tiles + 3
+    if rcfg.tile_windows > 0:
+        tv = tiles + (rcfg.window_extra or max(P // rcfg.max_per_tile, 1))
+        words += 3 * tv
+    if rcfg.fixed_reduce_order():
+        words += P + n
+    return num_views * 4 * words
+
+
+def frozen_plan_estimate(rcfg: RasterizeConfig, num_views: int, n: int, tiles: int) -> int:
+    """What the trainer holds against frozen_plan_bytes_cap: the larger of
+    the JAX trainer's estimate (loop.py:816, g_sorted and its reduce plan,
+    about 3P per view), so that both packages choose the same path for the
+    same scene where it is the larger, and the port's own layout
+    (`plan_stack_bytes`), so that the stack stays under the cap."""
+    P = rcfg.max_intersections(n)
+    jax_est = num_views * 4 * (P + 2 * (P + rcfg.max_per_tile * 8))
+    return max(jax_est, plan_stack_bytes(rcfg, num_views, n, tiles))
+
+
 class Trainer:
     """Host-side trainer of every stage (the JAX package's Trainer).
 
@@ -462,7 +493,8 @@ class Trainer:
     visit the same views; the split noise of densification and the k-means++
     seeds come from a torch.Generator seeded with `seed` on the training
     device. autotune_budgets: fixed budgets from ops/budget.py (the JAX
-    trainer's default; off here, where the stream is sized per frame)."""
+    trainer's default); False sizes the stream per frame
+    (`_fit_max_per_tile`)."""
 
     # Runs of steps with no event between them go as one block of one of
     # these lengths (the JAX trainer's menu); () = one step at a time. A
@@ -471,7 +503,7 @@ class Trainer:
 
     def __init__(self, scene: Scene, cfg: Config, out_dir: str,
                  rcfg: RasterizeConfig | None = None, seed: int = 0,
-                 device="cuda", mesh=None, autotune_budgets: bool = False):
+                 device="cuda", mesh=None, autotune_budgets: bool = True):
         """mesh: a parallel.mesh.Mesh trains over its ranks (this rank's
         device is the mesh's; `device` is then unused); None trains on
         `device`."""
@@ -521,12 +553,17 @@ class Trainer:
         self.iteration = 0
         self.root_id = 0  # the root stage 2.2 trains, in round robin
         self._budgets_tuned = False
+        # every probe of the budgets: iteration, "frame" or "group", seconds,
+        # the budgets it chose (P, K, group_P, group_K)
+        self.budget_log: list[dict] = []
         # per-view FrozenPlans of stages 1 and 2.1, stacked [V, ...]: None =
         # not built, False = tried and off (a build lost slots, or the stack
         # would pass frozen_plan_bytes_cap)
-        self.use_frozen_plans = False
+        self.use_frozen_plans = True
         self._frozen_plans: FrozenPlan | None | bool = None
         self.frozen_plan_bytes_cap = 4 << 30
+        # every build of the plans: iteration, seconds, nbytes, estimate
+        self.frozen_plan_log: list[dict] = []
         self._captured: dict[str, _CapturedStep] = {}  # by stage, CUDA only
         self._view_queue: list[int] = []
         self._last_lost: torch.Tensor | None = None
@@ -717,9 +754,11 @@ class Trainer:
                 self._fit_max_per_tile()
             return
         cams = [self.bundle.camera(i) for i in range(self.bundle.num_views)]
+        t0 = time.perf_counter()
         new = budget.tuned_config(self._base_rcfg, self.state, cams, mesh=self.mesh)
+        self._log_tune("frame", new, time.perf_counter() - t0)
         if new != self.rcfg:
-            n = self.state.capacity
+            n = self.state.capacity * (self.mesh.size if self.mesh is not None else 1)
             print(f"[budget] intersections {self.rcfg.max_intersections(n)}->"
                   f"{new.max_intersections(n)}, max_per_tile "
                   f"{self.rcfg.max_per_tile}->{new.max_per_tile}", flush=True)
@@ -727,6 +766,13 @@ class Trainer:
         if self.iteration + 1 > self.cfg.opt.start_root_cb_iter:
             self._tune_group_budgets()
         self._budgets_tuned = True
+
+    def _log_tune(self, kind: str, new: RasterizeConfig, seconds: float):
+        """One probe into `budget_log`: the budgets it chose and its seconds."""
+        self.budget_log.append(dict(
+            iteration=self.iteration, kind=kind, seconds=seconds,
+            P=new.intersection_budget, K=new.max_per_tile,
+            group_P=new.group_intersection_budget, group_K=new.group_max_per_tile))
 
     def _tune_group_budgets(self):
         """Per-root budgets of the group renders (stage 2.2, sweep 2, stage 3)
@@ -740,8 +786,10 @@ class Trainer:
                 or self.mesh is not None):
             return
         cams = [self.bundle.camera(i) for i in range(self.bundle.num_views)]
+        t0 = time.perf_counter()
         new = budget.tuned_group_config(self.rcfg, self.state, cams, self.kms.cls_ids,
                                         self.cfg.opt.root_node_num)
+        self._log_tune("group", new, time.perf_counter() - t0)
         if new != self.rcfg:
             print(f"[budget] group budgets P={new.group_intersection_budget} "
                   f"K={new.group_max_per_tile}", flush=True)
@@ -816,8 +864,8 @@ class Trainer:
         (the JAX trainer's cache, loop.py:795): None when use_frozen_plans is
         off, off the stream layout, or when the cache was turned off because
         a build lost slots (a plan is exact only when lossless) or the stack
-        would pass frozen_plan_bytes_cap; and under a mesh, as in the JAX
-        trainer."""
+        would pass frozen_plan_bytes_cap (`frozen_plan_estimate`); and under
+        a mesh, as in the JAX trainer."""
         if (not self.use_frozen_plans or self._frozen_plans is False
                 or self.rcfg.pallas_input != "stream" or self.mesh is not None):
             return None
@@ -826,7 +874,7 @@ class Trainer:
         V = self.bundle.num_views
         n = self.state.capacity
         T = -(-self.bundle.width // 16) * -(-self.bundle.height // 16)
-        est = V * 4 * (self.rcfg.max_intersections(n) + 2 * T)
+        est = frozen_plan_estimate(self.rcfg, V, n, T)
         if est > self.frozen_plan_bytes_cap:
             print(f"[frozen] plans disabled: ~{est >> 20} MB exceeds the "
                   f"{self.frozen_plan_bytes_cap >> 20} MB cap", flush=True)
@@ -843,8 +891,11 @@ class Trainer:
             self._frozen_plans = False
             return None
         self._frozen_plans = stack_plans(plans, n)
-        print(f"[frozen] built {V} view plans in {time.time() - t0:.1f}s "
-              f"({self._frozen_plans.nbytes() >> 20} MB)", flush=True)
+        rec = dict(iteration=self.iteration, seconds=time.time() - t0,
+                   nbytes=self._frozen_plans.nbytes(), estimate=est)
+        self.frozen_plan_log.append(rec)
+        print(f"[frozen] built {V} view plans in {rec['seconds']:.1f}s "
+              f"({rec['nbytes'] >> 20} MB of an estimated {est >> 20} MB)", flush=True)
         return self._frozen_plans
 
     def _ensure_pseudo(self, mode: str):
@@ -978,8 +1029,11 @@ class Trainer:
             if it % log_every == 0 or it >= until:
                 lost = int(self._last_lost)
                 if lost > 0:
-                    print(f"[budget] WARNING: step {it} lost {lost} slots to "
-                          f"max_per_tile={self.rcfg.max_per_tile}; re-probing",
+                    lost_to = (f"intersections to the tuned budgets (P="
+                               f"{self.rcfg.intersection_budget}, K={self.rcfg.max_per_tile})"
+                               if self.autotune_budgets else
+                               f"slots to max_per_tile={self.rcfg.max_per_tile}")
+                    print(f"[budget] WARNING: step {it} lost {lost} {lost_to}; re-probing",
                           flush=True)
                     self._budgets_tuned = False
                 rec = dict(iteration=it, stage=stage, loss=float(loss),

@@ -142,10 +142,13 @@ def test_block_len_matches_jax(tmp_path):
 
 
 def test_block_needs_fixed_budgets(tmp_path):
+    """Blocks under the opt-out of fixed budgets (the stream sized per
+    frame) raise."""
     root = str(tmp_path / "scene")
     make_colmap_scene(root, n_views=3)
     tr = tloop.Trainer(dataset.load_scene(root), Config(opt=OptimizationConfig(**OPT)),
-                       str(tmp_path / "out"), rcfg=RasterizeConfig(**RCFG), device="cpu")
+                       str(tmp_path / "out"), rcfg=RasterizeConfig(**RCFG), device="cpu",
+                       autotune_budgets=False)
     tr.save_intermediate = False
     tr.BLOCK_SIZES = BLOCKS
     with pytest.raises(ValueError, match="fixed budgets"):

@@ -947,3 +947,28 @@ def test_kernels_bit_equal_on_a_windowed_stream(cuda, C):
     nc = compact_offsets(counts, CHUNK)[1] * CHUNK
     assert torch.equal(d4[:nc], d4_p[:nc]) and torch.equal(ids4[:nc], ids4_p[:nc])
     assert bool((ids4[nc:] == n).all())
+
+
+@pytest.mark.gpu
+def test_default_trainer_plan_step_bit_for_bit(cuda, tmp_path):
+    """A Trainer at its defaults on the card (chip_smoke.py's 160x120 blob
+    trainer) tunes its budgets and builds its frozen plans, lossless; at
+    rescale 1 its stage-1 step through view 0's plan equals the step through
+    a fresh binning at the same budgets, bit for bit."""
+    from chip_smoke import blob_trainer, eager_step
+    from opengaussian_tpu_torch.ops.rasterize import FrozenPlan
+
+    tr = blob_trainer(cuda, RasterizeConfig(), str(tmp_path))
+    assert tr.autotune_budgets and tr.use_frozen_plans and tr.BLOCK_SIZES == ()
+    assert tr.rcfg.intersection_budget > 0 and tr.budget_log
+    plans = tr._ensure_frozen_plans()
+    assert isinstance(plans, FrozenPlan)
+    assert int((plans.n_dropped + plans.n_truncated).sum()) == 0
+    fresh = eager_step(tr, "1", rcfg=tr.rcfg)
+    frozen = eager_step(tr, "1", rcfg=tr.rcfg, frozen=plans.select(0))
+    assert float(fresh[3]) > 0 and int(fresh[4]) == int(frozen[4]) == 0
+    assert torch.equal(fresh[3], frozen[3])
+    for k in fresh[0].params():
+        assert torch.equal(getattr(fresh[0], k), getattr(frozen[0], k)), k
+        assert torch.equal(fresh[1].mu[k], frozen[1].mu[k]), k
+        assert torch.equal(fresh[1].nu[k], frozen[1].nu[k]), k

@@ -122,7 +122,8 @@ def runs(tmp_path_factory):
     jtr.save_intermediate = False
     jtr.use_frozen_plans = False
     ttr = tloop.Trainer(q.scene, Config(opt=OptimizationConfig(**OPT)), str(tmp / "port"),
-                        rcfg=q.rcfg, device="cpu")
+                        rcfg=q.rcfg, device="cpu", autotune_budgets=False)
+    ttr.use_frozen_plans = False  # the JAX trainer's opt-out, as above
     ttr.save_intermediate = False
     try:
         with concurrent.futures.ThreadPoolExecutor(1) as ex:

@@ -79,7 +79,8 @@ def carried_trainers(tmp_path):
                                      backend="xla"), autotune_budgets=False)
     ttr = tloop.Trainer(tdataset.load_scene(root), TConfig(opt=TOpt(**OPT)),
                         str(tmp_path / "torch"), rcfg=TRaster(max_per_tile=256, chunk=32),
-                        device="cpu")
+                        device="cpu", autotune_budgets=False)
+    ttr.use_frozen_plans = False  # the JAX trainer's opt-out, as above
     rng = np.random.default_rng(3)
     cap = jtr.state.capacity
     jtr.state = jtr.state.with_params({

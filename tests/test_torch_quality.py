@@ -311,7 +311,7 @@ def test_quality_run_writes_every_key(fast_run):
     assert got["workload"] == dict(width=160, height=120, n_train=7, n_test=1, n_gt_splats=600,
                                    objects=4, k1=4, k2=2, iters=LONG_FAST["it22"], fast=True)
     assert got["device"] == "cpu" and got["peak_device_mib"] is None
-    assert got["trainer_options"] == dict(autotune_budgets=False, use_frozen_plans=False,
+    assert got["trainer_options"] == dict(autotune_budgets=True, use_frozen_plans=True,
                                           BLOCK_SIZES=[])
     assert untouched
 

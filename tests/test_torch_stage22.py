@@ -361,6 +361,13 @@ def test_cli_train_through_stage3_matches_jax(tmp_path, monkeypatch):
     j_lang = jtr.run_stage3()
     out = str(tmp_path / "port")
     flags = [x for k, v in opt.items() for x in (f"--{k}", str(v))]
+
+    def opt_out_trainer(*a, **kw):  # the JAX trainer's opt-out, as above
+        tr = tloop.Trainer(*a, autotune_budgets=False, **kw)
+        tr.use_frozen_plans = False
+        return tr
+
+    monkeypatch.setattr(tcli_train, "Trainer", opt_out_trainer)
     tr = tcli_train.main(["-s", root, "-m", out, *flags], device="cpu",
                          rcfg=TRaster(max_per_tile=1024, chunk=32))
     j_loss = np.array([r["loss"] for r in jtr.history])

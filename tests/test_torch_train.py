@@ -127,7 +127,8 @@ def test_trainer_matches_jax(tmp_path, capsys):
     jtr.save_intermediate = False
     ttr = tloop.Trainer(tdataset.load_scene(root), TConfig(opt=TOpt(**opt)),
                         str(tmp_path / "torch"), rcfg=TRaster(max_per_tile=1024, chunk=32),
-                        device="cpu")
+                        device="cpu", autotune_budgets=False)
+    ttr.use_frozen_plans = False  # the JAX trainer's opt-out, as above
     n0 = int(ttr.state.num_alive)
     assert n0 == int(jtr.state.num_alive) == 200
     for until in (10, 20):
@@ -192,15 +193,17 @@ def test_cli_train_port_starts_the_viewer(tmp_path):
 
 
 def test_trainer_never_truncates_a_tile(tmp_path):
-    """A max_per_tile below the deepest tile truncated slots in every step
-    (the JAX trainer's budget probe grows the cap instead): the trainer
-    raises it before the first step, and its steps then equal those of a
-    trainer whose cap was large enough from the start."""
+    """The opt-out (autotune_budgets=False, the stream sized per frame): a
+    max_per_tile below the deepest tile truncated slots in every step (the
+    default budget probe grows the cap instead): the trainer raises it
+    before the first step, and its steps then equal those of a trainer whose
+    cap was large enough from the start."""
     root = str(tmp_path / "scene")
     make_colmap_scene(root, n_views=3, with_sidecars=False)
     cfg = TConfig(opt=TOpt(iterations=3))
     trs = [tloop.Trainer(tdataset.load_scene(root), cfg, str(tmp_path / f"out{k}"),
-                         rcfg=TRaster(max_per_tile=k, chunk=32), device="cpu")
+                         rcfg=TRaster(max_per_tile=k, chunk=32), device="cpu",
+                         autotune_budgets=False)
            for k in (32, 1024)]
     for tr in trs:
         tr.train(until=3, log_every=1)

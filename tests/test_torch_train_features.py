@@ -172,7 +172,8 @@ def test_trainer_through_stage21_matches_jax(tmp_path, monkeypatch):
         tr = tloop.Trainer(tdataset.load_scene(root), TConfig(opt=TOpt(**opt)),
                            str(tmp_path / layout),
                            rcfg=TRaster(max_per_tile=1024, chunk=32, pallas_input=layout),
-                           device="cpu")
+                           device="cpu", autotune_budgets=False)
+        tr.use_frozen_plans = False  # the JAX trainer's opt-out, as above
         tr.train(until=4, log_every=1)
         geometry = {k: getattr(tr.state, k).clone() for k in GEOMETRY}
         tr.train(until=12, log_every=1)
