@@ -198,6 +198,18 @@ Phases, in order; any failure exits non-zero:
      K3's atomic order the runs forked from call to call and the gates
      missed about one call in 5 (PERF.md §6). Phase 5 logs each training
      run's own peak device memory.
+ 12. the measuring tools (opengaussian_tpu_torch/tools/): `bench.main` at
+     full size, `stage_bench.main` at the recipe shape with --iters 5,
+     `trace_step.main` with --iters 3, `ab_reduce.main` with --iters 5
+     --reps 2, `phase_bench.main` at its defaults and `mem_lazy.main` with
+     --views 10, each of the first five with its pre-timing kernel check
+     (the card's path against the plain versions on the CPU,
+     `bench.hold_against_plain`): each one's JSON line (its standard
+     output's last) held to the keys of its JAX counterpart (TOOL_KEYS),
+     every figure finite, the card in `device`, and the kernels each
+     launched (TOOL_RUNS); refine_bench's JSON comes from phase 5's
+     refiner run, which goes through `refine_bench.run`, and its kernel
+     check (`refine_bench.check_kernels`) runs here.
 Then a JSON line of per-kernel numbers (K5's and K6's rows count their
 group entries' launches and errors), the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}.
@@ -209,7 +221,6 @@ import dataclasses
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -217,6 +228,26 @@ import time
 import numpy as np
 
 import torch
+
+from opengaussian_tpu_torch.tools import bench, refine_bench, timing
+from opengaussian_tpu_torch.tools.timing import (
+    bound_of,
+    bwd_bound,
+    compact_bound,
+    cuda_ms,
+    device_ms,
+    fwd_bound,
+    ops_blended,
+    ops_grad,
+    peaks,
+    perm_bound,
+    profile,
+    reduce_bound,
+    smi,
+    walk_ops,
+)
+
+timing.LOG = sys.stdout  # the helpers' lines join this script's log
 
 WIDTH, HEIGHT = 1296, 968
 N_SPLATS = 200_000
@@ -235,91 +266,31 @@ TOL = dict(atol=3e-5, rtol=1e-4)
 # + 1e-4 * |plain|. K2, K4 and K6 sum in a fixed order and match bit for bit,
 # and so does K3's sorted entry against the plain version on the CPU.
 GRAD_TOL = dict(norm_atol=1e-5, rtol=1e-4)
-# fp32 operations per (slot, pixel) pair of the blend, by what the pair needs:
-# every pair that must be evaluated (its warp's pixels meet the slot's cull
-# box; outside it alpha stays below 1/255, which one test per warp shows):
-# dx, dy and the conic's quadratic form (11), the clamp of power (1), expf
-# (~8: range reduction, ex2 and scaling without fast math), the power test,
-# o * gauss, the 0.99 clamp and the 1/255 test (4)
-OPS_EVALUATED = 24
-OPS_TESTED = 3  # alpha >= 1/255: 1 - alpha, T * (1 - alpha), the 1e-4 test
-OPS_CULL = 4  # per slot and warp: the warp's rectangle against the box
-# per staged slot, its cull box (blend_tile.cuh:slot_box): det (3), the
-# conditioning bound (7), the tests (5), the level with its log (13), the
-# half-extents (8), their margins (12), the edges (4), finiteness (4), the
-# opacity test (1)
-OPS_BOX = 57
-
-
-def ops_blended(C: int) -> int:
-    """A pair that composites: w = alpha * T, then a multiply-add per channel."""
-    return 1 + 2 * C
-
-
-def ops_grad(C: int) -> int:
-    """A pair that composites, in the backward replay: w (1), gc (2C - 1),
-    the running sum (2), 1 - a floored (2), d_alpha (6), the clamp test (1),
-    d_power (1), the mean2d, conic and opacity terms (18), the payload terms
-    (C) and its share of the sum over the tile's pixels (6 + C)."""
-    return 4 * C + 36
-
-
-# NVIDIA data sheets: fp32 (non-tensor) FLOP/s and HBM bytes/s per H100 model
-PEAKS = (("PCIe", 51e12, 2.0e12), ("NVL", 60e12, 3.9e12),
-         ("", 67e12, 3.35e12))  # "" = SXM, what "H100 80GB HBM3" names
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call of fn on the current stream."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def write_model_and_scene(root: str, seed: int = 0) -> tuple[str, str]:
+def write_model_and_scene(root: str) -> tuple[str, str]:
     """A synthetic trained model (PLY) and a 3-view COLMAP scene at
-    1296x968: 200k splats with the statistics of bench.py:make_workload
-    (create_from_pcd on a seeded cloud, log-scales shifted by log(0.088),
-    logit-opacities ~ N(0, 2)), SH degree 3 and seeded 6-D features. The
-    scene's points3D.bin holds the same 200k points, which the trainer
-    starts from; its cameras sit 1 apart along x (scene extent 1.1)."""
+    1296x968: the splats of the bench's calibrated workload
+    (`bench.workload_state(0.088)`: create_from_pcd on a seeded cloud,
+    log-scales shifted by log(0.088), logit-opacities ~ N(0, 2)) with
+    seeded SH coefficients of degree 3 drawn after them. The scene's
+    points3D.bin holds the same points, which the trainer starts from; its
+    cameras sit 1 apart along x (scene extent 1.1)."""
     from PIL import Image
 
     from opengaussian_tpu_torch.cameras import fov2focal
     from opengaussian_tpu_torch.data import colmap
     from opengaussian_tpu_torch.data.ply import save_gaussian_ply
-    from opengaussian_tpu_torch.models.gaussians import create_from_pcd
 
-    rng = np.random.default_rng(seed)
-    pts = np.stack([rng.normal(0, 1.2, N_SPLATS), rng.normal(0, 0.9, N_SPLATS),
-                    rng.uniform(2.0, 10.0, N_SPLATS)], -1).astype(np.float32)
-    cols = rng.uniform(0, 1, (N_SPLATS, 3)).astype(np.float32)
-    s = create_from_pcd(pts, cols, seed=seed, device="cpu")
+    s, rng = bench.workload_state(0.088, "cpu", N_SPLATS)
     n = N_SPLATS
-    sh_rest = s.sh_rest.clone()
-    sh_rest[:n] = torch.as_tensor(rng.normal(0, 0.1, (n, 15, 3)), dtype=torch.float32)
-    logit = s.logit_opacity.clone()
-    logit[:n] = torch.as_tensor(rng.normal(0.0, 2.0, n), dtype=torch.float32)
-    s = dataclasses.replace(s, sh_rest=sh_rest, logit_opacity=logit,
-                            log_scales=s.log_scales + math.log(0.088))
+    pts, cols = bench.workload_cloud(np.random.default_rng(0), n)
+    s = dataclasses.replace(s, sh_rest=torch.as_tensor(rng.normal(0, 0.1, (n, 15, 3)),
+                                                       dtype=torch.float32))
     model = os.path.join(root, "model")
     pc = os.path.join(model, "point_cloud", "iteration_1")
     os.makedirs(pc)
@@ -1145,43 +1116,6 @@ def check_refiner_against_cpu(dev, layout: str = "stream") -> dict:
     return errs
 
 
-def refine_scene(dev):
-    """tools/refine_bench.py:51-84's scene, built here: REFINE_SPLATS splats
-    filling a room volume, ~40% of them past the 0.99 anchor opacity (a
-    trained scene's top end), REFINE_VIEWS cameras on an arc at
-    REFINE_W x REFINE_H, and per-view blocky SAM grids of REFINE_IDS ids
-    whose numbering shifts per view (so stage 1 has cross-view work), with an
-    invalid border stripe. -> (state, cameras, SAM ids [V, H, W] int16)."""
-    from opengaussian_tpu_torch.cameras import Camera
-    from opengaussian_tpu_torch.models import gaussians as G
-
-    rng = np.random.default_rng(0)
-    n = REFINE_SPLATS
-    pts = np.stack([rng.normal(0, 1.2, n), rng.normal(0, 0.9, n),
-                    rng.uniform(2.0, 9.0, n)], -1).astype(np.float32)
-    cols = rng.uniform(0, 1, (n, 3)).astype(np.float32)
-    gs = G.create_from_pcd(pts, cols, capacity=n, seed=0, device=dev)
-    op = np.where(rng.uniform(size=n) < 0.4, 6.0, rng.normal(0.0, 2.0, n))
-    gs = dataclasses.replace(gs, log_scales=gs.log_scales + math.log(0.05),
-                             logit_opacity=torch.as_tensor(op.astype(np.float32), device=dev))
-    W, H, ids = REFINE_W, REFINE_H, REFINE_IDS
-    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
-    gh = max(1, int(np.sqrt(ids / 2)))
-    gw = max(1, ids // gh)
-    block = ((yy * gh // H) * gw + (xx * gw // W)) % ids
-    cams, sams = [], []
-    for v in range(REFINE_VIEWS):
-        ang = 0.9 * (v / max(REFINE_VIEWS - 1, 1) - 0.5)
-        R = np.array([[np.cos(ang), 0, -np.sin(ang)], [0, 1, 0],
-                      [np.sin(ang), 0, np.cos(ang)]], np.float32)
-        t = np.array([0.8 * np.sin(2 * ang), 0.1 * np.cos(3 * ang), 0.0], np.float32)
-        cams.append(Camera.from_fov(R, t, 1.1, 0.9, W, H))
-        s = ((block + v * 7) % ids + 1).astype(np.int16)
-        s[:6] = 0
-        sams.append(s)
-    return gs, cams, np.stack(sams)
-
-
 def depth_stream(camera, state, rcfg):
     """The blend input of the refiner's depth render of one view (payload
     zeros [N, 1] and depth: C = 2), built by the render path's own _prepare
@@ -1202,10 +1136,11 @@ def depth_stream(camera, state, rcfg):
 
 def refine_phase(dev, card: str) -> dict:
     """The refiner's fused path (no trace: the per-pixel argmax stays on the
-    card) at tools/refine_bench.py's shape, through refine_sam_masks, the
-    function the trainer calls. max_per_tile is fitted to the deepest tile of
-    the refiner's own binning (no opacities: the 3-sigma rect), so no slot
-    is truncated. Checks exactly one K1 launch per view, the votes'
+    card) at tools/refine_bench.py's shape (`refine_bench.refine_scene`),
+    through `refine_bench.run`, which times refine_sam_masks, the function
+    the trainer calls, and makes the tool's JSON ("json" in the result).
+    max_per_tile is fitted to the deepest tile of the refiner's own binning
+    (no opacities: the 3-sigma rect), so no slot is truncated. Checks exactly one K1 launch per view, the votes'
     scatters (`vote_launches`) and no other kernel,
     K1 bit for bit with its plain version on view 0's depth stream (C = 2),
     and refined ids in [-1, n_gids]; logs the phase seconds, n_gids, the
@@ -1217,7 +1152,8 @@ def refine_phase(dev, card: str) -> dict:
     from opengaussian_tpu_torch.refine import sam_refiner as sr
 
     t0 = time.perf_counter()
-    gs, cams, sam = refine_scene(dev)
+    gs, cams, sam = refine_bench.refine_scene(REFINE_SPLATS, REFINE_VIEWS, REFINE_IDS, dev,
+                                              REFINE_W, REFINE_H)
     chunk = RasterizeConfig().chunk
     with torch.no_grad():
         cov3d = build_cov3d(gs.scales, gs.quats)
@@ -1250,12 +1186,10 @@ def refine_phase(dev, card: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        timings = {}
-        t0 = time.perf_counter()
-        refined = sr.refine_sam_masks(gs, cams, sam, rcfg, anchor_stride=REFINE_STRIDE,
-                                      timings=timings)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
+        res, refined = refine_bench.run(gs, cams, sam, rcfg, REFINE_STRIDE, card)
+        total = res["total_s"]
+        timings = {k: v for k, v in res.items()
+                   if k.startswith(("device_", "host_")) and not k.endswith("_total_s")}
         peak_abs = torch.cuda.max_memory_allocated()
         peak = peak_abs - base
         launches = read_launches(wrappers, REFINE_VIEWS, "refiner phase",
@@ -1292,127 +1226,7 @@ def refine_phase(dev, card: str) -> dict:
         f"({expand_wall:.3f} ms a call) [{card}]")
     return dict(total_s=total, timings=timings, n_gids=n_gids, void=void, peak=peak,
                 launches=launches, k1_err=k1_err, votes_ms=votes_ms, expand_ms=expand_ms,
-                deepest=max(deep), max_per_tile=rcfg.max_per_tile)
-
-
-def profile(fn, n: int, what: str, counts: dict | None = None) -> tuple[float, float]:
-    """torch.profiler over n calls of fn: device time by kernel.
-    -> (device busy ms per call, the union of the kernels' intervals; host
-    wall ms per call of the same profiled calls, to the last kernel's end).
-    counts: receives "launches", the kernels per call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy, end, by_name = 0.0, -math.inf, {}
-    for e in sorted(kernels, key=lambda e: e.time_range.start):
-        s, t = e.time_range.start, e.time_range.end
-        busy += max(0.0, t - max(s, end))
-        end = max(end, t)
-        by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
-    busy_ms = busy / 1e3 / n
-    span_ms = (end - kernels[0].time_range.start) / 1e3 / n
-    if counts is not None:
-        counts["launches"] = round(len(kernels) / n)
-    log(f"profile {what}: device busy {busy_ms:.3f} ms, first kernel start to last "
-        f"kernel end {span_ms:.3f} ms, host wall {wall_ms:.3f} ms, "
-        f"{len(kernels) / n:.0f} kernel launches (per {what})")
-    for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        log(f"profile {what}:   {us / 1e3 / n:8.4f} ms  {k[:90]}")
-    return busy_ms, wall_ms
-
-
-def device_ms(fn, n: int, *names: str) -> float:
-    """Device time per call of the kernels whose names hold one of `names`,
-    by torch.profiler over n calls: the kernels alone, without the host work
-    of their wrapper. Each name's time is its mean over the launches the
-    profiler recorded (it can miss one of a window, and now and then a
-    whole window, which is then profiled again, up to 3 times), times its
-    launches per call. With no names, every kernel the calls launch, each
-    by its own name in the same way (a plain sum of the recorded events
-    would drop the launches the profiler missed)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    for _ in range(3):
-        with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events and all(any(name in e.name for e in events) for name in names):
-            break
-        log(f"profile: a window of {n} calls recorded none of {names or 'its kernels'}; "
-            "profiling again")
-    if names:
-        groups = {name: [e for e in events if name in e.name] for name in names}
-    else:
-        groups = {}
-        for e in events:
-            groups.setdefault(e.name, []).append(e)
-    total = 0.0
-    for name, evs in groups.items():
-        us = [e.time_range.end - e.time_range.start for e in evs]
-        if not us:
-            raise AssertionError(f"the profiler recorded no {name}")
-        per_call = max(1, round(len(us) / n))
-        if len(us) != per_call * n:
-            log(f"profile: {len(us)} {name[:60]} launches recorded of {n} calls")
-        total += sum(us) / len(us) * per_call / 1e3
-    return total
-
-
-def walk_ops(work) -> int:
-    """The operations a tile walk needs before any compositing, from the
-    plain version's work counts: a cull box per staged slot, a box test per
-    slot and warp, the evaluation of each pair in a box, the transmittance
-    test of each pair past 1/255."""
-    return (work["boxes"] * OPS_BOX + work["box_tests"] * OPS_CULL
-            + work["in_box"] * OPS_EVALUATED + work["tested"] * OPS_TESTED)
-
-
-def fwd_bound(name, live: int, F: int, T: int, n_index: int, work, peak_flops,
-              peak_bytes) -> tuple[float, str]:
-    """A forward blend's least time per launch (K1, K5): the larger of the
-    bytes moved over the HBM rate (each of the `live` slot rows read once,
-    n_index [T] int32 tables, accum and t_final written once) and the
-    operations this frame's data needs (from the plain version's work
-    counts) over the fp32 rate."""
-    C = F - 6
-    moved = live * F * 4 + n_index * T * 4 + T * 256 * C * 4 + T * 256 * 4
-    ops = walk_ops(work) + work["blended"] * ops_blended(C)
-    return bound_of(name, moved, ops, peak_flops, peak_bytes)
-
-
-def bound_of(name, moved, ops, peak_flops, peak_bytes) -> tuple[float, str]:
-    t_bytes, t_ops = moved / peak_bytes * 1e3, ops / peak_flops * 1e3
-    log(f"bound: {name}: {moved} bytes -> {t_bytes:.4f} ms, {ops} ops -> {t_ops:.4f} ms")
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def bwd_bound(name, live: int, F: int, T: int, n_index: int, work, peak_flops,
-              peak_bytes) -> tuple[float, str]:
-    """A backward replay's (K2, K6): the live rows read and their gradient
-    rows written once, n_index [T] int32 tables, accum/g_accum/t_final/g_t
-    read once; the replay's operations from its own pair counts."""
-    C = F - 6
-    moved = 2 * live * F * 4 + n_index * T * 4 + 2 * T * 256 * (C + 1) * 4
-    ops = walk_ops(work) + work["blended"] * ops_grad(C) + T * 256 * (2 * C + 1)
-    return bound_of(name, moved, ops, peak_flops, peak_bytes)
-
-
-def reduce_bound(d_rows, n, peak_flops, peak_bytes) -> tuple[float, str]:
-    """K3: rows and ids read once, [n, F] written once; one add per element."""
-    R, F = d_rows.shape
-    return bound_of("segment_reduce", R * F * 4 + R * 4 + n * F * 4, R * F,
-                    peak_flops, peak_bytes)
+                deepest=max(deep), max_per_tile=rcfg.max_per_tile, json=res)
 
 
 def time_reduce(d_rows, bins, n: int, what: str, card: str, peak_flops,
@@ -1451,15 +1265,6 @@ def time_reduce(d_rows, bins, n: int, what: str, card: str, peak_flops,
     return dict(ms=(turns[0] + turns[-1]) / 2, dev=dev["permutation"], kernel=kernel,
                 plain=plain, atomic_dev=dev["atomic"], sorted_dev=dev["sorted"],
                 sorted_kernel=sorted_kernel, lib_dev=dev["library"], bound=bound, by=by)
-
-
-def perm_bound(d_rows, bins, n, peak_flops, peak_bytes) -> tuple[float, str]:
-    """K3's permutation entry: rows, the [L] slot positions and the [n]
-    range ends read once, [n, F] written once; one add per element."""
-    R, F = d_rows.shape
-    L = bins.slot_pos.shape[0]
-    return bound_of("segment_reduce_perm", R * F * 4 + L * 4 + n * 4 + n * F * 4, R * F,
-                    peak_flops, peak_bytes)
 
 
 def launch_counts() -> dict:
@@ -2727,20 +2532,6 @@ def time_train_frame(tr, chunk: int, card: str, peak_flops, peak_bytes,
                 "blend_tiles_bwd_kernel", lambda: rk.blend_tiles_bwd(*bargs),
                 parent_k6(prk, *bargs))}, card)
     return out
-
-
-def compact_bound(live: int, nc_rows: int, rows: int, F: int, T: int, work, peak_flops,
-                  peak_bytes) -> tuple[float, str]:
-    """K4: the live rows and their splat ids read once, the rows of the
-    tiles' range written once (nc_rows), every id of the output written once
-    (rows), the [T] counts, tstart, toff and cstart tables,
-    accum/g_accum/t_final/g_t read once; the replay's operations from its
-    pair counts, as K2's."""
-    C = F - 6
-    moved = (live * (F + 1) * 4 + nc_rows * F * 4 + rows * 4 + 4 * T * 4
-             + 2 * T * 256 * (C + 1) * 4)
-    ops = walk_ops(work) + work["blended"] * ops_grad(C) + T * 256 * (2 * C + 1)
-    return bound_of("blend_stream_bwd_compact", moved, ops, peak_flops, peak_bytes)
 
 
 QUERY_TEXTS = ("chip object", "second chip object")
@@ -4229,6 +4020,99 @@ def convergence_phase(root: str, dev, card: str) -> dict:
     return dict(res, launches2=res2["launches"], misses=misses)
 
 
+# the keys of each measuring tool's JSON line: the JAX tool's (bench.py:483-504,
+# tools/stage_bench.py, tools/ab_reduce.py's --out payload, tools/refine_bench.py,
+# tools/mem_lazy.py) and the port's own, `device` in every one
+TOOL_KEYS = {
+    "bench": ("metric", "value", "unit", "vs_baseline", "headline_regime", "heavy_mpix_s",
+              "heavy_vs_baseline", "training_regime_mpix_s", "training_regime_vs_baseline",
+              "training_regime_heavy_mpix_s", "training_regime_heavy_vs_baseline",
+              "default_mpix_s", "headline_variant"),
+    "stage_bench": ("stage0_step_ms", "stage1_step_ms", "stage21_step_ms", "stage22_step_ms",
+                    "frozen_plan_build_ms", "frozen_plan_lost", "stage1_frozen_ms",
+                    "stage21_frozen_ms", "stage22_frozen_ms", "assign_root_ms",
+                    "assign_leaf_ms", "sweep1_view_ms", "sweep2_view_ms", "lang_view_ms",
+                    "recipe_views_assumed", "recipe_stage1_min", "recipe_stage21_min",
+                    "recipe_stage22_min", "recipe_sweeps_min", "recipe_stage3_min",
+                    "recipe_total_min", "anchor_total_min", "vs_anchor", "group_mode"),
+    "trace_step": ("device_ms_per_step", "busy_ms", "wall_ms", "idle_share",
+                   "launches_per_step", "phases", "top"),
+    "ab_reduce": ("methodology", "iters_per_sample", "table"),
+    "phase_bench": ("prefixes", "bisect", "micro", "fwd_bwd_mpix_s"),
+    "mem_lazy": ("views", "eager_mb", "lazy_mb"),
+    "refine_bench": ("workload", "refined_ids", "void_frac", "device_total_s", "host_total_s",
+                     "total_s", "host_frac", "device_votes_s", "device_expand_s"),
+}
+# each tool's arguments in phase 12, and the kernels its run must launch
+TOOL_RUNS = {
+    "bench": ((), ("blend_stream_fwd", "blend_stream_bwd", "blend_stream_bwd_compact",
+                   "segment_reduce", "segment_reduce_perm")),
+    "stage_bench": (("--iters", "5"), ("blend_stream_fwd", "blend_stream_bwd",
+                                       "segment_reduce_perm")),
+    "trace_step": (("--iters", "3"), ("blend_stream_fwd", "blend_stream_bwd",
+                                      "segment_reduce_perm")),
+    "ab_reduce": (("--iters", "5", "--reps", "2"),
+                  ("blend_stream_fwd", "blend_stream_bwd", "blend_stream_bwd_compact",
+                   "segment_reduce", "segment_reduce_perm")),
+    "phase_bench": ((), ("blend_stream_fwd", "blend_stream_bwd", "segment_reduce_perm")),
+    "mem_lazy": (("--views", "10"), ()),
+}
+
+
+def finite_figures(x) -> bool:
+    if isinstance(x, dict):
+        return all(finite_figures(v) for v in x.values())
+    if isinstance(x, list):
+        return all(finite_figures(v) for v in x)
+    return not isinstance(x, float) or math.isfinite(x)
+
+
+def check_tool_json(name: str, out: dict, card: str) -> None:
+    missing = set(TOOL_KEYS[name]) - set(out)
+    if missing or out.get("device") != card or not finite_figures(out):
+        raise AssertionError(f"phase 12: {name}'s JSON lacks {sorted(missing)}, names "
+                             f"{out.get('device')!r} for {card!r}, or holds a figure that is "
+                             f"not finite: {out}")
+
+
+def tools_phase(dev, card: str, refine_json: dict) -> dict:
+    """Phase 12: each measuring tool's main (opengaussian_tpu_torch.tools)
+    on the card at TOOL_RUNS' arguments, its stdout's last line parsed as
+    JSON and held to TOOL_KEYS, every figure finite, `device` the card's;
+    the kernels each run launched (counted from 0 before it), each of its
+    TOOL_RUNS kernels at least once. refine_bench ran in phase 5
+    (`refine_phase` through `refine_bench.run`); its JSON is held here, and
+    its kernel check runs here.
+    -> {"launches": {tool: counts}, "json": {tool: dict}, "seconds"}."""
+    import contextlib
+    import importlib
+    import io
+
+    check_tool_json("refine_bench", refine_json, card)
+    err = refine_bench.check_kernels(REFINE_IDS, REFINE_W, REFINE_H, dev)
+    log(f"tools: refine_bench's kernel check, largest normalised difference {err:.2e} [{card}]")
+    launches, outs, seconds = {}, {"refine_bench": refine_json}, {}
+    for name, (argv, need) in TOOL_RUNS.items():
+        mod = importlib.import_module(f"opengaussian_tpu_torch.tools.{name}")
+        wrappers = zero_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(list(argv), device=str(dev))
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = {k: w.launches for k, w in wrappers.items()}
+        line = buf.getvalue().strip().splitlines()[-1]
+        outs[name] = json.loads(line)
+        check_tool_json(name, outs[name], card)
+        idle = [k for k in need if launches[name][k] == 0]
+        if idle:
+            raise AssertionError(f"phase 12: {name} launched no {idle}: {launches[name]}")
+        log(f"tools: {name} {' '.join(argv)} in {seconds[name]:.1f} s, launches "
+            f"{launches[name]}: {line} [{card}]")
+    return dict(launches=launches, json=outs, seconds=seconds)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4238,6 +4122,7 @@ def main(argv=None) -> int:
                          "its K2, K4 and K6 beside this tree's, in turns, on the same "
                          "inputs; may be given more than once")
     opts = ap.parse_args(argv)
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
@@ -4258,7 +4143,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    peak_flops, peak_bytes = next((f, b) for key, f, b in PEAKS if key in name)
+    peak_flops, peak_bytes = peaks(name)
 
     # 2. build
     t0 = time.perf_counter()
@@ -4641,6 +4526,9 @@ def main(argv=None) -> int:
         if misses:
             raise AssertionError("phase 11: " + "; ".join(misses))
 
+        # 12. the measuring tools
+        tools = tools_phase(dev, card, refine["json"])
+
     k1_b = [b for b, _ in k1_bound.values()]
 
     def row(name, launches, err, ms, plain, bound, by, lib=None, line=None, source=None):
@@ -4654,7 +4542,7 @@ def main(argv=None) -> int:
                   refine["launches"], groups["launches"], windows["launches"],
                   bands["launches"], meshed["launches"], meshtr["launches"],
                   meshtr["hold_launches"], *(r["launches"] for r in quality["runs"].values()),
-                  converge["launches"], converge["launches2"])
+                  converge["launches"], converge["launches2"], *tools["launches"].values())
     total = {k: sum(p[k] for p in main_paths) for k in render_launches}
     log(f"launches on the main paths: render {render_launches}, "
         + ", ".join(f"training ({r}) {v}" for r, v in train_launches.items()) + ", "
@@ -4663,7 +4551,8 @@ def main(argv=None) -> int:
         f"{windows['launches']}, bands {bands['launches']}, mesh {meshed['launches']}, "
         f"mesh trainer {meshtr['launches']}, its sharded holds {meshtr['hold_launches']}, "
         + ", ".join(f"quality run ({n}) {r['launches']}" for n, r in quality["runs"].items())
-        + f", convergence run {converge['launches']}")
+        + f", convergence run {converge['launches']}, "
+        + ", ".join(f"{t} {v}" for t, v in tools["launches"].items()))
     for k, kname, render_dev in (("k1", "K1", k1_dev), ("k2", "K2", {4: k2_dev}),
                                  ("k4", "K4", {4: k4_dev}), ("k6", "K6", {7: k6_dev})):
         t = train[k]
@@ -4766,6 +4655,21 @@ def main(argv=None) -> int:
         + ", ".join(f"{c['iteration']}: {c['psnr']}" for c in converge["curve"])
         + f", alive {converge['curve'][-1]['num_alive']}, {converge['wall_s']} s, peak "
         f"{converge['peak_device_mib']} MiB [{card}]")
+    tj = tools["json"]
+    log(f"summary: measuring tools: bench {tj['bench']['value']} Mpix/s "
+        f"({tj['bench']['headline_variant']}; default {tj['bench']['default_mpix_s']}, "
+        f"training regime {tj['bench']['training_regime_mpix_s']}, heavy "
+        f"{tj['bench']['heavy_mpix_s']}); stage_bench step ms "
+        + ", ".join(f"{k.removesuffix('_ms')} {v}" for k, v in tj["stage_bench"].items()
+                    if k.endswith("_ms"))
+        + f", recipe {tj['stage_bench']['recipe_total_min']} min against 20; trace_step "
+        f"{tj['trace_step']['device_ms_per_step']:.3f} ms/step, idle share "
+        f"{tj['trace_step']['idle_share']:.3f}; ab_reduce medians "
+        + ", ".join(f"{k} {v['ms_per_step_median']}" for k, v in tj["ab_reduce"]["table"].items())
+        + f" ms; phase_bench fwd+bwd {tj['phase_bench']['prefixes']['fwd+bwd']:.3f} ms; "
+        f"mem_lazy eager / lazy {tj['mem_lazy']['eager_mb']} / {tj['mem_lazy']['lazy_mb']} MB; "
+        f"refine_bench {tj['refine_bench']['total_s']} s; phase 12 in "
+        f"{sum(tools['seconds'].values()):.1f} s [{card}]")
     kernels = [
         row("blend_stream_fwd", total["blend_stream_fwd"],
             max(k1_err, train["k1"]["err"], refine["k1_err"], windows["k1_err"]),
@@ -4795,6 +4699,7 @@ def main(argv=None) -> int:
             max(dense["k6_err"], train["k6"]["err"], *groups["errs"].values()), k6_ms,
             k6_plain, k6_b, k6_by, line=413),
     ]
+    log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all, phases 1-12 [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -86,6 +86,60 @@ def depth_rank(depth: torch.Tensor) -> torch.Tensor:
     return rank
 
 
+def expand_slots(nt: torch.Tensor, P: int):
+    """The binning's first stage: slot p belongs to splat g[p]; a splat's
+    slots are contiguous and splat indices ascend, as in the JAX package's
+    scatter+cummax. nt [N] int64: each splat's rect slots; P: the fixed
+    slot budget (slot p < total lies in the first splat whose end passes
+    p), or 0 for a buffer sized per frame. -> (g, slot, starts, ends, live:
+    slot < total under a budget, else None)."""
+    dev = nt.device
+    n = nt.shape[0]
+    ends = torch.cumsum(nt, 0)
+    starts = ends - nt
+    if P > 0:
+        slot = torch.arange(P, device=dev)
+        live = slot < ends[-1] if n else torch.zeros(P, dtype=torch.bool, device=dev)
+        g = torch.clamp(torch.searchsorted(ends, slot, right=True), max=max(n - 1, 0))
+    else:
+        g = torch.repeat_interleave(torch.arange(n, device=dev), nt)  # [total]
+        slot, live = torch.arange(g.shape[0], device=dev), None
+    return g, slot, starts, ends, live
+
+
+def slot_tiles(proj: Projected, g: torch.Tensor, slot: torch.Tensor, starts: torch.Tensor,
+               grid_x: int):
+    """The second stage: each slot's tile, row-major within its splat's rect,
+    and the exact circle-tile cull (beyond the cutoff radius alpha < 1/255,
+    so a tile whose nearest point is farther than it receives nothing).
+    -> (tile index ty * grid_x + tx [int64], hits [bool])."""
+    r = slot - starts[g]
+    rect_min = proj.rect_min.to(torch.int64)[g]
+    w = torch.clamp(proj.rect_max[:, 0].to(torch.int64) - proj.rect_min[:, 0], min=1)[g]
+    tx = rect_min[:, 0] + r % w
+    ty = rect_min[:, 1] + r // w
+    mean2d = proj.mean2d.detach()
+    cx = mean2d[g, 0]
+    cy = mean2d[g, 1]
+    txf = tx.to(torch.float32) * float(TILE)
+    tyf = ty.to(torch.float32) * float(TILE)
+    nx = torch.minimum(torch.maximum(cx, txf), txf + (TILE - 1.0))
+    ny = torch.minimum(torch.maximum(cy, tyf), tyf + (TILE - 1.0))
+    rad = proj.cull_radius[g]
+    ddx = cx - nx
+    ddy = cy - ny
+    return ty * grid_x + tx, ddx * ddx + ddy * ddy <= rad * rad
+
+
+def sort_slots(tile_id: torch.Tensor, rank: torch.Tensor, g: torch.Tensor, n: int):
+    """The third stage: one stable sort by an int64 key, tile major, depth
+    rank minor (unique for live slots). -> (each sorted slot's tile, the
+    sort's permutation, each sorted slot's splat)."""
+    key = tile_id * (n + 1) + rank.to(torch.int64)[g]
+    key_s, order = torch.sort(key, stable=True)
+    return key_s // (n + 1), order, g[order]
+
+
 def bin_gaussians(
     proj: Projected, grid_x: int, grid_y: int, max_per_tile: int, dense: bool = False,
     rank: torch.Tensor | None = None, group_of: torch.Tensor | None = None,
@@ -131,50 +185,15 @@ def bin_gaussians(
     dev = proj.depth.device
     nt = proj.num_tiles.to(torch.int64)
     n = nt.shape[0]
-
-    # expand: slot p belongs to splat g[p]; a splat's slots are contiguous
-    # and splat indices ascend, as in the JAX package's scatter+cummax
-    ends = torch.cumsum(nt, 0)
-    starts = ends - nt
     P = max_intersections
-    if P > 0:  # slot p < total lies in the first splat whose end passes p
-        slot = torch.arange(P, device=dev)
-        live = slot < ends[-1] if n else torch.zeros(P, dtype=torch.bool, device=dev)
-        g = torch.clamp(torch.searchsorted(ends, slot, right=True), max=max(n - 1, 0))
-    else:
-        g = torch.repeat_interleave(torch.arange(n, device=dev), nt)  # [total]
-        slot, live = torch.arange(g.shape[0], device=dev), None
-    r = slot - starts[g]
-    rect_min = proj.rect_min.to(torch.int64)[g]
-    w = torch.clamp(proj.rect_max[:, 0].to(torch.int64) - proj.rect_min[:, 0], min=1)[g]
-    tx = rect_min[:, 0] + r % w
-    ty = rect_min[:, 1] + r // w
-
-    # exact circle-tile cull: beyond the cutoff radius alpha < 1/255, so a
-    # tile whose nearest point is farther than it receives nothing
-    mean2d = proj.mean2d.detach()
-    cx = mean2d[g, 0]
-    cy = mean2d[g, 1]
-    txf = tx.to(torch.float32) * float(TILE)
-    tyf = ty.to(torch.float32) * float(TILE)
-    nx = torch.minimum(torch.maximum(cx, txf), txf + (TILE - 1.0))
-    ny = torch.minimum(torch.maximum(cy, tyf), tyf + (TILE - 1.0))
-    rad = proj.cull_radius[g]
-    ddx = cx - nx
-    ddy = cy - ny
-    hits = ddx * ddx + ddy * ddy <= rad * rad
-    tid = ty * grid_x + tx
+    g, slot, starts, ends, live = expand_slots(nt, P)
+    tid, hits = slot_tiles(proj, g, slot, starts, grid_x)
     if group_of is not None:
         tid = tid + torch.clamp(group_of.to(torch.int64), 0, num_groups - 1)[g] * num_tiles
     tile_id = torch.where(hits if live is None else hits & live, tid, vt_total)
-
-    # one int64 key: tile major, depth rank minor (unique for live slots)
     if rank is None:
         rank = depth_rank(proj.depth.detach())
-    key = tile_id * (n + 1) + rank.to(torch.int64)[g]
-    key_s, order = torch.sort(key, stable=True)
-    g_sorted = g[order]
-    tile_s = key_s // (n + 1)
+    tile_s, order, g_sorted = sort_slots(tile_id, rank, g, n)
     if live is not None:  # the slots past the last tile reach no reduce
         g_sorted = torch.where(tile_s < vt_total, g_sorted, n)
     # one (band + 1)-query searchsorted gives both edges of every band tile

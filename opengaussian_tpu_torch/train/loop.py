@@ -414,7 +414,8 @@ def stage22_step(state: G.GaussianState, adam: opt_mod.AdamState, kms: km.KMeans
                  bundle: ViewBundle, view_idx, iteration: int, bg: torch.Tensor,
                  rescale_factor, pseudo_feat: torch.Tensor, root_id,
                  root_visible, rcfg: RasterizeConfig, ocfg: OptimizationConfig,
-                 with_alpha_loss: bool = False, hyper: StepHyper | None = None):
+                 with_alpha_loss: bool = False, frozen: FrozenPlan | None = None,
+                 hyper: StepHyper | None = None):
     """One stage-2.2 step (the JAX package's _stage22_body; reference
     train.py:475-497): render the root cluster root_id alone with
     leaf-quantized features, L2 against the view's pseudo features inside
@@ -422,6 +423,9 @@ def stage22_step(state: G.GaussianState, adam: opt_mod.AdamState, kms: km.KMeans
     or root_visible (sweep 2's verdict for this view, a 0-d bool tensor or
     bool) is false, the loss and the gradient are zero, but Adam still
     steps. root_id: an int, or a 1-element int64 tensor on the device;
+    frozen: the view's full-frame FrozenPlan, over whose stream the root
+    renders as a masked-opacity blend at the frame budgets (the JAX
+    package's _stage22_body(frozen=); the trainer does not pass one);
     view_idx, rescale_factor, hyper: as for stage1_step.
     -> (state, adam, loss, ok, n_lost), the last three 0-d tensors."""
     params = _freeze_geometry(state.params())
@@ -430,13 +434,13 @@ def stage22_step(state: G.GaussianState, adam: opt_mod.AdamState, kms: km.KMeans
     cam = bundle.camera(view_idx)
     roots = root_id if isinstance(root_id, torch.Tensor) else [root_id]
     out = render_clusters(cam, gs, bg, kms.cls_ids, roots, rcfg, quantized_feat=q,
-                          rescale_factor=rescale_factor, min_points=1)
+                          rescale_factor=rescale_factor, min_points=1, frozen=frozen)
     sil = (out.cluster_silhouettes[0] > 0.7).to(torch.float32)[..., None]
     ok = out.cluster_occur[0] & torch.as_tensor(root_visible, device=state.device)
     loss = losses.l2_loss(out.cluster_imgs[0], pseudo_feat, sil)
     n_lost = out.n_lost
     if with_alpha_loss:
-        color = render(cam, gs, bg, 3, rcfg)
+        color = render(cam, gs, bg, 3, rcfg, frozen=frozen)
         loss = loss + _alpha_mask_loss(color.alpha, bundle, view_idx)
         n_lost = torch.maximum(n_lost, color.n_lost)
     loss = torch.where(ok, loss, 0.0)

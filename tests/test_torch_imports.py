@@ -30,7 +30,10 @@ def test_port_imports_no_jax():
                   "cli.vis_refinement", "data.lazy", "ops.budget", "parallel.mesh",
                   "parallel.distributed", "parallel.render", "parallel.steps",
                   "parallel.kmeans", "parallel.sweeps", "parallel.refine",
-                  "tools.synthetic", "tools.quality_run", "tools.synthetic_convergence"):
+                  "tools.synthetic", "tools.quality_run", "tools.synthetic_convergence",
+                  "tools.timing", "tools.bench", "tools.trace_step", "tools.stage_bench",
+                  "tools.ab_reduce", "tools.refine_bench", "tools.phase_bench",
+                  "tools.mem_lazy"):
             assert "opengaussian_tpu_torch." + m in names, m
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -382,6 +382,35 @@ def test_sharded_sweeps_match_jax(ranks, scenes):
             np.testing.assert_array_equal(r[f"sweeps/pseudo/{f}"], np.asarray(getattr(leaf, f)))
 
 
+def test_truncating_sharded_sweep2_matches_jax(ranks, scenes):
+    """Sweep 2 at a max_per_tile below the union binning's deepest tile:
+    the port's sharded sweep 2 on two ranks loses the same slots and gives
+    the same counts and occurrences as the JAX package's sharded sweep 2
+    (parallel/sweeps.py:make_sweep_fns) on two of its virtual CPU devices."""
+    from opengaussian_tpu.parallel import sweeps as jsweeps
+    from opengaussian_tpu.parallel.mesh import make_mesh, shard_gaussians
+    from opengaussian_tpu.render import COARSE_SCALE_LIMIT, encoded_ins_feat
+
+    ranks, _single = ranks
+    gs, cam, kms, pl = (scenes[k] for k in ("gs", "cam", "kms", "pl"))
+    bg = jnp.zeros(3)
+    cfg = JRaster(backend="xla", **dict(wk.CFG, max_per_tile=wk.TRUNC_K))
+    mesh = make_mesh(WORLD)
+    gs_sh, cls_sh = shard_gaussians(mesh, (gs, kms.cls_ids))
+    c2, o2 = jsweeps.make_sweep_fns(mesh, cfg, wk.K1, wk.K2, wk.MAX_MASKS).sweep2(
+        gs_sh, cam, pl.feat[0], pl.mask_ids[0], cls_sh, bg)
+    opac_g, _ = jsweeps._cluster_opacities(gs_sh, cls_sh, jnp.arange(wk.K1), True,
+                                           COARSE_SCALE_LIMIT)
+    *_, lost = jsweeps.render_groups_sharded(
+        mesh, cam, gs_sh.means, jbuild_cov3d(gs_sh.scales, gs_sh.quats), opac_g,
+        encoded_ins_feat(gs_sh, None, origin_feat=True), jnp.concatenate([bg, bg]), cfg)
+    assert int(lost) > 0  # the union binning truncates at this cap
+    for r in ranks:
+        assert int(r["sweeps/trunc/n_lost"]) == int(lost)
+        np.testing.assert_array_equal(r["sweeps/trunc/counts"], np.asarray(c2))
+        np.testing.assert_array_equal(r["sweeps/trunc/occur"], np.asarray(o2))
+
+
 def test_lang_view_gathers_independent_of_k1(ranks):
     """tests/test_sweeps_sharded.py:213: one view of the sharded association
     all-gathers the same tensors whatever k1 (the projected table and the

@@ -24,6 +24,7 @@ import torch
 
 CFG = dict(max_per_tile=256, chunk=32, min_intersections=16384)
 K1, K2, MAX_MASKS = 2, 3, 8
+TRUNC_K = 64  # a per-tile cap below the two-blob union binning's deepest tile
 # the schedule of the trainer runs: every stage boundary, densify events in
 # stage 0, the refiner before stage 1, stage 3 and a checkpoint at the end
 SCHEDULE = ["--iterations", "16", "--start_ins_feat_iter", "4", "--start_root_cb_iter", "8",
@@ -207,12 +208,16 @@ def kmeans_scenario(mesh, data, res, out):
 
 def sweeps_scenario(mesh, data, res, out):
     """sweep1, sweep2 and lang_view on the two-blob scene, the leaf-mode
-    pseudo labels through them, and the all-gathers of one lang_view view
+    pseudo labels through them, sweep 2 at a max_per_tile (TRUNC_K) that
+    truncates the union binning, and the all-gathers of one lang_view view
     at k1 = 2 and 4."""
     from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig
     from opengaussian_tpu_torch.parallel import mesh as mesh_mod
     from opengaussian_tpu_torch.parallel.mesh import shard_gaussians
+    from opengaussian_tpu_torch.ops.projection import build_cov3d
+    from opengaussian_tpu_torch.parallel import sweeps as sweeps_mod
     from opengaussian_tpu_torch.parallel.sweeps import make_sweep_fns
+    from opengaussian_tpu_torch.render import COARSE_SCALE_LIMIT, encoded_ins_feat
     from opengaussian_tpu_torch.train import pseudo as pseudo_mod
 
     state, kms, cam = state_of(data, "steps"), kms_of(data, "steps/kms"), camera_of(data,
@@ -235,6 +240,17 @@ def sweeps_scenario(mesh, data, res, out):
                 "sweeps/pseudo/mask_ids": pl.mask_ids,
                 "sweeps/pseudo/cluster_occur": pl.cluster_occur,
                 "sweeps/pseudo/leaf_sub_num": pl.leaf_sub_num})
+    # sweep 2 where the union binning truncates: its counts and occurrences,
+    # and the slots the groups' render lost
+    tcfg = RasterizeConfig(**dict(CFG, max_per_tile=TRUNC_K))
+    c2t, o2t = make_sweep_fns(mesh, tcfg, K1, K2, MAX_MASKS).sweep2(gs, cam, pf, pids, cls, bg)
+    opac_g, _ = sweeps_mod._cluster_opacities(mesh, gs, cls, torch.arange(K1), True,
+                                              COARSE_SCALE_LIMIT)
+    *_, lost = sweeps_mod.render_groups_sharded(
+        mesh, cam, gs.means, build_cov3d(gs.scales, gs.quats), opac_g,
+        encoded_ins_feat(gs, None, origin_feat=True), torch.cat([bg, bg]), tcfg)
+    res.update({"sweeps/trunc/counts": c2t, "sweeps/trunc/occur": o2t,
+                "sweeps/trunc/n_lost": lost})
     real = mesh_mod._ALL_GATHER
     for k1 in (2, 4):
         calls = []
