@@ -1422,7 +1422,8 @@ def train_path(scene_dir: str, root: str, dev, name: str, rcfg,
         + ", ".join(f"{x:.5f}" for x in m)
         + f"; capacity {tr.state.capacity}, alive {int(tr.state.num_alive)}, "
         f"max_per_tile {tr.rcfg.max_per_tile}, slots lost in the last step "
-        f"{int(tr._last_lost)} (the most in any step {int(tr.lost_max)}), last root "
+        f"{int(tr._last_lost)} (in all steps {tr.counters['dropped'] + tr.counters['truncated']}), "
+        f"last root "
         f"{tr.root_id}, leaf_sub_num "
         f"{tr.kms.leaf_sub_num.tolist()}, roots occurring per view "
         f"{tr.pseudo.cluster_occur.sum(dim=1).tolist()}, the roots' alpha peaks in view 0 "
@@ -3595,8 +3596,8 @@ def mesh_trainer_phase(scene_dir: str, root: str, dev, chunk: int, card: str) ->
         log(f"{what}: loss by step " + " ".join(f"{x:.5f}" for x in losses))
         log(f"{what}: mean loss of steps 1-10, ..., {TRAIN_ITERS - 9}-{TRAIN_ITERS}: "
             + ", ".join(f"{x:.5f}" for x in m) + f"; capacity {tr.state.capacity}, alive "
-            f"{tr._num_alive()}, max_per_tile {tr.rcfg.max_per_tile}, the most slots a step "
-            f"lost {int(tr.lost_max)}, leaf_sub_num "
+            f"{tr._num_alive()}, max_per_tile {tr.rcfg.max_per_tile}, the slots the steps "
+            f"lost {tr.counters['dropped'] + tr.counters['truncated']}, leaf_sub_num "
             f"{tr.kms.leaf_sub_num.tolist()}, roots occurring per view {occur}, the roots' "
             f"alpha peaks in view 0 (min / median / max; sweep 2 needs 0.8) "
             f"{root_alpha_peaks(tr)}, stage-2.2 "

@@ -89,6 +89,15 @@ from opengaussian_tpu_torch.ops.rasterize_kernels import (
     segment_reduce,
     segment_reduce_perm,
 )
+from opengaussian_tpu_torch.utils.trace import (
+    BIN,
+    BLEND,
+    BLEND_BWD,
+    GEOMETRY,
+    REDUCE,
+    span,
+    spanned,
+)
 
 LAYOUTS = ("stream", "dense")
 BWD_LAYOUTS = ("auto", "dense", "compact")
@@ -211,6 +220,24 @@ class RasterizeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SlotCounts:
+    """One binning's slot stream, as the trainer's counters read it
+    (Trainer.counters): its length P on the host, and as 0-d int32 device
+    tensors the frame's rect slots (TileBins.total) and those lost to P and
+    to max_per_tile. Its live slots are total - n_dropped - n_truncated."""
+
+    padded: int
+    total: torch.Tensor
+    n_dropped: torch.Tensor
+    n_truncated: torch.Tensor
+
+
+def slot_counts(bins: TileBins) -> tuple[SlotCounts]:
+    return (SlotCounts(bins.sorted_gauss.shape[0], bins.total, bins.n_dropped,
+                       bins.n_truncated),)
+
+
+@dataclasses.dataclass(frozen=True)
 class RasterOut:
     image: torch.Tensor  # [H,W,C] composited payload (premultiplied + T*bg)
     alpha: torch.Tensor  # [H,W] 1 - final transmittance
@@ -218,12 +245,14 @@ class RasterOut:
     radii: torch.Tensor  # [N] int32, 0 => culled (visibility filter)
     n_dropped: torch.Tensor  # [] int32 slots lost to the fixed budget P
     n_truncated: torch.Tensor  # [] int32 slots lost to max_per_tile
+    slots: tuple[SlotCounts, ...] = ()  # each binning's stream (each band's, group's)
 
 
 def _grids(camera: Camera) -> tuple[int, int]:
     return (camera.width + TILE - 1) // TILE, (camera.height + TILE - 1) // TILE
 
 
+@spanned(GEOMETRY)
 def _project(camera: Camera, means3d, cov3d, opacities, config: RasterizeConfig,
              screen_tap=None) -> Projected:
     return project(means3d, cov3d, camera,
@@ -349,24 +378,25 @@ def _prepare(camera: Camera, means3d, cov3d, opacities, config: RasterizeConfig,
     if proj is None:
         proj = _project(camera, means3d, cov3d, opacities, config, screen_tap)
     stream = config.pallas_input == "stream"
-    if frozen is not None:
-        if not stream:
-            raise ValueError("frozen plans apply to pallas_input='stream' only")
-        bins = TileBins(counts=frozen.counts, tile_start=frozen.tstart,
-                        sorted_gauss=frozen.g_sorted, total=frozen.total,
-                        n_dropped=frozen.n_dropped, n_truncated=frozen.n_truncated,
-                        deepest=frozen.counts.max(), vt_real=frozen.vt_real,
-                        vt_first=frozen.vt_first, vt_n=frozen.vt_n,
-                        slot_pos=frozen.slot_pos, splat_end=frozen.splat_end)
-    else:
-        bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile,
-                             dense=not stream, rank=rank,
-                             max_intersections=config.fixed_budget(means3d.shape[0]),
-                             tile_lo=tile_lo, tile_hi=tile_hi,
-                             window_depth=config.tile_windows if stream else 0,
-                             window_extra=config.window_extra,
-                             reduce_order=(reduce_order_wanted(config) if reduce_order is None
-                                           else reduce_order))
+    if frozen is not None and not stream:
+        raise ValueError("frozen plans apply to pallas_input='stream' only")
+    with span(BIN):
+        if frozen is not None:
+            bins = TileBins(counts=frozen.counts, tile_start=frozen.tstart,
+                            sorted_gauss=frozen.g_sorted, total=frozen.total,
+                            n_dropped=frozen.n_dropped, n_truncated=frozen.n_truncated,
+                            deepest=frozen.counts.max(), vt_real=frozen.vt_real,
+                            vt_first=frozen.vt_first, vt_n=frozen.vt_n,
+                            slot_pos=frozen.slot_pos, splat_end=frozen.splat_end)
+        else:
+            bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile,
+                                 dense=not stream, rank=rank,
+                                 max_intersections=config.fixed_budget(means3d.shape[0]),
+                                 tile_lo=tile_lo, tile_hi=tile_hi,
+                                 window_depth=config.tile_windows if stream else 0,
+                                 window_extra=config.window_extra,
+                                 reduce_order=(reduce_order_wanted(config)
+                                               if reduce_order is None else reduce_order))
     return proj, bins, (grid_x, grid_y)
 
 
@@ -403,6 +433,7 @@ def _order(bins: TileBins, config: RasterizeConfig):
     return bins.slot_pos, bins.splat_end
 
 
+@spanned(REDUCE)
 def _per_splat(d_rows, ids, n: int, order, groups: int = 1):
     """K3: d_rows [G R, F] -> [G n, F], in the order (slot_pos, splat_end)
     by `segment_reduce_perm`, or, with order None, by ids [G R] in atomic
@@ -442,6 +473,7 @@ class StreamBlend(torch.autograd.Function):
         return accum, t_final
 
     @staticmethod
+    @spanned(BLEND_BWD)
     def backward(ctx, g_accum, g_t):
         rows, sorted_gauss, tile_start, counts, toff, accum, t_final = ctx.saved_tensors
         cot = (accum, t_final, g_accum.contiguous(), g_t.contiguous(), ctx.grid_x,
@@ -486,6 +518,7 @@ class DenseBlend(torch.autograd.Function):
         return accum, t_final
 
     @staticmethod
+    @spanned(BLEND_BWD)
     def backward(ctx, g_accum, g_t):
         gdata, sorted_gauss, tile_start, counts, accum, t_final = ctx.saved_tensors
         d_rows = blend_tiles_bwd(gdata, counts, tile_start, sorted_gauss.shape[0], accum,
@@ -526,6 +559,7 @@ class GroupDenseBlend(torch.autograd.Function):
         return accum, t_final
 
     @staticmethod
+    @spanned(BLEND_BWD)
     def backward(ctx, g_accum, g_t):
         gdata, gauss_idx, opac_g, sorted_gauss, tile_start, counts, accum, t_final = (
             ctx.saved_tensors)
@@ -622,6 +656,7 @@ def _blend(proj: Projected, bins: TileBins, opac, full_payload, grid_x: int,
     return accum, t_final
 
 
+@spanned(BLEND)
 def _composite(camera: Camera, proj: Projected, bins: TileBins, grids,
                opacities, payload, bg, config: RasterizeConfig, tile_lo: int = 0):
     grid_x = grids[0]
@@ -658,7 +693,8 @@ def rasterize(
     image, alpha, depth = _composite(camera, proj, bins, grids, opacities,
                                      payload, bg, config)
     return RasterOut(image=image, alpha=alpha, depth=depth, radii=proj.radius,
-                     n_dropped=bins.n_dropped, n_truncated=bins.n_truncated)
+                     n_dropped=bins.n_dropped, n_truncated=bins.n_truncated,
+                     slots=slot_counts(bins))
 
 
 def rasterize_banded(
@@ -684,8 +720,9 @@ def rasterize_banded(
     grid_x, grid_y = _grids(camera)
     rows_per = -(-grid_y // bands)
     proj = _project(camera, means3d, cov3d, opacities, config, screen_tap)
-    rank = depth_rank(proj.depth.detach())
-    outs, n_dropped, n_truncated = [], 0, 0
+    with span(BIN):
+        rank = depth_rank(proj.depth.detach())
+    outs, n_dropped, n_truncated, slots = [], 0, 0, ()
     for r0 in range(0, grid_y, rows_per):
         lo, hi = r0 * grid_x, min(grid_y, r0 + rows_per) * grid_x
         _, bins, grids = _prepare(camera, means3d, cov3d, opacities, config, proj=proj,
@@ -694,9 +731,10 @@ def rasterize_banded(
                                lo))
         n_dropped = n_dropped + bins.n_dropped
         n_truncated = n_truncated + bins.n_truncated
+        slots += slot_counts(bins)
     image, alpha, depth = (torch.cat(x, dim=0) for x in zip(*outs))
     return RasterOut(image=image, alpha=alpha, depth=depth, radii=proj.radius,
-                     n_dropped=n_dropped // len(outs), n_truncated=n_truncated)
+                     n_dropped=n_dropped // len(outs), n_truncated=n_truncated, slots=slots)
 
 
 def cull_outside(proj: Projected, keep: torch.Tensor) -> Projected:
@@ -733,7 +771,8 @@ def rasterize_scan_groups(
     gcfg = config.group_config()
     union = opacities.max(dim=0).values
     proj_u = _project(camera, means3d, cov3d, union, config)
-    rank = depth_rank(proj_u.depth.detach())
+    with span(BIN):
+        rank = depth_rank(proj_u.depth.detach())
     outs = [rasterize(camera, means3d, cov3d, opac_g, payload, bg, gcfg,
                       proj=cull_outside(proj_u, opac_g > 0.0), rank=rank)
             for opac_g in opacities]
@@ -743,7 +782,8 @@ def rasterize_scan_groups(
         depth=torch.stack([r.depth for r in outs]),
         radii=torch.stack([r.radii for r in outs]).max(dim=0).values,
         n_dropped=sum(r.n_dropped for r in outs),
-        n_truncated=sum(r.n_truncated for r in outs))
+        n_truncated=sum(r.n_truncated for r in outs),
+        slots=sum((r.slots for r in outs), ()))
 
 
 def rasterize_groups(
@@ -771,15 +811,18 @@ def rasterize_groups(
     dense = dataclasses.replace(config, pallas_input="dense")
     proj, bins, grids = _prepare(camera, means3d, cov3d, opacities.max(dim=0).values,
                                  dense)
-    opac_g = torch.where(proj.valid[None, :], opacities, 0.0)
-    full_payload = torch.cat([payload, proj.depth[:, None]], dim=-1)
-    accum, t_final = GroupDenseBlend.apply(
-        proj.mean2d, proj.conic, opac_g, full_payload, bins.gauss_idx, bins.sorted_gauss,
-        bins.tile_start, bins.counts, grids[0], config.chunk, _order(bins, dense))
-    image, alpha, depth = _images(camera, grids, accum.flatten(0, 1), t_final.flatten(0, 1),
-                                  bg)
+    with span(BLEND):
+        opac_g = torch.where(proj.valid[None, :], opacities, 0.0)
+        full_payload = torch.cat([payload, proj.depth[:, None]], dim=-1)
+        accum, t_final = GroupDenseBlend.apply(
+            proj.mean2d, proj.conic, opac_g, full_payload, bins.gauss_idx,
+            bins.sorted_gauss, bins.tile_start, bins.counts, grids[0], config.chunk,
+            _order(bins, dense))
+        image, alpha, depth = _images(camera, grids, accum.flatten(0, 1),
+                                      t_final.flatten(0, 1), bg)
     return RasterOut(image=image, alpha=alpha, depth=depth, radii=proj.radius,
-                     n_dropped=bins.n_dropped, n_truncated=bins.n_truncated)
+                     n_dropped=bins.n_dropped, n_truncated=bins.n_truncated,
+                     slots=slot_counts(bins))
 
 
 def rasterize_partition(
@@ -814,16 +857,20 @@ def rasterize_partition(
     T = grid_x * grid_y
     if proj is None:
         proj = _project(camera, means3d, cov3d, opacities, config)
-    bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile, rank=rank,
-                         group_of=group_of, num_groups=num_groups,
-                         max_intersections=config.fixed_budget(means3d.shape[0]),
-                         window_depth=config.tile_windows, window_extra=config.window_extra,
-                         reduce_order=reduce_order_wanted(config))
-    opac, full_payload = _blend_inputs(proj, opacities, payload)
-    vt = (bins.vt_real if bins.vt_real is not None
-          else torch.arange(num_groups * T, device=bins.counts.device))
-    accum, t_final = _blend(proj, bins, opac, full_payload, grid_x, config,
-                            toff=(vt % T).to(torch.int32))
-    image, alpha, depth = _images(camera, (grid_x, grid_y), accum, t_final, bg)
+    with span(BIN):
+        bins = bin_gaussians(proj, grid_x, grid_y, config.max_per_tile, rank=rank,
+                             group_of=group_of, num_groups=num_groups,
+                             max_intersections=config.fixed_budget(means3d.shape[0]),
+                             window_depth=config.tile_windows,
+                             window_extra=config.window_extra,
+                             reduce_order=reduce_order_wanted(config))
+    with span(BLEND):
+        opac, full_payload = _blend_inputs(proj, opacities, payload)
+        vt = (bins.vt_real if bins.vt_real is not None
+              else torch.arange(num_groups * T, device=bins.counts.device))
+        accum, t_final = _blend(proj, bins, opac, full_payload, grid_x, config,
+                                toff=(vt % T).to(torch.int32))
+        image, alpha, depth = _images(camera, (grid_x, grid_y), accum, t_final, bg)
     return RasterOut(image=image, alpha=alpha, depth=depth, radii=proj.radius,
-                     n_dropped=bins.n_dropped, n_truncated=bins.n_truncated)
+                     n_dropped=bins.n_dropped, n_truncated=bins.n_truncated,
+                     slots=slot_counts(bins))

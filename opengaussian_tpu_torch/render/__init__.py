@@ -39,6 +39,7 @@ from opengaussian_tpu_torch.ops.rasterize import (
     rasterize_scan_groups,
 )
 from opengaussian_tpu_torch.ops.sh import sh_to_rgb
+from opengaussian_tpu_torch.utils.trace import GEOMETRY, span
 
 # cluster-render gates (reference gaussian_renderer/__init__.py:184, :248 and
 # train.py's occur checks)
@@ -68,6 +69,7 @@ class RenderOutputs:
     visibility_filter: torch.Tensor | None = None  # [N] bool
     radii: torch.Tensor | None = None  # [N] int32
     n_lost: torch.Tensor | None = None  # [] int32 dropped+truncated slots
+    slots: tuple = ()  # each binning's rasterize.SlotCounts, for Trainer.counters
 
 
 def encoded_ins_feat(gs: GaussianState, quantized=None, origin_feat: bool = False):
@@ -104,25 +106,28 @@ def render(
     out = RenderOutputs()
 
     if render_color:
-        cov3d = build_cov3d(scales, gs.quats)
-        rgb = sh_to_rgb(active_sh_degree, gs.sh, gs.means, camera.cam_center)
+        with span(GEOMETRY):
+            cov3d = build_cov3d(scales, gs.quats)
+            rgb = sh_to_rgb(active_sh_degree, gs.sh, gs.means, camera.cam_center)
         r = rasterize(camera, gs.means, cov3d, opac, rgb, bg, config, screen_tap,
                       frozen=frozen)
         out = dataclasses.replace(
             out, render=r.image, alpha=r.alpha, depth=r.depth, radii=r.radii,
             visibility_filter=r.radii > 0, n_lost=r.n_dropped + r.n_truncated,
-            screen_grad_tap=screen_tap,
+            screen_grad_tap=screen_tap, slots=r.slots,
         )
 
     if render_feat_map:
-        feat = encoded_ins_feat(gs, quantized_feat, origin_feat)
-        cov3d_f = build_cov3d(scales * rescale_factor, gs.quats)
+        with span(GEOMETRY):
+            feat = encoded_ins_feat(gs, quantized_feat, origin_feat)
+            cov3d_f = build_cov3d(scales * rescale_factor, gs.quats)
         fbg = torch.cat([bg, bg])  # the reference applies the same 3-ch bg
         rf = rasterize(camera, gs.means, cov3d_f, opac, feat, fbg, config, frozen=frozen)
         lost = rf.n_dropped + rf.n_truncated
         out = dataclasses.replace(
             out, ins_feat=rf.image, silhouette=rf.alpha,
             n_lost=lost if out.n_lost is None else torch.maximum(out.n_lost, lost),
+            slots=out.slots + rf.slots,
         )
         if out.radii is None:
             out = dataclasses.replace(out, radii=rf.radii,
@@ -150,7 +155,7 @@ def _cluster_outputs(r, counts, min_points: int) -> RenderOutputs:
     return RenderOutputs(cluster_imgs=r.image, cluster_silhouettes=r.alpha,
                          cluster_occur=occur & valid, cluster_valid=valid,
                          radii=r.radii, visibility_filter=r.radii > 0,
-                         n_lost=r.n_dropped + r.n_truncated)
+                         n_lost=r.n_dropped + r.n_truncated, slots=r.slots)
 
 
 def render_clusters(
@@ -179,8 +184,9 @@ def render_clusters(
     group is then a masked-opacity blend over its stream, at the frame
     budgets. -> RenderOutputs with the cluster_* fields, radii and n_lost."""
     camera = camera.to(gs.device)
-    cov3d = build_cov3d(gs.scales * rescale_factor, gs.quats)
-    payload = encoded_ins_feat(gs, quantized_feat, origin_feat)
+    with span(GEOMETRY):
+        cov3d = build_cov3d(gs.scales * rescale_factor, gs.quats)
+        payload = encoded_ins_feat(gs, quantized_feat, origin_feat)
     keep = _cluster_keep(gs, cluster_ids, group_ids, better_vis, scale_limit)
     return _render_groups(camera, gs, keep, payload, torch.cat([bg, bg]), cov3d, config,
                           min_points, frozen)
@@ -209,8 +215,9 @@ def render_clusters_partition(
     shared, e.g. across the roots of one view; the splats outside the
     groups are culled from it here."""
     camera = camera.to(gs.device)
-    cov3d = build_cov3d(gs.scales * rescale_factor, gs.quats)
-    payload = encoded_ins_feat(gs, quantized_feat, origin_feat)
+    with span(GEOMETRY):
+        cov3d = build_cov3d(gs.scales * rescale_factor, gs.quats)
+        payload = encoded_ins_feat(gs, quantized_feat, origin_feat)
     keep = _cluster_keep(gs, cluster_ids, group_ids, better_vis, scale_limit)
     union = keep.any(dim=0)
     group_of = torch.argmax(keep.to(torch.int32), dim=0)  # disjoint: at most one hit
@@ -244,16 +251,17 @@ def render_selection(
     cluster_imgs [H, W, C], cluster_silhouettes [H, W] and 0-d
     cluster_occur / cluster_valid."""
     camera = camera.to(gs.device)
-    if payload_rgb:
-        payload = sh_to_rgb(3, gs.sh, gs.means, camera.cam_center)
-        fbg = bg
-    else:
-        payload = encoded_ins_feat(gs)
-        fbg = torch.cat([bg, bg])
+    with span(GEOMETRY):
+        if payload_rgb:
+            payload = sh_to_rgb(3, gs.sh, gs.means, camera.cam_center)
+            fbg = bg
+        else:
+            payload = encoded_ins_feat(gs)
+            fbg = torch.cat([bg, bg])
+        cov3d = build_cov3d(gs.scales, gs.quats)
     keep = torch.as_tensor(select_mask, device=gs.device) & gs.alive
     if better_vis:
         keep = keep & passes_scale_cull(gs)
-    cov3d = build_cov3d(gs.scales, gs.quats)
     out = _render_groups(camera, gs, keep[None, :], payload, fbg, cov3d, config,
                          SELECTION_MIN_POINTS)
     return dataclasses.replace(
@@ -293,7 +301,8 @@ def _render_groups(camera, gs: GaussianState, keep, payload, fbg, cov3d,
             depth=torch.stack([x.depth for x in outs]),
             radii=torch.stack([x.radii for x in outs]).max(dim=0).values,
             n_dropped=sum(x.n_dropped for x in outs),
-            n_truncated=sum(x.n_truncated for x in outs))
+            n_truncated=sum(x.n_truncated for x in outs),
+            slots=sum((x.slots for x in outs), ()))
     else:
         groups = rasterize_groups if config.group_render == "dense" else rasterize_scan_groups
         r = groups(camera, gs.means, cov3d, opac, payload, fbg, config)

@@ -76,6 +76,7 @@ from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig, deepest_tile, 
 from opengaussian_tpu_torch.render import render
 from opengaussian_tpu_torch.tools import timing
 from opengaussian_tpu_torch.train import losses
+from opengaussian_tpu_torch.utils.trace import BACKWARD, LOSS, span
 
 BASELINE_MPIX_S = 23.0
 WIDTH, HEIGHT = 1296, 968
@@ -133,8 +134,10 @@ def fwd_bwd(cam: Camera, gs: GaussianState, bg, gt, cfg: RasterizeConfig):
     read). -> (loss, {name: gradient})."""
     params = {k: v.detach().requires_grad_(True) for k, v in gs.params().items()}
     out = render(cam, gs.with_params(params), bg, 3, cfg)
-    loss = losses.l1_loss(out.render, gt)
-    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    with span(LOSS):
+        loss = losses.l1_loss(out.render, gt)
+    with span(BACKWARD):
+        grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
     return loss.detach(), {k: torch.zeros_like(p) if g is None else g
                            for (k, p), g in zip(params.items(), grads)}
 

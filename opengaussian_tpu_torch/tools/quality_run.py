@@ -19,8 +19,8 @@ noisy gray points and runs stages 0 (to 1,400), 1 (to 1,900), 2.1 (to
 
 `run` does the work and returns the result, which it also writes as JSON
 (every key of QUALITY_r05.json, with `device` the card's name, plus
-`peak_device_mib`, `trainer_options` and `slots_lost`, the most slots any
-step lost) with a side-by-side
+`peak_device_mib`, `trainer_options` and `slots_lost`, the slots the
+steps lost, summed) with a side-by-side
 PNG of held-out view 0 (render | GT). Training dumps are off
 (`save_intermediate`): they render, and change nothing that is scored.
 
@@ -73,8 +73,9 @@ def make_trainer(scene, ocfg: OptimizationConfig, out_dir: str, rcfg, dev,
 
 
 def slots_lost(tr: Trainer) -> int:
-    """The most slots any step of the run lost, logged or not."""
-    return 0 if tr.lost_max is None else int(tr.lost_max)
+    """The slots the run's steps lost, logged or not, summed: the trainer's
+    counters of slots dropped past P and truncated past max_per_tile."""
+    return tr.counters["dropped"] + tr.counters["truncated"]
 
 
 def peak_start(dev) -> int | None:

@@ -28,8 +28,11 @@ import math
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import torch
+
+from opengaussian_tpu_torch.utils.trace import device_ops
 
 LOG = None  # the stream log writes to; None: standard error
 
@@ -117,8 +120,10 @@ def profile(fn, n: int, what: str, counts: dict | None = None) -> tuple[float, f
     -> (device busy ms per call, the union of the kernels' intervals; host
     wall ms per call of the same profiled calls, to the last kernel's end).
     counts: receives "launches", the kernels per call, "span_ms", first
-    kernel start to last kernel end per call, and "kernels", {name: (ms per
-    call, launches per call)} over every kernel the calls launched."""
+    kernel start to last kernel end per call, "kernels", {name: (ms per
+    call, launches per call)} over every kernel the calls launched, and
+    "ops", {(span, name): ms per call}, each device operation put to its
+    program span (utils/trace.py:device_ops)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -140,6 +145,10 @@ def profile(fn, n: int, what: str, counts: dict | None = None) -> tuple[float, f
     busy_ms = busy / 1e3 / n
     span_ms = (end - kernels[0].time_range.start) / 1e3 / n
     if counts is not None:
+        ops = defaultdict(float)
+        for op in device_ops(prof):
+            ops[op.span, op.name] += op.us / 1e3 / n
+        counts["ops"] = dict(ops)
         counts["launches"] = round(len(kernels) / n)
         counts["span_ms"] = span_ms
         counts["kernels"] = {k: (us / 1e3 / n, c / n) for k, (us, c) in by_name.items()}

@@ -13,11 +13,12 @@ two steps see the same inputs) and prints:
   * the total device time per step (the sum of the kernels' times), the
     device's busy time (the union of their intervals), the host's wall time
     and the device's idle share, 1 - busy / wall;
-  * a phase table (`phase_of`): projection and binning, sort, K1 (and K5),
-    the replay (K2, K4, K6), K3, SSIM and loss, cuBLAS's products (the
-    projection's, the SH evaluation's and the port's SSIM, which no name
-    tells apart), Adam, and other, the last holding torch's elementwise and
-    reduction kernels, which no name places;
+  * a phase table: each kernel under the program span that launched it
+    (utils/trace.py:device_ops: geometry, bin, blend, blend.bwd, reduce,
+    loss, backward, each with its backward), and a kernel outside every
+    span under the phase its name gives (`phase_of`): projection and
+    binning, sort, K1 (and K5), the replay (K2, K4, K6), K3, SSIM and
+    loss, cuBLAS's products, Adam, and other;
   * the --top kernels by mean ms per step and their share of the total;
 then one JSON line with the same. On the CPU (device="cpu", the tests) the
 profiler has no device track, and the table holds the CPU operators' self
@@ -37,6 +38,7 @@ import torch
 
 from opengaussian_tpu_torch.device import resolve_device
 from opengaussian_tpu_torch.tools import bench, timing
+from opengaussian_tpu_torch.utils.trace import UNPLACED, device_ops
 
 CHAIN = 1e-8  # p <- p - CHAIN * g between the traced steps
 # (phase, name fragments), first match wins, on the lower-cased kernel name
@@ -73,13 +75,15 @@ def phase_of(name: str) -> str:
 
 def trace(fn, n: int, device: torch.device, what: str) -> dict:
     """n calls of fn under torch.profiler. -> {"kernels": {name: ms per
-    call}, "busy_ms", "wall_ms", "launches"}: on a GPU the device's kernels
-    (`timing.profile`), on the CPU the operators' self time."""
+    call}, "ops": {(span, name): ms per call}, "busy_ms", "wall_ms",
+    "launches"}: on a GPU the device's kernels (`timing.profile`), on the
+    CPU the operators that contain no other."""
     if device.type == "cuda":
         counts: dict = {}
         busy, wall = timing.profile(fn, n, what, counts)
         return dict(kernels={k: ms for k, (ms, _c) in counts["kernels"].items()},
-                    busy_ms=busy, wall_ms=wall, launches=counts["launches"])
+                    ops=counts["ops"], busy_ms=busy, wall_ms=wall,
+                    launches=counts["launches"])
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CPU]) as prof:
@@ -87,10 +91,13 @@ def trace(fn, n: int, device: torch.device, what: str) -> dict:
         for _ in range(n):
             fn()
         wall = (time.perf_counter() - t0) * 1e3 / n
-    kernels = {e.key: e.self_cpu_time_total / 1e3 / n for e in prof.key_averages()
-               if e.self_cpu_time_total > 0}
-    return dict(kernels=kernels, busy_ms=sum(kernels.values()), wall_ms=wall,
-                launches=round(sum(e.count for e in prof.key_averages()) / n))
+    kernels, ops, count = defaultdict(float), defaultdict(float), 0
+    for op in device_ops(prof):
+        kernels[op.name] += op.us / 1e3 / n
+        ops[op.span, op.name] += op.us / 1e3 / n
+        count += 1
+    return dict(kernels=dict(kernels), ops=dict(ops), busy_ms=sum(kernels.values()),
+                wall_ms=wall, launches=round(count / n))
 
 
 def main(argv=None, device="cuda") -> dict:
@@ -128,8 +135,8 @@ def main(argv=None, device="cuda") -> dict:
           f"{res['busy_ms']:.3f} of {res['wall_ms']:.3f} ms wall, idle share {idle:.3f}, "
           f"{res['launches']} launches/step [{card}]", file=sys.stderr)
     phases = defaultdict(float)
-    for name, ms in kernels:
-        phases[phase_of(name)] += ms
+    for (span, name), ms in res["ops"].items():
+        phases[phase_of(name) if span == UNPLACED else span] += ms
     phases = dict(sorted(phases.items(), key=lambda kv: -kv[1]))
     print("\nphase table:", file=sys.stderr)
     for phase, ms in phases.items():

@@ -74,7 +74,14 @@ Observability as in the JAX trainer: the train_process/ PNG dumps
 `save_intermediate` is False), TensorBoard scalars and image grids where
 tensorboard is installed, and the SIBR remote viewer
 (viewer/network_gui.py) when `viewer_port` is set, polled at the top of
-every loop turn.
+every loop turn. Beyond it: the spans of utils/trace.py (train.step,
+train.view, train.events, train.probe, train.plans, train.log here; the
+step functions' loss, backward and update; the layers' below), which a
+running torch profiler records, and `Trainer.counters`, the steps and
+their binnings' slot counts (the padded stream P, live, dropped and
+truncated slots), kept on the device as each step's own 0-d tensors and
+summed at each log boundary, into every history record and TensorBoard's
+slots/live_fill and slots/lost.
 """
 
 from __future__ import annotations
@@ -102,6 +109,7 @@ from opengaussian_tpu_torch.ops.projection import build_cov3d
 from opengaussian_tpu_torch.ops.rasterize import (
     FrozenPlan,
     RasterizeConfig,
+    SlotCounts,
     build_frozen_plan,
     deepest_tile,
     stack_plans,
@@ -114,9 +122,26 @@ from opengaussian_tpu_torch.train import lang, losses, observe
 from opengaussian_tpu_torch.train import pseudo as pseudo_mod
 from opengaussian_tpu_torch.utils import codebook as cb
 from opengaussian_tpu_torch.utils import masks as masku
+from opengaussian_tpu_torch.utils.trace import (
+    BACKWARD,
+    BIN,
+    BLOCK,
+    EVENTS,
+    GEOMETRY,
+    LOG,
+    LOSS,
+    PLANS,
+    PROBE,
+    STEP,
+    UPDATE,
+    VIEW,
+    span,
+    spanned,
+)
 from opengaussian_tpu_torch.viewer import network_gui
 
 HEADROOM = budget.HEADROOM
+COUNTERS = ("steps", "padded", "live", "dropped", "truncated")
 
 
 def _at(x: torch.Tensor, i):
@@ -293,30 +318,38 @@ def _mask_sh(gs: G.GaussianState, iteration: int, mask=None) -> G.GaussianState:
 def stage0_step(state: G.GaussianState, adam: opt_mod.AdamState, stats: G.DensifyStats,
                 bundle: ViewBundle, view_idx: int, iteration: int, bg: torch.Tensor,
                 spatial_lr_scale: float, rcfg: RasterizeConfig,
-                ocfg: OptimizationConfig, hyper: StepHyper | None = None):
+                ocfg: OptimizationConfig, hyper: StepHyper | None = None,
+                tally: list | None = None):
     """One stage-0 step (the JAX package's _stage0_body): render the color
     pass with the screen tap, loss, gradients, Adam, densify statistics.
     view_idx: an int, or a 1-element int64 tensor on the device; hyper: the
     iteration's learning rates, bias corrections and SH mask as device
-    tensors (a captured step), else computed from `iteration`.
+    tensors (a captured step), else computed from `iteration`; tally: a
+    list that receives the render's SlotCounts (the trainer's counters).
     -> (state, adam, stats, loss, psnr, n_lost), the last three 0-d tensors."""
     gt = _at(bundle.gt_images, view_idx)
     params = {k: v.detach().requires_grad_(True) for k, v in state.params().items()}
-    tap = torch.zeros((state.capacity, 2), device=state.device, requires_grad=True)
-    gs = _mask_sh(state.with_params(params), iteration,
-                  None if hyper is None else hyper.sh_mask)
+    with span(GEOMETRY):
+        tap = torch.zeros((state.capacity, 2), device=state.device, requires_grad=True)
+        gs = _mask_sh(state.with_params(params), iteration,
+                      None if hyper is None else hyper.sh_mask)
     out = render(bundle.camera(view_idx), gs, bg, 3, rcfg, screen_tap=tap)
-    loss = losses.rgb_loss(out.render, gt, ocfg.lambda_dssim)
-    loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
+    with span(LOSS):
+        loss = losses.rgb_loss(out.render, gt, ocfg.lambda_dssim)
+        loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
     leaves = list(params.values()) + [tap]
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    # ins_feat is not rendered by the color pass: its gradient is zero
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    with span(BACKWARD):
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # ins_feat is not rendered by the color pass: its gradient is zero
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
     p_grads = dict(zip(params, grads[:-1]))
-    new_p, adam = _adam(state, p_grads, adam, ocfg, iteration, spatial_lr_scale, hyper)
-    stats = stats.update(grads[-1], out.radii)
-    with torch.no_grad():
+    with span(UPDATE):
+        new_p, adam = _adam(state, p_grads, adam, ocfg, iteration, spatial_lr_scale, hyper)
+        stats = stats.update(grads[-1], out.radii)
+    with torch.no_grad(), span(LOSS):
         psnr = losses.psnr(out.render, gt)
+    if tally is not None:
+        tally.extend(out.slots)
     return (state.with_params(new_p), adam, stats, loss.detach(), psnr,
             out.n_lost)
 
@@ -352,11 +385,13 @@ def _feature_update(state: G.GaussianState, adam: opt_mod.AdamState, params: dic
     leaves get zeros and learning rate 0, so they stay as they were). keep
     (a 0-d bool tensor): where False, the gradient is zero, but Adam still
     steps."""
-    (g,) = torch.autograd.grad(loss, [params["ins_feat"]])
-    if keep is not None:
-        g = torch.where(keep, g, 0.0)
-    grads = {k: g if k == "ins_feat" else torch.zeros_like(v) for k, v in params.items()}
-    new_p, adam = _adam(state, grads, adam, ocfg, iteration, 1.0, hyper)
+    with span(BACKWARD):
+        (g,) = torch.autograd.grad(loss, [params["ins_feat"]])
+    with span(UPDATE):
+        if keep is not None:
+            g = torch.where(keep, g, 0.0)
+        grads = {k: g if k == "ins_feat" else torch.zeros_like(v) for k, v in params.items()}
+        new_p, adam = _adam(state, grads, adam, ocfg, iteration, 1.0, hyper)
     return state.with_params(new_p), adam
 
 
@@ -364,26 +399,29 @@ def stage1_step(state: G.GaussianState, adam: opt_mod.AdamState, bundle: ViewBun
                 view_idx, iteration: int, bg: torch.Tensor, rescale_factor,
                 rcfg: RasterizeConfig, ocfg: OptimizationConfig,
                 with_alpha_loss: bool = False, frozen: FrozenPlan | None = None,
-                hyper: StepHyper | None = None):
+                hyper: StepHyper | None = None, tally: list | None = None):
     """One stage-1 step (the JAX package's _stage1_body): the feature pass of
     the frozen geometry, mask means inside the silhouette, separation +
     loss_weight * cohesion against the view's SAM masks. frozen: the view's
-    FrozenPlan; view_idx, rescale_factor and hyper may be device tensors
-    (see stage0_step). -> (state, adam, loss, n_lost), the last two 0-d
-    tensors."""
+    FrozenPlan; view_idx, rescale_factor and hyper may be device tensors;
+    tally: as for stage0_step. -> (state, adam, loss, n_lost), the last two
+    0-d tensors."""
     params = _freeze_geometry(state.params())
     out = render(bundle.camera(view_idx), state.with_params(params), bg, 3, rcfg,
                  render_color=with_alpha_loss, render_feat_map=True,
                  rescale_factor=rescale_factor, frozen=frozen)
-    sil = (out.silhouette > 0.7).to(torch.float32)
-    masks, valid = masku.masks_onehot(_at(bundle.sam_ids, view_idx), bundle.max_masks)
-    means = masku.mask_feature_mean(out.ins_feat, masks, image_mask=sil)
-    l_coh = losses.cohesion_loss(out.ins_feat, masks, valid, means)
-    l_sep = losses.separation_loss(means, valid, iteration)
-    loss = l_sep + ocfg.loss_weight * l_coh
-    if with_alpha_loss:
-        loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
+    with span(LOSS):
+        sil = (out.silhouette > 0.7).to(torch.float32)
+        masks, valid = masku.masks_onehot(_at(bundle.sam_ids, view_idx), bundle.max_masks)
+        means = masku.mask_feature_mean(out.ins_feat, masks, image_mask=sil)
+        l_coh = losses.cohesion_loss(out.ins_feat, masks, valid, means)
+        l_sep = losses.separation_loss(means, valid, iteration)
+        loss = l_sep + ocfg.loss_weight * l_coh
+        if with_alpha_loss:
+            loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
     state, adam = _feature_update(state, adam, params, loss, iteration, ocfg, hyper=hyper)
+    if tally is not None:
+        tally.extend(out.slots)
     return state, adam, loss.detach(), out.n_lost
 
 
@@ -391,22 +429,27 @@ def stage21_step(state: G.GaussianState, adam: opt_mod.AdamState, kms: km.KMeans
                  bundle: ViewBundle, view_idx, iteration: int, bg: torch.Tensor,
                  rescale_factor, pseudo_feat: torch.Tensor, rcfg: RasterizeConfig,
                  ocfg: OptimizationConfig, with_alpha_loss: bool = False,
-                 frozen: FrozenPlan | None = None, hyper: StepHyper | None = None):
+                 frozen: FrozenPlan | None = None, hyper: StepHyper | None = None,
+                 tally: list | None = None):
     """One stage-2.1 step (the JAX package's _stage21_body; reference
     train.py:464-473): L1 of the rendered root-quantized features against
     the view's pseudo features, inside the rendered silhouette. frozen,
-    view_idx, rescale_factor, hyper: as for stage1_step.
+    view_idx, rescale_factor, hyper, tally: as for stage1_step.
     -> (state, adam, loss, n_lost), the last two 0-d tensors."""
     params = _freeze_geometry(state.params())
-    q = km.quantize(kms, params["ins_feat"], "root")
+    with span(GEOMETRY):
+        q = km.quantize(kms, params["ins_feat"], "root")
     out = render(bundle.camera(view_idx), state.with_params(params), bg, 3, rcfg,
                  render_color=with_alpha_loss, render_feat_map=True, quantized_feat=q,
                  rescale_factor=rescale_factor, frozen=frozen)
-    keep = (out.silhouette > 0.7).to(torch.float32)[..., None]
-    loss = losses.l1_loss(out.ins_feat, pseudo_feat, keep)
-    if with_alpha_loss:
-        loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
+    with span(LOSS):
+        keep = (out.silhouette > 0.7).to(torch.float32)[..., None]
+        loss = losses.l1_loss(out.ins_feat, pseudo_feat, keep)
+        if with_alpha_loss:
+            loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
     state, adam = _feature_update(state, adam, params, loss, iteration, ocfg, hyper=hyper)
+    if tally is not None:
+        tally.extend(out.slots)
     return state, adam, loss.detach(), out.n_lost
 
 
@@ -415,7 +458,7 @@ def stage22_step(state: G.GaussianState, adam: opt_mod.AdamState, kms: km.KMeans
                  rescale_factor, pseudo_feat: torch.Tensor, root_id,
                  root_visible, rcfg: RasterizeConfig, ocfg: OptimizationConfig,
                  with_alpha_loss: bool = False, frozen: FrozenPlan | None = None,
-                 hyper: StepHyper | None = None):
+                 hyper: StepHyper | None = None, tally: list | None = None):
     """One stage-2.2 step (the JAX package's _stage22_body; reference
     train.py:475-497): render the root cluster root_id alone with
     leaf-quantized features, L2 against the view's pseudo features inside
@@ -426,26 +469,31 @@ def stage22_step(state: G.GaussianState, adam: opt_mod.AdamState, kms: km.KMeans
     frozen: the view's full-frame FrozenPlan, over whose stream the root
     renders as a masked-opacity blend at the frame budgets (the JAX
     package's _stage22_body(frozen=); the trainer does not pass one);
-    view_idx, rescale_factor, hyper: as for stage1_step.
+    view_idx, rescale_factor, hyper, tally: as for stage1_step.
     -> (state, adam, loss, ok, n_lost), the last three 0-d tensors."""
     params = _freeze_geometry(state.params())
-    q = km.quantize(kms, params["ins_feat"], "leaf")
+    with span(GEOMETRY):
+        q = km.quantize(kms, params["ins_feat"], "leaf")
     gs = state.with_params(params)
     cam = bundle.camera(view_idx)
     roots = root_id if isinstance(root_id, torch.Tensor) else [root_id]
     out = render_clusters(cam, gs, bg, kms.cls_ids, roots, rcfg, quantized_feat=q,
                           rescale_factor=rescale_factor, min_points=1, frozen=frozen)
-    sil = (out.cluster_silhouettes[0] > 0.7).to(torch.float32)[..., None]
-    ok = out.cluster_occur[0] & torch.as_tensor(root_visible, device=state.device)
-    loss = losses.l2_loss(out.cluster_imgs[0], pseudo_feat, sil)
-    n_lost = out.n_lost
+    slots, n_lost = out.slots, out.n_lost
     if with_alpha_loss:
         color = render(cam, gs, bg, 3, rcfg, frozen=frozen)
-        loss = loss + _alpha_mask_loss(color.alpha, bundle, view_idx)
-        n_lost = torch.maximum(n_lost, color.n_lost)
-    loss = torch.where(ok, loss, 0.0)
+        slots, n_lost = slots + color.slots, torch.maximum(n_lost, color.n_lost)
+    with span(LOSS):
+        sil = (out.cluster_silhouettes[0] > 0.7).to(torch.float32)[..., None]
+        ok = out.cluster_occur[0] & torch.as_tensor(root_visible, device=state.device)
+        loss = losses.l2_loss(out.cluster_imgs[0], pseudo_feat, sil)
+        if with_alpha_loss:
+            loss = loss + _alpha_mask_loss(color.alpha, bundle, view_idx)
+        loss = torch.where(ok, loss, 0.0)
     state, adam = _feature_update(state, adam, params, loss, iteration, ocfg, keep=ok,
                                   hyper=hyper)
+    if tally is not None:
+        tally.extend(slots)
     return state, adam, loss.detach(), ok, n_lost
 
 
@@ -571,9 +619,14 @@ class Trainer:
         self._captured: dict[str, _CapturedStep] = {}  # by stage, CUDA only
         self._view_queue: list[int] = []
         self._last_lost: torch.Tensor | None = None
-        # the most slots any step (or block) has lost, logged or not: a 0-d
-        # device tensor, updated without a sync (None before the first step)
-        self.lost_max: torch.Tensor | None = None
+        # the slot counters since construction (`_count_slots`), summed at
+        # each log boundary: the steps, and over their binnings the padded
+        # streams P, the live slots (total - dropped - truncated), the slots
+        # dropped past P and those truncated past max_per_tile. Under a mesh
+        # they count steps alone.
+        self.counters = dict.fromkeys(COUNTERS, 0)
+        self._tally: list[SlotCounts] = []  # the binnings since the last log
+        self._tally_steps = 0
         self._last_view = 0
         self.losses: list[torch.Tensor] = []  # every step's loss, on the device
         self.history: list[dict] = []
@@ -745,6 +798,7 @@ class Trainer:
             return self.rng.random(3).astype(np.float32)
         return self._bg_host
 
+    @spanned(PROBE)
     def _tune_budgets(self):
         """Size the budgets before the first step, after a capacity growth and
         after a logged step that lost slots. With autotune_budgets, the JAX
@@ -791,8 +845,9 @@ class Trainer:
             return
         cams = [self.bundle.camera(i) for i in range(self.bundle.num_views)]
         t0 = time.perf_counter()
-        new = budget.tuned_group_config(self.rcfg, self.state, cams, self.kms.cls_ids,
-                                        self.cfg.opt.root_node_num)
+        with span(PROBE):
+            new = budget.tuned_group_config(self.rcfg, self.state, cams, self.kms.cls_ids,
+                                            self.cfg.opt.root_node_num)
         self._log_tune("group", new, time.perf_counter() - t0)
         if new != self.rcfg:
             print(f"[budget] group budgets P={new.group_intersection_budget} "
@@ -884,17 +939,18 @@ class Trainer:
                   f"{self.frozen_plan_bytes_cap >> 20} MB cap", flush=True)
             self._frozen_plans = False
             return None
-        cov3d = build_cov3d(self.state.scales, self.state.quats)
         t0 = time.time()
-        plans = [build_frozen_plan(self.bundle.camera(vi), self.state.means, cov3d,
-                                   self.state.opacity, self.rcfg) for vi in range(V)]
-        lost = int(sum(p.n_dropped + p.n_truncated for p in plans))  # one host sync
-        if lost > 0:
-            print(f"[frozen] plans disabled: builds lost {lost} slots at the "
-                  "current budgets (the plans would not be exact)", flush=True)
-            self._frozen_plans = False
-            return None
-        self._frozen_plans = stack_plans(plans, n)
+        with span(PLANS):
+            cov3d = build_cov3d(self.state.scales, self.state.quats)
+            plans = [build_frozen_plan(self.bundle.camera(vi), self.state.means, cov3d,
+                                       self.state.opacity, self.rcfg) for vi in range(V)]
+            lost = int(sum(p.n_dropped + p.n_truncated for p in plans))  # one host sync
+            if lost > 0:
+                print(f"[frozen] plans disabled: builds lost {lost} slots at the "
+                      "current budgets (the plans would not be exact)", flush=True)
+                self._frozen_plans = False
+                return None
+            self._frozen_plans = stack_plans(plans, n)
         rec = dict(iteration=self.iteration, seconds=time.time() - t0,
                    nbytes=self._frozen_plans.nbytes(), estimate=est)
         self.frozen_plan_log.append(rec)
@@ -988,7 +1044,7 @@ class Trainer:
             self.cfg.model.white_background and it == o.densify_from_iter)
         if not (densify or reset):
             return
-        with self._global():
+        with span(EVENTS), self._global():
             if densify:
                 self._maybe_grow()
                 self.state, (mu, nu), self.stats, _ = G.densify_and_prune(
@@ -1008,6 +1064,8 @@ class Trainer:
         o = self.cfg.opt
         until = until or o.iterations
         t_start = time.time()
+        # the previous log (or this call's start): iter_time's base
+        t_log, it_log = time.perf_counter(), self.iteration
         while self.iteration < until:
             if not self._budgets_tuned:
                 self._tune_budgets()
@@ -1016,42 +1074,80 @@ class Trainer:
             stage = self._stage(it)
             if stage == "2.2" and (it - o.start_leaf_cb_iter) % o.leaf_update_fr == 0:
                 self.root_id = (self.root_id + 1) % o.root_node_num
-            self._pre_events(it, stage)
+            if self._has_pre_event(it, stage):
+                with span(EVENTS):
+                    self._pre_events(it, stage)
             n = self._block_len(it, stage, until, log_every)
             if n > 1:
-                loss = self._run_block(it, stage, n)
+                with span(BLOCK):
+                    loss = self._run_block(it, stage, n)
             else:
-                loss = self._run_single(it, stage)
+                with span(STEP):
+                    loss = self._run_single(it, stage)
                 self.losses.append(loss)
+            self._tally_steps += n
             it = it + n - 1
             self.iteration = it
-            self.lost_max = (self._last_lost if self.lost_max is None
-                             else torch.maximum(self.lost_max, self._last_lost))
             self._post_events(it, stage)
             if self.save_intermediate and it % observe.dump_frequency(stage) == 0:
-                observe.dump_intermediate(self, it, stage, self._last_view)
+                with span(EVENTS):
+                    observe.dump_intermediate(self, it, stage, self._last_view)
             if it % log_every == 0 or it >= until:
-                lost = int(self._last_lost)
-                if lost > 0:
-                    lost_to = (f"intersections to the tuned budgets (P="
-                               f"{self.rcfg.intersection_budget}, K={self.rcfg.max_per_tile})"
-                               if self.autotune_budgets else
-                               f"slots to max_per_tile={self.rcfg.max_per_tile}")
-                    print(f"[budget] WARNING: step {it} lost {lost} {lost_to}; re-probing",
-                          flush=True)
-                    self._budgets_tuned = False
-                rec = dict(iteration=it, stage=stage, loss=float(loss),
-                           num_alive=self._num_alive(),
-                           elapsed=time.time() - t_start)
-                if stage == "2.2":  # one root per step: the loss reads per root
-                    rec["root_id"] = self.root_id
-                self.history.append(rec)
-                if self.tb is not None:
-                    self.tb.add_scalar("train_loss_patches/total_loss", rec["loss"], it)
-                    self.tb.add_scalar("total_points", rec["num_alive"], it)
-                    self.tb.add_scalar("iter_time", rec["elapsed"] / max(it, 1), it)
-                print(f"[it {it}] stage {stage} loss {rec['loss']:.5f} "
-                      f"pts {rec['num_alive']} ({rec['elapsed']:.0f}s)", flush=True)
+                t_log, it_log = self._log(it, stage, loss, t_start, t_log, it_log)
+
+    @spanned(LOG)
+    def _log(self, it: int, stage: str, loss, t_start: float, t_log: float,
+             it_log: int) -> tuple[float, int]:
+        """The log boundary after step `it`: the counters summed (which
+        waits for the device), the re-probe after a step that lost slots, a
+        history record, TensorBoard's scalars. iter_time is the wall time
+        per step since the previous log (t_log, it_log), taken after the
+        wait. -> (now, it), the next log's base."""
+        delta = self._count_slots()
+        lost = int(self._last_lost)
+        now = time.perf_counter()
+        if lost > 0:
+            lost_to = (f"intersections to the tuned budgets (P="
+                       f"{self.rcfg.intersection_budget}, K={self.rcfg.max_per_tile})"
+                       if self.autotune_budgets else
+                       f"slots to max_per_tile={self.rcfg.max_per_tile}")
+            print(f"[budget] WARNING: step {it} lost {lost} {lost_to}; re-probing",
+                  flush=True)
+            self._budgets_tuned = False
+        rec = dict(iteration=it, stage=stage, loss=float(loss),
+                   num_alive=self._num_alive(),
+                   elapsed=time.time() - t_start,
+                   iter_time=(now - t_log) / max(it - it_log, 1),
+                   counters=dict(self.counters))
+        if stage == "2.2":  # one root per step: the loss reads per root
+            rec["root_id"] = self.root_id
+        self.history.append(rec)
+        if self.tb is not None:
+            self.tb.add_scalar("train_loss_patches/total_loss", rec["loss"], it)
+            self.tb.add_scalar("total_points", rec["num_alive"], it)
+            self.tb.add_scalar("iter_time", rec["iter_time"], it)
+            if delta["padded"]:
+                self.tb.add_scalar("slots/live_fill", delta["live"] / delta["padded"], it)
+            self.tb.add_scalar("slots/lost", delta["dropped"] + delta["truncated"], it)
+        print(f"[it {it}] stage {stage} loss {rec['loss']:.5f} "
+              f"pts {rec['num_alive']} ({rec['elapsed']:.0f}s)", flush=True)
+        return now, it
+
+    def _count_slots(self) -> dict:
+        """Add the steps and the binnings' slot counts since the last log to
+        `counters`, with one copy to the host. -> what was added."""
+        tally, self._tally = self._tally, []
+        delta = dict.fromkeys(COUNTERS, 0)
+        delta["steps"], self._tally_steps = self._tally_steps, 0
+        if tally:
+            x = torch.stack([v for c in tally for v in (c.total, c.n_dropped, c.n_truncated)])
+            total, dropped, truncated = x.view(-1, 3).sum(0).tolist()
+            delta.update(padded=sum(c.padded for c in tally),
+                         live=total - dropped - truncated, dropped=dropped,
+                         truncated=truncated)
+        for k, v in delta.items():
+            self.counters[k] += v
+        return delta
 
     def _run_single(self, it: int, stage: str) -> torch.Tensor:
         if self.mesh is not None:
@@ -1063,16 +1159,16 @@ class Trainer:
         if stage == "0":
             self.state, self.adam, self.stats, loss, _psnr, self._last_lost = stage0_step(
                 self.state, self.adam, self.stats, bundle, svi, it, bg,
-                self.spatial_lr_scale, self.rcfg, o)
+                self.spatial_lr_scale, self.rcfg, o, tally=self._tally)
         elif stage == "1":
             self.state, self.adam, loss, self._last_lost = stage1_step(
                 self.state, self.adam, bundle, svi, it, bg, self._rescale_factor(it),
-                self.rcfg, o, self.any_alpha, frozen=self._plan(vi))
+                self.rcfg, o, self.any_alpha, frozen=self._plan(vi), tally=self._tally)
         elif stage == "2.1":
             self.state, self.adam, loss, self._last_lost = stage21_step(
                 self.state, self.adam, self.kms, bundle, svi, it, bg,
                 self._rescale_factor(it), self._pseudo_feat(vi), self.rcfg, o,
-                self.any_alpha, frozen=self._plan(vi))
+                self.any_alpha, frozen=self._plan(vi), tally=self._tally)
         else:
             # stage 2.2 takes no frozen plan, as in the JAX trainer: the
             # single-root blend over the whole frozen stream walks more than
@@ -1082,12 +1178,15 @@ class Trainer:
             self.state, self.adam, loss, _ok, self._last_lost = stage22_step(
                 self.state, self.adam, self.kms, bundle, svi, it, bg,
                 self._rescale_factor(it), self._pseudo_feat(vi), self.root_id, root_vis,
-                self.rcfg, o, self.any_alpha)
+                self.rcfg, o, self.any_alpha, tally=self._tally)
         return loss
 
     def _plan(self, vi: int) -> FrozenPlan | None:
         plans = self._ensure_frozen_plans()
-        return None if plans is None else plans.select(vi)
+        if plans is None:
+            return None
+        with span(BIN):
+            return plans.select(vi)
 
     def _run_block(self, it: int, stage: str, n: int) -> torch.Tensor:
         """Steps it..it+n-1 of one stage as a block (the JAX trainer's
@@ -1120,16 +1219,19 @@ class Trainer:
         # separation loss is the one number a step takes as a constant
         rows = rows.to(self.device, non_blocking=True)
         lost = torch.zeros((), dtype=torch.int32, device=self.device)
-        step, count = None, self.adam.count
+        step, count, runs = None, self.adam.count, 0
         for j in range(n):
             late = it + j > losses.LATE_ITERATION
             if step is None or step.late != late:
                 if step is not None:  # the block crosses the late iteration
                     step.copy_out(self, count + j)
-                step = self._captured_step(stage, late, frozen)
+                    self._tally.append(step.take_slots(runs))
+                step, runs = self._captured_step(stage, late, frozen), 0
             self.losses.append(step.run(rows[j]))
+            runs += 1
             lost = torch.maximum(lost, step.io["lost"])
         step.copy_out(self, count + n)
+        self._tally.append(step.take_slots(runs))
         self._last_lost = lost
         return self.losses[-1]
 
@@ -1167,9 +1269,11 @@ class Trainer:
         """View i of `bundle` as (bundle, index) on the device: under
         save_memory its one-view window, copied from host memory."""
         if self.save_memory:
-            return bundle_window(bundle, i, self.device), 0
+            with span(VIEW):
+                return bundle_window(bundle, i, self.device), 0
         return bundle, i
 
+    @spanned(VIEW)
     def _pseudo_feat(self, vi: int) -> torch.Tensor:
         """View vi's pseudo features on the device (a copy from host memory
         under save_memory)."""
@@ -1379,9 +1483,13 @@ class _CapturedStep:
                 k: getattr(tr.kms, k).clone()
                 for k in ("centers", "cls_ids", "leaf_centers", "leaf_cls_ids")}),
             loss=torch.zeros((), device=dev),
-            lost=torch.zeros((), dtype=torch.int32, device=dev))
+            lost=torch.zeros((), dtype=torch.int32, device=dev),
+            # the binnings' total, dropped and truncated slots, summed over
+            # the runs since `take_slots`
+            slots=torch.zeros(3, dtype=torch.int64, device=dev))
         self.graph = None
         self.deltas: dict = {}
+        self.padded = 0  # the padded streams of one run
 
     def copy_in(self, tr: "Trainer"):
         io = self.io
@@ -1417,23 +1525,25 @@ class _CapturedStep:
                           bias=opt_mod.bias_tensors(row[6:10]),
                           sh_mask=row[10 + len(keys):])
         it = losses.LATE_ITERATION + 1 if self.late else 1  # the late flag alone
+        tally = []
         state = io["state"]
         adam = opt_mod.AdamState(mu=io["mu"], nu=io["nu"], count=0)
         stats = None
         if self.stage == "0":
             state, adam, stats, loss, _psnr, lost = stage0_step(
                 state, adam, io["stats"], tr.bundle, vi, it, bg, tr.spatial_lr_scale,
-                tr.rcfg, o, hyper=hyper)
+                tr.rcfg, o, hyper=hyper, tally=tally)
         elif self.stage == "1":
             fz = None if self.frozen is None else self.frozen.select(vi)
             state, adam, loss, lost = stage1_step(
                 state, adam, tr.bundle, vi, it, bg, rescale, tr.rcfg, o, tr.any_alpha,
-                frozen=fz, hyper=hyper)
+                frozen=fz, hyper=hyper, tally=tally)
         elif self.stage == "2.1":
             fz = None if self.frozen is None else self.frozen.select(vi)
             state, adam, loss, lost = stage21_step(
                 state, adam, io["kms"], tr.bundle, vi, it, bg, rescale,
-                _at(tr.pseudo.feat, vi), tr.rcfg, o, tr.any_alpha, frozen=fz, hyper=hyper)
+                _at(tr.pseudo.feat, vi), tr.rcfg, o, tr.any_alpha, frozen=fz, hyper=hyper,
+                tally=tally)
         else:
             occur = tr.pseudo.cluster_occur
             vis = (torch.ones((), dtype=torch.bool, device=tr.device) if occur is None
@@ -1441,7 +1551,8 @@ class _CapturedStep:
             state, adam, loss, _ok, lost = stage22_step(
                 state, adam, io["kms"], tr.bundle, vi, it, bg, rescale,
                 _at(tr.pseudo.feat, vi), root, vis, tr.rcfg, o, tr.any_alpha,
-                hyper=hyper)
+                hyper=hyper, tally=tally)
+        self.padded = sum(c.padded for c in tally)
         if not write_back:
             return
         for k, v in state.params().items():
@@ -1454,6 +1565,9 @@ class _CapturedStep:
                 a.copy_(b)
         io["loss"].copy_(loss)
         io["lost"].copy_(lost)
+        io["slots"].add_(torch.stack([v for c in tally
+                                      for v in (c.total, c.n_dropped, c.n_truncated)])
+                         .view(-1, 3).sum(0))
 
     def _capture(self):
         counters = {w: w.launches for w in rk.KERNEL_WRAPPERS}
@@ -1470,6 +1584,13 @@ class _CapturedStep:
         for w, c in counters.items():
             w.launches = c
         self.graph = graph
+
+    def take_slots(self, runs: int) -> SlotCounts:
+        """The slot counts of the last `runs` runs, summed, the sums set
+        back to 0."""
+        total, dropped, truncated = self.io["slots"].clone()
+        self.io["slots"].zero_()
+        return SlotCounts(self.padded * runs, total, dropped, truncated)
 
     def run(self, row: torch.Tensor) -> torch.Tensor:
         """One step with the numbers of `row`. -> a copy of its loss."""

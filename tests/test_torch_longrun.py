@@ -128,7 +128,7 @@ def runs(tmp_path_factory):
     try:
         with concurrent.futures.ThreadPoolExecutor(1) as ex:
             fut = ex.submit(curve, jtr, lambda t: int(t._last_lost))
-            port = curve(ttr, lambda t: int(t.lost_max))
+            port = curve(ttr, lambda t: t.counters["dropped"] + t.counters["truncated"])
             jax_curve = fut.result(timeout=600)
     finally:
         mp.undo()

@@ -214,10 +214,10 @@ def test_trainer_never_truncates_a_tile(tmp_path):
 
 
 def test_trainer_counts_slots_lost_in_every_step(tmp_path):
-    """`Trainer.lost_max` is the most slots any step lost, logged or not:
+    """`Trainer.counters` sums the slots every step lost, logged or not:
     with the cap cut below the deepest tile after the probe and only the
-    last step logged, it equals the most that the steps, read one by one,
-    lost."""
+    last step logged, its dropped and truncated slots are the sum of what
+    the steps, read one by one, lost."""
     root = str(tmp_path / "scene")
     make_colmap_scene(root, n_views=3, with_sidecars=False)
     tr = tloop.Trainer(tdataset.load_scene(root), TConfig(opt=TOpt(iterations=4)),
@@ -234,8 +234,8 @@ def test_trainer_counts_slots_lost_in_every_step(tmp_path):
         return loss
 
     tr._run_single = spy
-    assert tr.lost_max is None
+    assert tr.counters["dropped"] == tr.counters["truncated"] == 0
     tr.train(until=4, log_every=10 ** 9)
     assert len(per_step) == 4 and [r["iteration"] for r in tr.history] == [4]
     assert max(per_step) > 0
-    assert int(tr.lost_max) == max(per_step)
+    assert tr.counters["dropped"] + tr.counters["truncated"] == sum(per_step)
