@@ -10,9 +10,16 @@ Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit (nvidia-smi); TF32 off.
   2. build: every CUDA kernel of the port (one nvcc per csrc/*.cu, all
      started together), from the sources in the checkout.
-  3. kernels: each kernel against its plain PyTorch version on the card, on
-     the streams of a full-width frame (1296x968, 200k splats, SH degree 3,
-     6-D instance features): the forward blend K1 at C = 4 (RGB + depth) and
+  3. kernels: each kernel against its plain PyTorch version on the card.
+     First the geometry kernels (covariance, projection, SH colour, forward
+     and backward; `geometry_phase`) on the benchmark's cell-1 start (1M
+     splats, 985x730, its 100 views): every field against the plain
+     version, the integer fields exactly, each kernel's device time beside
+     its bytes bound and its plain version's time, the stage-0 geometry
+     chain through the kernels against the plain chain (time, busy,
+     kernels), and the kernels' launches in a stage-0 and a stage-1 step.
+     Then the rasterizer's kernels, on the streams of a full-width frame
+     (1296x968, 200k splats, SH degree 3, 6-D instance features): the forward blend K1 at C = 4 (RGB + depth) and
      C = 7 (features + depth), bit for bit; the backward replay K2, the
      compact backward K4 (both bit for bit) and the per-splat reduce K3 on
      the C = 4 stream, with the cotangents of an L1 + SSIM loss against the
@@ -1267,11 +1274,219 @@ def time_reduce(d_rows, bins, n: int, what: str, card: str, peak_flops,
                 sorted_kernel=sorted_kernel, lib_dev=dev["library"], bound=bound, by=by)
 
 
+# the geometry kernels' check: the benchmark's cell-1 start (ogbench), each
+# kernel's tolerance against its plain version on the card, field by field
+# (max |kernel - plain| over the field's largest |plain|): the forwards
+# evaluate the plain expressions in the card's order (1e-6 leaves room for
+# a last-bit difference); the backwards group the analytic products in
+# their own order (1e-5)
+GEOMETRY_CELL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ogbench",
+                                    "configs", "lerf-teatime.json")
+GEOMETRY_FWD_TOL, GEOMETRY_BWD_TOL = 1e-6, 1e-5
+
+
+def geometry_bytes(n: int, k: int = 16) -> dict:
+    """The bytes each geometry kernel must move for n splats at k SH
+    coefficients: its inputs read once, its outputs written once."""
+    sh = 3 * k * 4
+    return dict(
+        cov3d_fwd=n * (12 + 16 + 36),  # scales, quats -> cov
+        cov3d_bwd=n * (12 + 16 + 36 + 12 + 16),  # + d_cov -> d_scales, d_quats
+        # means, cov, opacity, tap -> mean2d, depth, conic, radius, cull
+        # radius, rects, tiles, valid
+        project_fwd=n * (12 + 36 + 4 + 8 + 8 + 4 + 12 + 4 + 4 + 8 + 8 + 4 + 1),
+        # means, cov, the cotangents of mean2d, conic, depth -> d_means,
+        # d_cov, d_tap
+        project_bwd=n * (12 + 36 + 8 + 12 + 4 + 12 + 36 + 8),
+        sh_fwd=n * (sh + 12 + 12),  # sh, means -> rgb
+        sh_bwd=n * (sh + 12 + 12 + sh + 12))  # sh, means, d_rgb -> d_sh, d_means
+
+
+def geometry_start(dev, seed: int = 0, **scene):
+    """The benchmark's cell-1 start (ogbench/configs/lerf-teatime.json's
+    scene, ogbench/scene.py, from `seed`; `scene` overrides sizes): the
+    stage-0 step's geometry inputs on the card and its views' cameras.
+    -> ({scales, quats, means, opac, sh, tap}, [Camera])."""
+    from ogbench import scene as bench_scene
+    from opengaussian_tpu_torch.cameras import Camera
+
+    with open(GEOMETRY_CELL_CONFIG) as f:
+        sc = {**json.load(f)["scene"], **scene}
+    sp = bench_scene.make_splats(sc, torch.Generator(device=dev).manual_seed(seed), dev)
+    x = dict(scales=torch.exp(sp["log_scales"]), quats=sp["quats"], means=sp["means"],
+             opac=torch.where(sp["alive"], torch.sigmoid(sp["logit_opacity"]), 0.0),
+             sh=torch.cat([sp["sh_dc"], sp["sh_rest"]], dim=1),
+             tap=torch.zeros((sp["means"].shape[0], 2), device=dev))
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)  # noqa: E731
+    cams = [Camera(R_w2c=torch.as_tensor(c["R"], device=dev),
+                   t_w2c=torch.as_tensor(c["t"], device=dev), fx=f32(c["fx"]),
+                   fy=f32(c["fy"]), cx=f32(c["cx"]), cy=f32(c["cy"]), width=c["width"],
+                   height=c["height"]) for c in bench_scene.make_cameras(sc)]
+    return x, cams
+
+
+def geometry_errors(errs: dict, name: str, got, want) -> None:
+    """Fold one comparison into errs[name] = {"field": max |got - want| over
+    max |want|, "splat": the largest of each splat's |got - want| over its
+    largest |want|, "bits": elements that differ in any bit} (ints: "bits"
+    alone)."""
+    e = errs.setdefault(name, dict(field=0.0, splat=0.0, bits=0))
+    e["bits"] += int((got != want).sum())
+    if not got.is_floating_point():
+        return
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"geometry: {name} is not finite")
+    diff = (got - want).abs().reshape(got.shape[0], -1)
+    mag = want.abs().reshape(got.shape[0], -1)
+    e["field"] = max(e["field"], float(diff.max() / mag.max().clamp(min=1e-30)))
+    e["splat"] = max(e["splat"], float((diff / mag.amax(1, keepdim=True).clamp(min=1e-30))
+                                       .max()))
+
+
+def geometry_phase(dev, card: str, peak_bytes: float, out_dir: str, **scene) -> dict:
+    """The geometry kernels (ops/geometry_kernels.py) on the card at the
+    training frame: the benchmark's cell-1 start (1M splats, 985x730, SH
+    degree 3), every view. Each kernel against its plain version: the
+    forwards (covariance; the projection with opacities and the screen
+    tap; SH colour) field by field, integer fields exactly (a ceil tie
+    would show as a count), the backwards with random cotangents read as
+    columns of one [N, 13] buffer, as the blend's backward hands them. On
+    view 0 each kernel's device time beside its bytes bound and its plain
+    version's time, and the stage-0 geometry chain, forward and backward,
+    through the kernels against the plain chain with autograd: time, busy
+    and launches. The launches per step of a stage-0 and a stage-1 step
+    (the blob trainer's). -> a summary dict."""
+    from opengaussian_tpu_torch.ops import geometry_kernels as gk
+    from opengaussian_tpu_torch.ops import projection as P
+    from opengaussian_tpu_torch.ops import sh as S
+    from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig
+
+    t0 = time.perf_counter()
+    x, cams = geometry_start(dev, **scene)
+    n = x["means"].shape[0]
+    sc, q, m, opac, sh, tap = (x[k] for k in ("scales", "quats", "means", "opac", "sh", "tap"))
+    errs: dict = {}
+    with torch.no_grad():
+        cov = gk.cov3d_fwd(sc, q)
+        geometry_errors(errs, "cov3d_fwd cov", cov, P.build_cov3d_plain(sc, q))
+        for vi, cam in enumerate(cams):
+            out = gk.project_fwd(m, cov, cam, opac, tap)
+            ref = P.project_plain(m, cov, cam, opac, tap)
+            for f, got in zip(gk.PROJECTED_FIELDS, out):
+                geometry_errors(errs, f"project_fwd {f}", got, getattr(ref, f))
+            center = cam.cam_center
+            geometry_errors(errs, "sh_fwd rgb", gk.sh_fwd(3, sh, m, center),
+                            S.sh_to_rgb_plain(3, sh, m, center))
+            buf = torch.randn((n, 13), generator=torch.Generator(device=dev).manual_seed(vi),
+                              device=dev)
+            gm, gc, grgb, gd = buf[:, 0:2], buf[:, 2:5], buf[:, 6:9], buf[:, 12]
+            got = gk.project_bwd(m, cov, cam, gm, gc, gd, True)
+            want = gk.project_bwd_plain(m, cov, cam, gm, gc, gd, True)
+            for f, a, b in zip(("d_means", "d_cov", "d_tap"), got, want):
+                geometry_errors(errs, f"project_bwd {f}", a, b)
+            for f, a, b in zip(("d_scales", "d_quats"), gk.cov3d_bwd(sc, q, want[1]),
+                               gk.cov3d_bwd_plain(sc, q, want[1])):
+                geometry_errors(errs, f"cov3d_bwd {f}", a, b)
+            for f, a, b in zip(("d_sh", "d_means"), gk.sh_bwd(3, sh, m, center, grgb),
+                               gk.sh_bwd_plain(3, sh, m, center, grgb)):
+                geometry_errors(errs, f"sh_bwd {f}", a, b)
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        tol = GEOMETRY_BWD_TOL if name.split()[0].endswith("bwd") else GEOMETRY_FWD_TOL
+        log(f"kernel geometry {name}: {len(cams)} views x {n} splats, "
+            + (f"max err {e['field']:.3e} of the field's largest value, {e['splat']:.3e} of "
+               f"a splat's, " if "field" in e and "splat" in e else "")
+            + f"{e['bits']} elements differ (tolerance {tol:g})")
+        if e.get("field", 0.0) > tol or (e["bits"] and name.split()[1] in (
+                "radius", "rect_min", "rect_max", "num_tiles", "valid")):
+            raise AssertionError(f"geometry {name}: {e} against the plain version")
+
+    # view 0: each kernel's time beside its bound and its plain version's
+    cam, bound = cams[0], geometry_bytes(n, sh.shape[1])
+    center = cam.cam_center
+    buf = torch.randn((n, 13), device=dev)
+    gm, gc, grgb, gd = buf[:, 0:2], buf[:, 2:5], buf[:, 6:9], buf[:, 12]
+    d_cov = gk.project_bwd(m, cov, cam, gm, gc, gd, True)[1]
+    calls = dict(
+        cov3d_fwd=(lambda: gk.cov3d_fwd(sc, q), lambda: P.build_cov3d_plain(sc, q)),
+        cov3d_bwd=(lambda: gk.cov3d_bwd(sc, q, d_cov),
+                   lambda: gk.cov3d_bwd_plain(sc, q, d_cov)),
+        project_fwd=(lambda: gk.project_fwd(m, cov, cam, opac, tap),
+                     lambda: P.project_plain(m, cov, cam, opac, tap)),
+        project_bwd=(lambda: gk.project_bwd(m, cov, cam, gm, gc, gd, True),
+                     lambda: gk.project_bwd_plain(m, cov, cam, gm, gc, gd, True)),
+        sh_fwd=(lambda: gk.sh_fwd(3, sh, m, center),
+                lambda: S.sh_to_rgb_plain(3, sh, m, center)),
+        sh_bwd=(lambda: gk.sh_bwd(3, sh, m, center, grgb),
+                lambda: gk.sh_bwd_plain(3, sh, m, center, grgb)))
+    times = {}
+    with torch.no_grad():
+        for k, (kern, plain) in calls.items():
+            b_ms = bound[k] / peak_bytes * 1e3
+            t = dict(call=cuda_ms(kern, iters=20, warmup=3), dev=device_ms(kern, 20, k + "_kernel"),
+                     plain=cuda_ms(plain, iters=5, warmup=2), bound=b_ms, bytes=bound[k])
+            times[k] = t
+            log(f"timing: geometry {k}, training frame ({n} splats): kernel {t['dev']:.4f} ms "
+                f"(call {t['call']:.4f}), bound {b_ms:.4f} ms ({bound[k]} bytes), at "
+                f"{b_ms / t['dev']:.3f} of it; plain {t['plain']:.4f} ms [{card}]")
+    total_dev = sum(t["dev"] for t in times.values())
+    total_bound = sum(t["bound"] for t in times.values())
+    log(f"timing: geometry, the six kernels on the training frame: {total_dev:.4f} ms of device "
+        f"time against {total_bound:.4f} ms of bound, at {total_bound / total_dev:.3f} of it "
+        f"[{card}]")
+
+    # the stage-0 chain, forward and backward: kernels against the plain ops
+    def chain(cov_fn, proj_fn, sh_fn):
+        def run():
+            s_, q_, m_, sh_, tap_ = (v.detach().requires_grad_(True) for v in (sc, q, m, sh, tap))
+            p = proj_fn(m_, cov_fn(s_, q_), cam, opac, tap_)
+            rgb = sh_fn(3, sh_, m_, center)
+            torch.autograd.backward([p.mean2d, p.conic, p.depth, rgb], [gm, gc, gd, grgb])
+        return run
+
+    chains = {"kernels": chain(P.build_cov3d, P.project, S.sh_to_rgb),
+              "plain": chain(P.build_cov3d_plain, P.project_plain, S.sh_to_rgb_plain)}
+    chain_res = {}
+    for k, run in chains.items():
+        counts: dict = {}
+        ms = cuda_ms(run, iters=10, warmup=2)
+        busy, _wall = profile(run, 5, f"geometry chain ({k}), stage 0", counts)
+        chain_res[k] = dict(ms=ms, busy=busy, launches=counts["launches"])
+        log(f"timing: geometry chain ({k}), stage-0 forward and backward on the training frame: "
+            f"{ms:.4f} ms a call, device busy {busy:.4f} ms, {counts['launches']} kernels "
+            f"[{card}]")
+
+    # launches per step on the stage-0 and stage-1 paths (the blob trainer)
+    tr = blob_trainer(dev, RasterizeConfig(), out_dir)
+    per_step = {}
+    for stage in ("0", "1"):
+        before = {w.__name__: w.launches for w in gk.KERNEL_WRAPPERS}
+        eager_step(tr, stage)
+        torch.cuda.synchronize()
+        per_step[stage] = {w.__name__: w.launches - before[w.__name__] for w in gk.KERNEL_WRAPPERS}
+        counts = {}
+        profile(lambda: eager_step(tr, stage), 3, f"blob trainer's stage-{stage} step", counts)
+        log(f"launches: geometry kernels in one stage-{stage} step: {per_step[stage]}; "
+            f"{counts['launches']} kernels in all")
+    if set(per_step["0"].values()) != {1}:
+        raise AssertionError(f"a stage-0 step launched the geometry kernels {per_step['0']}")
+    s1 = per_step["1"]
+    if (s1["cov3d_bwd"] or s1["project_bwd"] or s1["sh_bwd"] or not s1["project_fwd"]
+            or s1["cov3d_fwd"] != s1["project_fwd"]):
+        raise AssertionError(f"a stage-1 step launched the geometry kernels {s1}")
+    log(f"geometry phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return dict(errs=errs, times=times, chain=chain_res, per_step=per_step,
+                dev_ms=total_dev, bound_ms=total_bound)
+
+
 def launch_counts() -> dict:
-    """{wrapper: the module attribute whose .launches it counts}."""
+    """{wrapper: the module attribute whose .launches it counts}: the
+    rasterizer's kernels, whose launches the paths below expect exactly;
+    the geometry kernels' launches are held by `geometry_phase`."""
+    from opengaussian_tpu_torch.ops import geometry_kernels as gk
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 
-    return {w.__name__: w for w in rk.KERNEL_WRAPPERS}
+    return {w.__name__: w for w in rk.KERNEL_WRAPPERS if w not in gk.KERNEL_WRAPPERS}
 
 
 def vote_launches(views: int, config) -> int:
@@ -4165,7 +4380,10 @@ def main(argv=None) -> int:
         log(f"setup: {N_SPLATS} splats (capacity {state.capacity}), "
             f"{len(views)} views {WIDTH}x{HEIGHT} in {time.perf_counter() - t0:.1f} s")
 
-        # 3. kernels against their plain versions, at the frame's own streams
+        # 3. kernels against their plain versions: the geometry kernels at the
+        # benchmark's training frame, the blend's at the frame's own streams
+        os.makedirs(os.path.join(root, "geometry"))
+        geometry = geometry_phase(dev, card, peak_bytes, os.path.join(root, "geometry"))
         chunk = RasterizeConfig().chunk
         with torch.no_grad():
             streams = frame_streams(views[0].camera, state)
@@ -4701,7 +4919,10 @@ def main(argv=None) -> int:
             k6_plain, k6_b, k6_by, line=413),
     ]
     log(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all, phases 1-12 [{card}]")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "geometry": {
+        "max_err": {k: e.get("field", e["bits"]) for k, e in geometry["errs"].items()},
+        "times": geometry["times"], "chain": geometry["chain"],
+        "per_step": geometry["per_step"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

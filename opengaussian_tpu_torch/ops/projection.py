@@ -11,8 +11,14 @@ diff-gaussian-rasterization `preprocess` kernel:
   * pixel-space center via the centered pinhole mapping
   * 16x16 tile rectangle per splat
 
-The small 3x3 products are written out as elementwise multiply-adds in the
-JAX package's order, so both packages round alike.
+`build_cov3d` and `project` dispatch on the device of their inputs: CPU
+tensors run the plain versions here (`build_cov3d_plain`, `project_plain`)
+with autograd through their ops; CUDA tensors run the geometry kernels
+(ops/geometry_kernels.py, csrc/geometry.cu), whose forward and backward are
+each one launch, or raise. The plain versions write the small 3x3 products
+out as elementwise multiply-adds in the JAX package's order, so both
+packages round alike, and the kernels evaluate the same expressions in the
+same order.
 """
 
 from __future__ import annotations
@@ -58,7 +64,18 @@ def _sum3(x: torch.Tensor) -> torch.Tensor:
 
 
 def build_cov3d(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
-    """scales [N,3] (activated, positive), quats [N,4] -> Sigma [N,3,3]."""
+    """scales [N,3] (activated, positive), quats [N,4] -> Sigma [N,3,3].
+    CPU tensors run `build_cov3d_plain`; CUDA tensors the covariance
+    kernel, forward and backward (`geometry_kernels.Cov3d`)."""
+    if scales.device.type == "cpu":
+        return build_cov3d_plain(scales, quats)
+    from opengaussian_tpu_torch.ops.geometry_kernels import Cov3d  # imports this module
+
+    return Cov3d.apply(scales, quats)
+
+
+def build_cov3d_plain(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
+    """build_cov3d in plain PyTorch ops."""
     R = quat_to_rotmat(quats)
     L = R * scales[..., None, :]  # R @ diag(s)
     return _sum3(L[..., :, None, :] * L[..., None, :, :])
@@ -93,7 +110,25 @@ def project(
     covariances, opacities [N] (enables the opacity-aware tight radius),
     screen_tap [N,2]: zeros added to the NDC position; its gradient is the
     screen-space positional gradient densification reads (the reference's
-    `means2D` tap, gaussian_renderer/__init__.py:45-49)."""
+    `means2D` tap, gaussian_renderer/__init__.py:45-49). Only mean2d, depth
+    and conic carry gradients. CPU tensors run `project_plain`; CUDA tensors
+    the projection kernel, forward and backward
+    (`geometry_kernels.Project`), which read the camera from the device."""
+    if means3d.device.type == "cpu":
+        return project_plain(means3d, cov3d, camera, opacities, screen_tap)
+    from opengaussian_tpu_torch.ops.geometry_kernels import Project  # imports this module
+
+    return Projected(*Project.apply(means3d, cov3d, camera, opacities, screen_tap))
+
+
+def project_plain(
+    means3d: torch.Tensor,
+    cov3d: torch.Tensor,
+    camera: Camera,
+    opacities: torch.Tensor | None = None,
+    screen_tap: torch.Tensor | None = None,
+) -> Projected:
+    """project in plain PyTorch ops."""
     t = means3d @ camera.R_w2c.T + camera.t_w2c  # [N,3] camera space
     tz = t[..., 2]
     in_front = tz > NEAR_Z

@@ -1,4 +1,5 @@
-"""The rasterizer's hand-written CUDA kernels and their plain versions.
+"""The rasterizer's hand-written CUDA kernels and their plain versions,
+and the build and launch of every kernel of the port.
 
   * `blend_stream_fwd` (csrc/blend_stream_fwd.cu) is the counterpart of the
     JAX package's Pallas kernel `rasterize_pallas.py:blend_stream_pallas_fwd`:
@@ -35,6 +36,12 @@
     vmaps the dense blend over the groups' opacities). Their launches count
     with K5's and K6's in chip_smoke.py.
 
+  * `cov3d_fwd`/`cov3d_bwd`, `project_fwd`/`project_bwd` and
+    `sh_fwd`/`sh_bwd` (csrc/geometry.cu, wrapped in ops/geometry_kernels.py)
+    are the geometry layer in front of the blend: covariance, projection and
+    SH colour, forward and backward, one thread per splat. They replace no
+    Pallas kernel (the JAX package leaves this math to XLA's fusion).
+
 Each source notes the bound on the card and what its design does about it.
 Each wrapper dispatches on the device of its inputs: a CPU tensor runs the
 `*_plain` version, the same arithmetic in plain PyTorch; a CUDA tensor
@@ -58,7 +65,7 @@ from pathlib import Path
 
 import torch
 
-from opengaussian_tpu_torch.ops import blend
+from opengaussian_tpu_torch.ops import blend, geometry_kernels
 from opengaussian_tpu_torch.ops.projection import TILE
 
 NPIX = TILE * TILE  # pixels per tile, one CUDA thread each
@@ -93,6 +100,12 @@ _ENTRIES = {
     "og_blend_tiles_bwd_groups": ("blend_tiles_bwd", [_p, _i, _i, _i, _p, _p, _p, _p, _i,
                                                       _i, _i, _i, _i, _i, _p, _p, _p, _p,
                                                       _p, _p]),
+    "og_cov3d_fwd": ("geometry", [_p, _p, _i, _p, _p]),
+    "og_cov3d_bwd": ("geometry", [_p, _p, _p, _i, _p, _p, _p]),
+    "og_project_fwd": ("geometry", [_p] * 8 + [_i] * 3 + [_p] * 10),
+    "og_project_bwd": ("geometry", [_p] * 6 + [_p, _i] * 3 + [_i] * 3 + [_p] * 4),
+    "og_sh_fwd": ("geometry", [_i, _p, _i, _p, _p, _i, _p, _p]),
+    "og_sh_bwd": ("geometry", [_i, _p, _i, _p, _p, _p, _i, _i, _p, _p, _p]),
 }
 
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -1123,4 +1136,4 @@ blend_tiles_bwd_groups.launches = 0
 KERNEL_WRAPPERS = (blend_stream_fwd, blend_stream_bwd, blend_stream_bwd_compact,
                    segment_reduce, segment_reduce_sorted, segment_reduce_perm,
                    blend_tiles_fwd, blend_tiles_bwd, blend_tiles_fwd_groups,
-                   blend_tiles_bwd_groups)
+                   blend_tiles_bwd_groups, *geometry_kernels.KERNEL_WRAPPERS)

@@ -4,6 +4,12 @@ opengaussian_tpu/ops/sh.py; reference utils/sh_utils.py:57-118).
 Coefficient layout is [..., K, C] (K = (deg+1)^2 basis functions, C
 channels), matching the parameter store's ``sh_dc [N,1,3]`` /
 ``sh_rest [N,15,3]`` split.
+
+`sh_to_rgb` dispatches on the device of its inputs: CPU tensors run
+`sh_to_rgb_plain` with autograd through its ops; CUDA tensors [N, K, 3] run
+the SH colour kernel (ops/geometry_kernels.py, csrc/geometry.cu), which
+evaluates the basis in registers, forward and backward each one launch, or
+raise.
 """
 
 from __future__ import annotations
@@ -73,7 +79,18 @@ def eval_sh(deg: int, sh_coeffs: torch.Tensor, dirs: torch.Tensor) -> torch.Tens
 
 def sh_to_rgb(deg: int, sh_coeffs, means, cam_center) -> torch.Tensor:
     """SH -> clamped RGB as the rasterizer does it: evaluate along the
-    normalized view direction, add 0.5, clamp at 0 from below."""
+    normalized view direction, add 0.5, clamp at 0 from below. CPU tensors
+    run `sh_to_rgb_plain`; CUDA tensors the SH colour kernel, forward and
+    backward (`geometry_kernels.ShColor`)."""
+    if means.device.type == "cpu":
+        return sh_to_rgb_plain(deg, sh_coeffs, means, cam_center)
+    from opengaussian_tpu_torch.ops.geometry_kernels import ShColor  # imports this module
+
+    return ShColor.apply(deg, sh_coeffs, means, cam_center)
+
+
+def sh_to_rgb_plain(deg: int, sh_coeffs, means, cam_center) -> torch.Tensor:
+    """sh_to_rgb in plain PyTorch ops."""
     dirs = means - cam_center
     dirs = dirs / (torch.linalg.norm(dirs, dim=-1, keepdim=True) + 1e-12)
     rgb = eval_sh(deg, sh_coeffs, dirs) + 0.5
