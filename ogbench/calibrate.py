@@ -5,13 +5,14 @@ one process on the card:
         [--control-seeds 1,2,3]
 
 For each of --seeds, the program's readings: the set-up and first steps of
-a run (ogbench/run.py:setup), the reference's, and their gaps
-(ogbench/compare.py). For each of --control-seeds, the control's and a
-fault's readings, each against the float32 reference: the control is the
-reference put in the program's place and computed in TF32 (the nearest
-precision below the configuration's float32 with TF32 off); the fault
-leaves half the frame out of the loss ("half"). A state left unchanged
-reads 1 on change_gap by construction and needs no run.
+a run (ogbench/run.py:setup), the reference's (the stage module's
+`follow`), and their gaps (ogbench/compare.py). For each of
+--control-seeds, the control's and a fault's readings, each against the
+float32 reference: the control is the reference put in the program's place
+and computed in TF32 (the nearest precision below the configuration's
+float32 with TF32 off); the fault leaves half the frame out of the loss
+("half"). A state left unchanged reads 1 on change_gap by construction and
+needs no run.
 
 Prints one JSON line per reading, then a summary: the largest program
 reading of each number (the lower reading), the smallest control reading
@@ -44,7 +45,7 @@ def main(argv=None) -> int:
     p.add_argument("--control-seeds", default="")
     a = p.parse_args(argv)
     cell = run.load_cell(a.workload)
-    cfg, traffic = cell["config"], cell["traffic"]
+    cfg, traffic, stage = cell["config"], cell["traffic"], cell["stage"]
     dev = torch.device("cuda")
     lows, ctls, faults, g2 = [], [], [], {}
 
@@ -63,7 +64,7 @@ def main(argv=None) -> int:
             del tr
             torch.cuda.empty_cache()
             t1 = time.perf_counter()
-            ref = run.follow(cfg, traffic, inputs, seed, dev)
+            ref = stage.follow(cfg, traffic, inputs, seed, dev)
             ref_s = time.perf_counter() - t1
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
@@ -77,11 +78,11 @@ def main(argv=None) -> int:
                   prog_losses=prog["losses"], ref_losses=ref["losses"], **g))
     for seed in _seeds(a.control_seeds):
         inputs = run.make_inputs(cfg, traffic, seed, dev)
-        ref = run.follow(cfg, traffic, inputs, seed, dev)
+        ref = stage.follow(cfg, traffic, inputs, seed, dev)
         start = {k: inputs["splats"][k] for k in run.LEAVES}
         for kind, prec, fault, into in (("control", "tf32", None, ctls),
                                         ("fault_half", "fp32", "half", faults)):
-            other = run.follow(cfg, traffic, inputs, seed, dev, prec, fault)
+            other = stage.follow(cfg, traffic, inputs, seed, dev, prec, fault)
             g = compare.gaps(other, ref, start)
             into.append(g)
             emit(dict(kind=kind, seed=seed, **g))

@@ -15,9 +15,11 @@ operations and bytes, and the card's peaks.
     must move over the memory rate and the fp32 operations the frame needs
     over the fp32 rate (`opengaussian_tpu_torch/tools/timing.py`'s
     arithmetic, copied).
-  * `step_ops`: the fp32 operations a whole step needs: the blend and its
+  * `blend_ops`, `adam_ops` and the per-splat and per-pixel constants: the
+    parts of the fp32 operations a whole step needs: the blend and its
     replay as the bounds count them, the per-splat reduce's adds, the
     per-splat geometry and colour, the loss and Adam, from their shapes.
+    Each stage module's `step_ops` (ogbench/stages/) sums its step's.
   * `PEAKS`: NVIDIA's data sheets, fp32 (non-tensor) FLOP/s and HBM
     bytes/s by H100 model.
 """
@@ -157,20 +159,12 @@ def bound_s(moved: int, ops: int, peak_flops: float, peak_bytes: float) -> float
     return max(moved / peak_bytes, ops / peak_flops)
 
 
-def step_ops(stage: str, work: dict, n_splats: int, capacity: int, width: int,
-             height: int) -> int:
-    """The fp32 operations one step of `stage` needs, given its view's blend
-    work: the blend and its replay, the per-splat reduce of the live rows,
-    the geometry and colour of every alive splat (forward, and backward where
-    it has gradients), the loss over the frame and Adam over every parameter
-    element of the table."""
-    C = 4 if stage == "0" else 7  # payload with depth
-    ops = fwd_cost(work, C)[1] + bwd_cost(work, C)[1] + work["live"] * (6 + C)
-    px = width * height
-    if stage == "0":
-        ops += 3 * n_splats * (OPS_GEOMETRY + OPS_SH)
-        ops += 3 * px * 3 * (OPS_L1 + OPS_SSIM)
-    else:
-        ops += n_splats * OPS_GEOMETRY + 3 * n_splats * OPS_FEATURE
-        ops += 3 * px * (2 * 6 + 3 * 6 + 4)
-    return ops + capacity * PARAMS_PER_SPLAT * OPS_ADAM
+def blend_ops(work: dict, C: int) -> int:
+    """The fp32 operations of the blend with C payload channels, its replay
+    and the per-splat reduce of the live rows, given the view's work."""
+    return fwd_cost(work, C)[1] + bwd_cost(work, C)[1] + work["live"] * (6 + C)
+
+
+def adam_ops(capacity: int) -> int:
+    """Adam over every parameter element of a table of `capacity` splats."""
+    return capacity * PARAMS_PER_SPLAT * OPS_ADAM

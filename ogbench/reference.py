@@ -16,11 +16,16 @@ that the benchmark made.
   * the front-to-back blend with its three rules (alpha clamped at 0.99,
     skipped below 1/255, a stop where the transmittance would fall below
     1e-4), written with cumulative products over each tile's list;
-  * the stage-0 loss (0.8 L1 + 0.2 (1 - SSIM), 11x11 Gaussian window) and
-    the stage-1 losses (separation + 0.1 cohesion over the SAM masks inside
-    the silhouette above 0.7);
-  * gradients by autograd, then Adam (beta 0.9 / 0.999, eps 1e-15 outside
-    the square root) at the schedule's learning rates.
+  * the photometric loss (L1 and 1 - SSIM, 11x11 Gaussian window) and the
+    SAM-mask losses (separation + cohesion over the masks inside the
+    silhouette);
+  * gradients by autograd through the blend (`blend_grads`), then Adam
+    (beta 0.9 / 0.999, eps 1e-15 outside the square root) at the
+    schedule's learning rates (`run_steps`).
+
+What a step of each training stage computes from these (which leaves take
+gradients, the payload, the loss) is its stage module's
+(ogbench/stages/s<id>.py).
 
 The frame is rendered in blocks of tiles, so that it fits at any size: a
 first pass without gradients gives the image and the loss's cotangent, a
@@ -30,7 +35,8 @@ second pass per block takes the gradients.
 transform, the SH contraction, the blend's weighted sum, the SSIM filters,
 the mask means) takes its operands rounded to TF32's 10-bit mantissa and
 accumulates in float32, as TF32 tensor cores do. `fault="half"` leaves the
-lower half of the image out of the loss and takes the mean over the rest.
+lower half of the image out of the loss and takes the mean over the rest
+(`loss_rows`).
 """
 
 from __future__ import annotations
@@ -461,63 +467,56 @@ def adam(params: dict, grads: dict, mu: dict, nu: dict, count: int, lrs: dict):
 
 # -- one step --
 
-def step_grads(ar: Arith, stage: str, params: dict, alive, cam: dict, gt, ids, bg,
-               it: int, opt: dict, max_masks: int, fault: str | None = None):
-    """The loss and the gradient by every leaf of one step of `stage` ("0"
-    or "1") on view `cam`. -> (loss float, {leaf: gradient})."""
-    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
-    opacity = torch.where(alive, torch.sigmoid(leaves["logit_opacity"]), 0.0)
-    centre = -(cam["R"].T @ cam["t"])
-    if stage == "0":
-        cov = covariance(leaves["log_scales"], leaves["quats"])
-        payload = sh_colour(ar, torch.cat([leaves["sh_dc"], leaves["sh_rest"]], 1),
-                            leaves["means"], centre)
-        pbg = bg
-    else:
-        with torch.no_grad():
-            cov = covariance(leaves["log_scales"], leaves["quats"])
-        payload = feature_colour(leaves["ins_feat"])
-        pbg = torch.cat([bg, bg])
-    proj = project(ar, cam, leaves["means"] if stage == "0" else leaves["means"].detach(),
-                   cov, opacity if stage == "0" else opacity.detach())
+def leaves_of(params: dict) -> dict:
+    """Fresh leaves of the parameters that take gradients."""
+    return {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+
+
+def grads_of(leaves: dict) -> dict:
+    return {k: (v.grad if v.grad is not None else torch.zeros_like(v))
+            for k, v in leaves.items()}
+
+
+def loss_rows(cam: dict, fault: str | None) -> int:
+    """The rows of the frame the loss takes: the upper half under
+    fault="half", else all."""
+    H = cam["height"]
+    return H // 2 if fault == "half" else H
+
+
+def blend_grads(ar: Arith, cam: dict, proj: dict, payload: torch.Tensor, bg: torch.Tensor,
+                loss_of) -> float:
+    """Render `payload` through `proj` over bg, take loss_of(image, alpha),
+    and carry its gradient back through the blend into whatever the
+    projection's mean2d, conic and opac and the payload were computed from.
+    -> the loss."""
     taps = {k: proj[k].detach().requires_grad_(True) for k in ("mean2d", "conic", "opac")}
     pay = payload.detach().requires_grad_(True)
     view = dict(proj, **taps)
-    img, alpha = render(ar, cam, view, pay, pbg)
+    img, alpha = render(ar, cam, view, pay, bg)
     img = img.requires_grad_(True)
-    H = cam["height"]
-    rows = slice(0, H // 2) if fault == "half" else slice(0, H)
-    if stage == "0":
-        loss = rgb_loss(ar, img[rows], gt[rows], opt["lambda_dssim"])
-    else:
-        sil = (alpha > 0.7).to(torch.float32)
-        sub = ids.clone()
-        sub[rows.stop:] = 0
-        loss = mask_losses(ar, img, sil, sub, max_masks, it, opt["loss_weight"])
+    loss = loss_of(img, alpha)
     (g_img,) = torch.autograd.grad(loss, [img])
-    render(ar, cam, view, pay, pbg, cotangent=g_img)
+    render(ar, cam, view, pay, bg, cotangent=g_img)
     outs = [payload] + [proj[k] for k in taps]
     cots = [pay.grad if pay.grad is not None else torch.zeros_like(pay)] + [
         taps[k].grad if taps[k].grad is not None else torch.zeros_like(taps[k]) for k in taps]
     pairs = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
     torch.autograd.backward([o for o, _ in pairs], [c for _, c in pairs])
-    grads = {k: (v.grad if v.grad is not None else torch.zeros_like(v))
-             for k, v in leaves.items()}
-    return float(loss.detach()), grads
+    return float(loss.detach())
 
 
-def run_steps(stage: str, params: dict, alive, mu: dict, nu: dict, count: int, views: list,
-              bg, it0: int, opt: dict, extent: float, max_masks: int,
-              precision: str = "fp32", fault: str | None = None):
-    """len(views) steps from iteration it0 + 1, each on its view dict (camera
-    and "gt" image or "ids"). -> dict(losses, first_grads, params)."""
+def run_steps(step, params: dict, mu: dict, nu: dict, count: int, views: list, it0: int,
+              opt: dict, extent: float, precision: str = "fp32") -> dict:
+    """len(views) steps from iteration it0 + 1: step(ar, params, view, it)
+    -> (loss, {leaf: gradient}) on each view dict, then Adam.
+    -> dict(losses, first_grads, params)."""
     ar = Arith(precision)
     losses, first = [], None
     with no_tf32():
         for j, v in enumerate(views):
             it = it0 + 1 + j
-            loss, grads = step_grads(ar, stage, params, alive, v, v.get("gt"), v.get("ids"),
-                                     bg, it, opt, max_masks, fault)
+            loss, grads = step(ar, params, v, it)
             if first is None:
                 first = grads
             lrs = learning_rates(opt, it, extent)

@@ -7,26 +7,31 @@ program (opengaussian_tpu_torch). A cell (BENCHMARK.json "workloads") names
 a configuration (ogbench/configs/<config>.json: the preset's options as
 run, the scene's sizes) and a traffic mix (ogbench/traffic/<traffic>.json:
 the stage, the start iteration, the steps of each call); its limits are in
-ogbench/limits/<cell>.json.
+ogbench/limits/<cell>.json, and what is particular to its stage (the
+trainer's draws, the start's extra arrays, the reference's steps, the
+counts) in the stage module ogbench/stages/s<stage>.py.
 
 Set-up (counted in setup_s, from process start): the scene made from the
 seed on the card (ogbench/scene.py), a `Trainer` at its defaults (fixed
 budgets, frozen plans, eager steps) on it, brought to the start iteration
 through `Trainer.restore_checkpoint` from a checkpoint the benchmark writes
-into the run's temporary directory; then the first `check_steps` steps
-through `Trainer.train`, which also run the budget probe and build the
-frozen plans, and `warmup_steps` more. The window (--trace 0) calls
+into the run's temporary directory (the splats, Adam's moments, the
+statistics and the stage's `start` arrays); then the first `check_steps`
+steps through `Trainer.train`, which also run the budget probe and build
+the frozen plans, and `warmup_steps` more. The window (--trace 0) calls
 `Trainer.train(until=...)` to the next multiple of `chunk_steps` (a multiple
 of the trainer's log_every, so that a call ends where a user's run logs)
 until --seconds have passed, and ends in torch.cuda.synchronize(): step_ms
 is its wall time over its steps, peak_mem_gib the most memory allocated
 since the process started. A traced run (--trace 1) times one such call
-untraced, then profiles the next and reports the per-layer metrics
-(ogbench/metrics/<name>.py).
+untraced, then profiles the next, then SPAN_STEPS more with the host's
+operations, and reports the per-layer metrics (ogbench/metrics/<name>.py,
+from the record `traced_window` and `count_steps` make).
 
 Every run then frees the program's state and follows the first steps with
-the plain reference (ogbench/reference.py, float32, TF32 off) from the same
-start; ogbench/compare.py decides `correct`. The last line of standard
+the plain reference (the stage module's `follow` over ogbench/reference.py,
+float32, TF32 off) from the same start;
+ogbench/compare.py decides `correct`. The last line of standard
 output is the result as one JSON object; the numbers compared, each with
 its limit, are the last lines of standard error and the result's last key.
 
@@ -66,11 +71,12 @@ sys.modules.setdefault("tensorflow", None)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from ogbench import compare, counts, reference, scene  # noqa: E402
-from ogbench.trace import device_record, idle_gaps  # noqa: E402
+from ogbench import compare, counts, reference, scene, stages  # noqa: E402
+from ogbench.trace import device_ms_by_span, device_record, idle_gaps  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "opengaussian_tpu")
 LEAVES = reference.LEAVES
+SPAN_STEPS = 16  # steps of a traced run's host window
 
 
 def log(*a):
@@ -84,7 +90,7 @@ def forbidden_modules() -> list[str]:
 
 def load_cell(name: str, root: str = ROOT) -> dict:
     """The cell `name` of BENCHMARK.json with its configuration, traffic
-    mix, limits and metrics."""
+    mix, stage module, limits and metrics."""
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         bench = json.load(f)
     cell = next((w for w in bench["workloads"] if w["name"] == name), None)
@@ -96,26 +102,14 @@ def load_cell(name: str, root: str = ROOT) -> dict:
         with open(os.path.join(root, *parts)) as f:
             return json.load(f)
 
+    traffic = data("ogbench", "traffic", cell["traffic"] + ".json")
     return dict(
-        cell=cell, config=data(conf["file"]),
-        traffic=data("ogbench", "traffic", cell["traffic"] + ".json"),
+        cell=cell, config=data(conf["file"]), traffic=traffic,
+        stage=stages.load(traffic["stage"]),
         limits=data("ogbench", "limits", name + ".json"),
         end_to_end=[m for m in bench["end_to_end"]
                     if name in m.get("workloads", [name])],
         per_layer=[m for m in bench["per_layer"] if name in m.get("workloads", [name])])
-
-
-def view_sequence(seed: int, n_views: int, n: int) -> list[int]:
-    """The views of the trainer's first n steps from its seed: it draws
-    np.random.default_rng(seed).permutation(n_views) whenever its queue is
-    empty and takes them from the end (no other draw falls in stages 0 and
-    1 of these mixes)."""
-    rng, out, queue = np.random.default_rng(seed), [], []
-    while len(out) < n:
-        if not queue:
-            queue = list(rng.permutation(n_views))
-        out.append(int(queue.pop()))
-    return out
 
 
 # -- the inputs --
@@ -134,12 +128,18 @@ def make_inputs(cfg: dict, traffic: dict, seed: int, device) -> dict:
                 max_masks=scene.max_masks(sc))
 
 
-def write_start(path: str, inputs: dict, iteration: int):
+def write_start(path: str, inputs: dict, iteration: int, extra: dict | None = None):
     """A checkpoint of the start in the program's .npz layout
     (/state/<field>, /adam/{mu,nu}/<leaf>, /adam/count, /stats/<field>,
-    /iteration): the splats stored, the constant moments and statistics
+    /iteration, and `extra`'s {name: array}, such as /kmeans/<field>): the
+    splats and `extra` stored, the constant moments and statistics
     deflated, so that a run writes little more than the splats."""
     from numpy.lib import format as npf
+
+    extra = extra or {}
+    clash = [k for k in extra if k.split("/")[0] in stages.BASE_GROUPS]
+    if clash:
+        raise ValueError(f"the stage's start would overwrite {clash}")
 
     sp = inputs["splats"]
     cap = sp["means"].shape[0]
@@ -153,6 +153,7 @@ def write_start(path: str, inputs: dict, iteration: int):
                for k in ("grad_accum", "denom", "max_radii2d")]
     arrays += [("adam/count", np.asarray(iteration, np.int32), zipfile.ZIP_STORED),
                ("iteration", np.asarray(iteration, np.int64), zipfile.ZIP_STORED)]
+    arrays += [(k, np.asarray(v), zipfile.ZIP_STORED) for k, v in extra.items()]
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED, compresslevel=1) as z:
         for name, arr, how in arrays:
             member = name + ".npy"  # a name takes the file's deflate at level 1
@@ -190,18 +191,19 @@ def build_scene(cfg: dict, inputs: dict):
                  cameras_extent=inputs["extent"], source_path="")
 
 
-def make_trainer(cfg: dict, traffic: dict, inputs: dict, seed: int, device, out_dir: str):
+def make_trainer(cell: dict, inputs: dict, seed: int, device, out_dir: str):
     """A Trainer at its defaults on the inputs, restored to the mix's start
-    iteration."""
+    iteration with the stage's start arrays."""
     from opengaussian_tpu_torch.config import Config, ModelConfig, OptimizationConfig
     from opengaussian_tpu_torch.train.loop import Trainer
 
+    cfg, traffic = cell["config"], cell["traffic"]
     conf = Config(model=ModelConfig(**cfg["model"]), opt=OptimizationConfig(**cfg["opt"]))
     tr = Trainer(build_scene(cfg, inputs), conf, out_dir, seed=seed, device=device)
     tr.save_intermediate = False  # the CLI's --disable_intermediate_dumps
     path = os.path.join(out_dir, "start.npz")
     it0 = int(traffic["start_iteration"])
-    write_start(path, inputs, it0)
+    write_start(path, inputs, it0, cell["stage"].start(cfg, traffic, inputs, seed))
     tr.restore_checkpoint(path)
     os.remove(path)
     if tr.iteration != it0:
@@ -209,47 +211,16 @@ def make_trainer(cfg: dict, traffic: dict, inputs: dict, seed: int, device, out_
     return tr
 
 
-def first_steps(tr, traffic: dict) -> dict:
+def first_steps(tr, cell: dict) -> dict:
     """The check steps through the window's own call. -> the program's
     losses, first gradients (from the first moment after one step, which
     starts at 0) and parameters after the steps, on the host."""
-    it0, n = tr.iteration, int(traffic["check_steps"])
+    it0, n = tr.iteration, int(cell["traffic"]["check_steps"])
     tr.train(until=it0 + 1)
     first = {k: (tr.adam.mu[k] / (1.0 - reference.BETA1)).cpu() for k in LEAVES}
     tr.train(until=it0 + n)
     return dict(losses=[float(x) for x in tr.losses[-n:]], first_grads=first,
                 params={k: v.cpu() for k, v in tr.state.params().items()})
-
-
-def reference_views(cfg: dict, inputs: dict, seq: list[int], device) -> list[dict]:
-    out = []
-    for vi in seq:
-        c = inputs["cams"][vi]
-        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)  # noqa: E731
-        out.append(dict(R=torch.as_tensor(c["R"], device=device),
-                        t=torch.as_tensor(c["t"], device=device),
-                        fx=f32(c["fx"]), fy=f32(c["fy"]), width=c["width"],
-                        height=c["height"],
-                        gt=torch.as_tensor(inputs["images"][vi], device=device),
-                        ids=torch.as_tensor(inputs["ids"][vi], device=device)))
-    return out
-
-
-def follow(cfg: dict, traffic: dict, inputs: dict, seed: int, device,
-           precision: str = "fp32", fault: str | None = None) -> dict:
-    """The reference's first steps from the start (reference.run_steps)."""
-    n = int(traffic["check_steps"])
-    seq = view_sequence(seed, len(inputs["cams"]), n)
-    sp = inputs["splats"]
-    params = {k: sp[k].to(device) for k in LEAVES}
-    mu = {k: torch.zeros_like(v) for k, v in params.items()}
-    nu = {k: torch.full_like(v, inputs["nu0"][k]) for k, v in params.items()}
-    bg = torch.full((3,), 1.0 if cfg["model"]["white_background"] else 0.0, device=device)
-    it0 = int(traffic["start_iteration"])
-    return reference.run_steps(traffic["stage"], params, sp["alive"].to(device), mu, nu,
-                               it0, reference_views(cfg, inputs, seq, device), bg, it0,
-                               cfg["opt"], inputs["extent"], inputs["max_masks"],
-                               precision, fault)
 
 
 # -- the window --
@@ -292,15 +263,36 @@ def timed_window(tr, traffic: dict, seconds: float, device) -> dict:
                 failed=int((~torch.isfinite(losses)).sum()))
 
 
+def host_traced_steps(tr, steps: int, device) -> tuple[dict, object, float]:
+    """`steps` steps under a trace of the host's operations and the
+    device's. -> (the trainer's counters added over them, the profile, wall
+    seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    before = dict(tr.counters)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        tr.train(until=tr.iteration + steps)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    return {k: tr.counters[k] - before[k] for k in before}, prof, wall
+
+
 def traced_window(tr, traffic: dict, device) -> dict:
     """The per-layer metrics' window. First one call of the window with the
     profiler off, to the next multiple of `chunk_steps`: its wall time per
     step is the step's time (the tracer slows a host-paced step). Then
     `gap_steps` traced and dropped while the profiler warms up, and the
     steps to the next multiple of `chunk_steps` traced with the device's
-    activity alone; then `gap_steps` more traced with the host's operations
-    too (the idle gaps' names)."""
+    activity alone: the device record, and the change of the trainer's
+    counters over them ("counters"). Then SPAN_STEPS more traced with the
+    host's operations too: the idle gaps' names and the device ms a step by
+    the program's span ("spans"; None where that trace holds no device
+    operation, so that no host time is read as the device's)."""
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    from opengaussian_tpu_torch.utils.trace import SPANS
 
     chunk, gap = int(traffic["chunk_steps"]), int(traffic["gap_steps"])
     dev_act = ProfilerActivity.CUDA if device.type == "cuda" else ProfilerActivity.CPU
@@ -312,17 +304,19 @@ def traced_window(tr, traffic: dict, device) -> dict:
         _sync(device)
         prof.step()
         it_start = tr.iteration
+        before = dict(tr.counters)  # summed at the end of every train call
         t0 = time.perf_counter()
         _train_to_boundary(tr, chunk)
         _sync(device)
         window_s = time.perf_counter() - t0
         steps = tr.iteration - it_start
+        counters = {k: tr.counters[k] - before[k] for k in before}
         prof.step()
     rec = device_record(prof, window_s)
-    with profile(activities=sorted({ProfilerActivity.CPU, dev_act}, key=str)) as prof:
-        tr.train(until=tr.iteration + gap)
-        _sync(device)
-    rec["breakdown"] = dict(device_ops=rec.pop("device_ops"), idle_gaps=idle_gaps(prof))
+    _, host, _ = host_traced_steps(tr, SPAN_STEPS, device)
+    rec["breakdown"] = dict(device_ops=rec.pop("device_ops"), idle_gaps=idle_gaps(host))
+    rec["spans"] = device_ms_by_span(host, SPAN_STEPS, SPANS) or None
+    rec["counters"] = counters
     losses = torch.stack(tr.losses[n_losses:])
     rec.update(steps=steps, attempted=len(losses), failed=int((~torch.isfinite(losses)).sum()),
                first_step=it_start - int(traffic["start_iteration"]),
@@ -334,32 +328,29 @@ def traced_window(tr, traffic: dict, device) -> dict:
 
 
 @torch.no_grad()
-def count_steps(rec: dict, cfg: dict, traffic: dict, inputs: dict, seed: int, device,
+def count_steps(rec: dict, cell: dict, inputs: dict, seed: int, device,
                 peak_flops: float | None, peak_bytes: float | None):
-    """Each traced step's view work, counted on the start's splats, and the
-    sums the readers take: step_ops, and with the card's peaks fwd_bound_s
-    and bwd_bound_s."""
-    stage = traffic["stage"]
-    seq = view_sequence(seed, len(inputs["cams"]), rec["first_step"] + rec["steps"])
-    seq = seq[rec["first_step"]:]
-    sp = inputs["splats"]
-    means = sp["means"].to(device)
-    alive = sp["alive"].to(device)
-    cov = reference.covariance(sp["log_scales"].to(device), sp["quats"].to(device))
-    opacity = torch.where(alive, torch.sigmoid(sp["logit_opacity"].to(device)), 0.0)
+    """Each traced step's blend work, counted on the start's splats by the
+    stage module (`view_work`, once for each distinct set of draws), and
+    the sums the readers take: step_ops, and with the card's peaks
+    fwd_bound_s and bwd_bound_s."""
+    stage, cfg = cell["stage"], cell["config"]
+    first = rec["first_step"]
+    draws = stage.draws(seed, len(inputs["cams"]), first + rec["steps"])[first:]
+    sp = {k: v.to(device) for k, v in inputs["splats"].items()}
     ar = reference.Arith("fp32")
-    C = 4 if stage == "0" else 7
+    C = stage.payload_width
     cache, works = {}, []
-    for vi in seq:
-        if vi not in cache:
-            v = reference_views(cfg, inputs, [vi], device)[0]
-            cache[vi] = counts.frame_work(reference.project(ar, v, means, cov, opacity))
-        works.append(cache[vi])
+    for d in draws:
+        key = tuple(sorted(d.items()))
+        if key not in cache:
+            v = stages.reference_view(cfg, inputs, d["view"], device)
+            cache[key] = stage.view_work(ar, sp, v, d)
+        works.append(cache[key])
     sc = cfg["scene"]
-    n, cap = int(sc["splats"]), int(means.shape[0])
+    n, cap = int(sc["splats"]), int(sp["means"].shape[0])
     rec["works"] = works
-    rec["step_ops"] = sum(counts.step_ops(stage, w, n, cap, sc["width"], sc["height"])
-                          for w in works)
+    rec["step_ops"] = sum(stage.step_ops(w, n, cap, sc["width"], sc["height"]) for w in works)
     rec["peak_flops"] = peak_flops
     if peak_flops:
         rec["fwd_bound_s"] = sum(counts.bound_s(*counts.fwd_cost(w, C), peak_flops, peak_bytes)
@@ -408,9 +399,9 @@ def setup(cell: dict, seed: int, device, out_dir: str) -> tuple:
 
     inputs = make_inputs(cfg, traffic, seed, device)
     lap("scene")
-    tr = make_trainer(cfg, traffic, inputs, seed, device, out_dir)
+    tr = make_trainer(cell, inputs, seed, device, out_dir)
     lap("trainer")
-    prog = first_steps(tr, traffic)
+    prog = first_steps(tr, cell)
     lap("first_steps")
     tr.train(until=tr.iteration + int(traffic["warmup_steps"]))
     lap("warmup")
@@ -422,7 +413,7 @@ def setup(cell: dict, seed: int, device, out_dir: str) -> tuple:
 def check(cell: dict, inputs: dict, prog: dict, seed: int, device) -> tuple[bool, dict, dict]:
     """The reference's verdict on the program's first steps.
     -> (correct, checks, the gaps with the worst leaves)."""
-    ref = follow(cell["config"], cell["traffic"], inputs, seed, device)
+    ref = cell["stage"].follow(cell["config"], cell["traffic"], inputs, seed, device)
     start = {k: inputs["splats"][k] for k in LEAVES}
     g = compare.gaps(prog, ref, start)
     ok, checks = compare.verdict(g, cell["limits"])
@@ -458,7 +449,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, device="cuda",
             torch.cuda.empty_cache()
         kind = torch.cuda.get_device_name(dev) if cuda else "cpu"
         if trace:
-            count_steps(rec, cell["config"], traffic, inputs, seed, dev,
+            count_steps(rec, cell, inputs, seed, dev,
                         *(counts.peaks(kind) if cuda else (None, None)))
             metrics = read_metrics(cell["per_layer"], rec)
         else:

@@ -8,10 +8,15 @@ recount that the benchmark's slot_fill reads.
 Set-up as ogbench/run.py (`run.setup`). Then one call of the window to the
 next multiple of `chunk_steps`, untraced: its wall time per step, and the
 trainer's counters across it (`Trainer.counters`, summed at the log
-boundary it ends on). Then --steps steps traced with the host's operations
-and the device's: device milliseconds a step by span
-(`utils.trace.device_ms_by_span`, the innermost span, a backward node's
-kernels with its forward's span), the device's busy time (the union of its
+boundary it ends on). Then the steps that a traced run's device window
+takes (`gap_steps`, and on to the next multiple of `chunk_steps`),
+untraced, so that what follows covers the traced run's own steps and
+views. Then --steps steps traced with the host's operations and the
+device's: device milliseconds a step by span
+(ogbench/trace.py:device_ms_by_span, the program's reduction copied: the
+innermost span, a backward node's kernels with its forward's span), the
+same table a traced run of the benchmark reads ("spans",
+ogbench/run.py:traced_window), the device's busy time (the union of its
 operations' intervals) and idle gaps (ogbench/trace.py), the counters'
 live fill of the padded stream over those steps, and `slot_fill`'s recount
 of the same steps (ogbench/counts.py:frame_work on the start's splats);
@@ -35,22 +40,7 @@ import time
 import torch
 
 from ogbench import run as R
-from ogbench.trace import device_record, idle_gaps
-
-
-def traced_steps(tr, steps: int, device) -> tuple[dict, object, float]:
-    """`steps` steps under a host and device trace. -> (the counters added
-    over them, the profile, wall seconds)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    before = dict(tr.counters)
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        tr.train(until=tr.iteration + steps)
-        R._sync(device)
-        wall = time.perf_counter() - t0
-    return {k: tr.counters[k] - before[k] for k in before}, prof, wall
+from ogbench.trace import UNPLACED, device_ms_by_span, device_record, idle_gaps
 
 
 def span_cost_us(n: int = 20000) -> tuple[float, float]:
@@ -80,7 +70,7 @@ def fill(delta: dict) -> float | None:
 def main(argv=None, device="cuda") -> int:
     """device: "cpu" rehearses the tool on the CPU (the tests), where the
     table holds the host operations' times."""
-    from opengaussian_tpu_torch.utils.trace import SPANS, UNPLACED, device_ms_by_span
+    from opengaussian_tpu_torch.utils.trace import SPANS
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
@@ -99,21 +89,26 @@ def main(argv=None, device="cuda") -> int:
         before = dict(tr.counters)
         plain = R.timed_window(tr, traffic, 0.0, dev)
         call = {k: tr.counters[k] - before[k] for k in before}
+        tr.train(until=tr.iteration + int(traffic["gap_steps"]))
+        R._train_to_boundary(tr, int(traffic["chunk_steps"]))
         it_start = tr.iteration
-        delta, prof, wall = traced_steps(tr, a.steps, dev)
+        delta, prof, wall = R.host_traced_steps(tr, a.steps, dev)
         rec = dict(first_step=it_start - int(traffic["start_iteration"]), steps=a.steps)
         rec.update(device_record(prof, wall))
         gaps = idle_gaps(prof)
-        table = device_ms_by_span(prof, a.steps)
+        table = device_ms_by_span(prof, a.steps, SPANS, host_stand_in=dev.type == "cpu")
         opened = sum(e.name in SPANS for e in prof.events()) / a.steps
         slot_budget = (max(tr.rcfg.intersection_budget, tr.rcfg.min_intersections)
                        if tr.rcfg.intersection_budget else 0)
         del tr, prof
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        R.count_steps(rec, cell["config"], traffic, inputs, a.seed, dev, None, None)
+        R.count_steps(rec, cell, inputs, a.seed, dev, None, None)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    if not table:
+        R.log("the trace holds no device operation: no span table")
+        return 1
     busy_ms = rec["busy_s"] / a.steps * 1e3
     step_ms = plain["window_s"] / plain["steps"] * 1e3
     placed = sum(v for k, v in table.items() if k != UNPLACED)

@@ -9,7 +9,7 @@ import re
 
 import pytest
 
-from ogbench import run
+from ogbench import run, stages
 
 ROOT = run.ROOT
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -57,7 +57,11 @@ def test_config_file_loads(cfg):
 @pytest.mark.parametrize("name", CELLS)
 def test_cell_resolves(name):
     cell = run.load_cell(name)
-    assert cell["traffic"]["stage"] in ("0", "1")
+    stage = stages.load(cell["traffic"]["stage"])
+    assert cell["stage"] == stage and stage.id == cell["traffic"]["stage"]
+    assert all(callable(getattr(stage, f)) for f in stages.Stage._fields
+               if f not in ("id", "payload_width"))
+    assert isinstance(stage.payload_width, int) and stage.payload_width > 0
     assert set(cell["limits"]) >= {"loss_gap", "grad_gap", "change_gap"}
     assert {m["name"] for m in cell["end_to_end"]} >= {"setup_s", "step_ms"}
     for m in cell["per_layer"]:

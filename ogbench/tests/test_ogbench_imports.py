@@ -39,7 +39,12 @@ def test_no_source_imports_jax(path):
     assert not FORBIDDEN & set(_imported_tops(path))
 
 
-@pytest.mark.parametrize("path", ["reference.py", "compare.py", "counts.py", "scene.py"])
+REFERENCE_SIDE = ["reference.py", "compare.py", "counts.py", "scene.py"] + sorted(
+    os.path.join("stages", f) for f in os.listdir(os.path.join(HERE, "stages"))
+    if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", REFERENCE_SIDE)
 def test_the_reference_side_imports_nothing_of_the_program(path):
     assert PROGRAM not in set(_imported_tops(os.path.join(HERE, path)))
 
@@ -64,5 +69,6 @@ def test_a_run_loads_no_jax():
 
 def test_the_reference_loads_nothing_of_the_program():
     mods = _loaded("import json, sys, ogbench.reference, ogbench.compare, ogbench.counts\n"
+                   "import ogbench.stages.s0, ogbench.stages.s1\n"
                    "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))")
     assert not (FORBIDDEN | {PROGRAM}) & set(mods)
