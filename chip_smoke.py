@@ -18,6 +18,12 @@ Phases, in order; any failure exits non-zero:
      its bytes bound and its plain version's time, the stage-0 geometry
      chain through the kernels against the plain chain (time, busy,
      kernels), and the kernels' launches in a stage-0 and a stage-1 step.
+     Then the stage-1 mask-loss kernels (per-mask sums by id, forward and
+     backward; `mask_loss_phase`) on the benchmark's stage-1 frame (985x730,
+     C = 6, M = 32 and 264) against their plain versions and bit for bit
+     from run to run, each call's device time beside its bytes bound, the
+     mask losses through the kernels against the dense chain they replace,
+     and their launches in a stage-0 and a stage-1 step.
      Then the rasterizer's kernels, on the streams of a full-width frame
      (1296x968, 200k splats, SH degree 3, 6-D instance features): the forward blend K1 at C = 4 (RGB + depth) and
      C = 7 (features + depth), bit for bit; the backward replay K2, the
@@ -1479,14 +1485,166 @@ def geometry_phase(dev, card: str, peak_bytes: float, out_dir: str, **scene) -> 
                 dev_ms=total_dev, bound_ms=total_bound)
 
 
+# the mask losses' check: each table, the cohesion loss and the gradient
+# against the plain versions on the card, as max |kernel - plain| over the
+# largest |plain| (the kernels sum in another order: fp32 rounding)
+MASK_LOSS_TOL = 1e-5
+
+
+def mask_loss_bytes(H: int, W: int, C: int, M: int) -> dict:
+    """The bytes each mask-loss kernel call must move on an [H, W, C] frame
+    with M masks: its inputs read once, its outputs written once (the
+    feature image, the int32 ids and the float32 silhouette; the [M, *]
+    tables, the means and validity; the backward's cotangents and d feat)."""
+    pix = H * W * (4 * C + 4 + 4)
+    tables = 4 * (M * (2 * C + 3) + 1) + 4 * M * C  # the tables and the means
+    return dict(fwd=pix + tables + M + 4, bwd=pix + tables + 4 * M * C + 4 + 4 * H * W * C)
+
+
+def mask_loss_frame(dev, M: int | None = None, seed: int = 0):
+    """The benchmark's stage-1 training frame (ogbench/configs/
+    lerf-teatime.json: 985x730, C = 6, view 0's SAM ids and M its
+    max_masks; with M given, ids from a grid of ceil(sqrt(M))^2 blocks, the
+    ids past M no mask): features in [0, 1] read through a crop of the tile
+    grid as the rasterizer hands them, the silhouette > 0.7 of a smooth
+    field. -> (feat [H, W, C], ids [H, W] int32, sil [H, W], M)."""
+    from ogbench import scene as bench_scene
+
+    with open(GEOMETRY_CELL_CONFIG) as f:
+        sc = json.load(f)["scene"]
+    H, W = int(sc["height"]), int(sc["width"])
+    g = torch.Generator(device=dev).manual_seed(seed)
+    grid = torch.rand(((H + 15) // 16 * 16, (W + 15) // 16 * 16, 6), generator=g, device=dev)
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev), torch.arange(W, device=dev),
+                            indexing="ij")
+    if M is None:
+        ids = torch.as_tensor(bench_scene.make_sam_ids(sc, 0), device=dev)
+    else:
+        side = math.isqrt(M - 1) + 1
+        ids = (1 + (yy * side // H) * side + (xx * side // W)).to(torch.int32)
+        ids[: int(sc["mask_border"])] = 0
+    alpha = 0.5 + 0.5 * torch.sin(yy / 37.0) * torch.cos(xx / 53.0)
+    sil = (alpha > 0.7).to(torch.float32)
+    return grid[:H, :W], ids, sil, M or bench_scene.max_masks(sc)
+
+
+def mask_loss_phase(dev, card: str, peak_bytes: float, out_dir: str) -> dict:
+    """The stage-1 mask-loss kernels (ops/mask_loss_kernels.py) on the card
+    at the benchmark's stage-1 frame (`mask_loss_frame`), M = 32 and 264
+    (past one block's shared memory): the forward's tables, means, validity
+    and cohesion loss and the backward against the plain versions, and two
+    runs of each bit for bit. At M = 32 each call's device time beside its
+    bytes bound and its plain version's time, and the stage-1 mask losses
+    forward and backward (sam_mask_loss) through the kernels against the
+    dense chain they replace (sam_mask_loss_plain): time, busy and kernels.
+    The launches of a stage-0 and a stage-1 step (the blob trainer's).
+    -> a summary dict."""
+    from opengaussian_tpu_torch.ops import mask_loss_kernels as mk
+    from opengaussian_tpu_torch.ops.rasterize import RasterizeConfig
+    from opengaussian_tpu_torch.train import losses
+
+    def rel(a, b) -> float:
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    t0 = time.perf_counter()
+    errs = {}
+    for M in (None, 264):
+        feat, ids, sil, M = mask_loss_frame(dev, M)
+        C = feat.shape[2]
+        g = torch.Generator(device=dev).manual_seed(M)
+        d_coh = torch.rand((), generator=g, device=dev)
+        d_means = torch.randn((M, C), generator=g, device=dev)
+        with torch.no_grad():
+            got = [mk.mask_loss_fwd(feat, ids, sil, M) for _ in range(2)]
+            want = mk.mask_loss_fwd_plain(feat, ids, sil, M)
+            d = [mk.mask_loss_bwd(feat, ids, sil, got[0][0], got[0][3], d_coh, d_means)
+                 for _ in range(2)]
+            d_plain = mk.mask_loss_bwd_plain(feat, ids, sil, want[0], want[3], d_coh, d_means)
+        torch.cuda.synchronize()
+        (means, valid, coh, tables), (w_means, w_valid, w_coh, w_tables) = got[0], want
+        e = dict(means=rel(means, w_means), tables=rel(tables, w_tables), coh=rel(coh, w_coh),
+                 d_feat=rel(d[0], d_plain))
+        bits = (sum(int((a != b).sum()) for a, b in zip(got[0], got[1]))
+                + int((d[0] != d[1]).sum()))
+        same = (bool(torch.equal(valid, w_valid))
+                and bool(torch.equal(mk.split_tables(tables, M, C)[0][:, 0],
+                                     mk.split_tables(w_tables, M, C)[0][:, 0])))
+        log(f"kernel mask losses, M = {M}, {feat.shape[0]}x{feat.shape[1]}x{C}: max err "
+            + ", ".join(f"{k} {v:.3e}" for k, v in e.items()) + " of the largest value "
+            f"(tolerance {MASK_LOSS_TOL:g}); validity and counts equal: {same}; {bits} "
+            "elements differ between two runs")
+        if max(e.values()) > MASK_LOSS_TOL or bits or not same:
+            raise AssertionError(f"mask losses, M = {M}: {e}, {bits} bits differ, "
+                                 f"counts equal {same}")
+        errs[M] = e
+
+    # M = 32: each call's time beside its bound and its plain version's
+    feat, ids, sil, M = mask_loss_frame(dev)
+    H, W, C = feat.shape
+    bound = mask_loss_bytes(H, W, C, M)
+    means, valid, coh, tables = mk.mask_loss_fwd(feat, ids, sil, M)
+    d_coh, d_means = torch.ones((), device=dev), torch.randn((M, C), device=dev)
+    calls = dict(
+        fwd=(lambda: mk.mask_loss_fwd(feat, ids, sil, M),
+             lambda: mk.mask_loss_fwd_plain(feat, ids, sil, M)),
+        bwd=(lambda: mk.mask_loss_bwd(feat, ids, sil, means, tables, d_coh, d_means),
+             lambda: mk.mask_loss_bwd_plain(feat, ids, sil, means, tables, d_coh, d_means)))
+    times = {}
+    with torch.no_grad():
+        for k, (kern, plain) in calls.items():
+            b_ms = bound[k] / peak_bytes * 1e3
+            t = dict(call=cuda_ms(kern, iters=50, warmup=3), dev=device_ms(kern, 20),
+                     plain=cuda_ms(plain, iters=5, warmup=2), bound=b_ms, bytes=bound[k])
+            times[k] = t
+            log(f"timing: mask_loss_{k}, training frame ({H}x{W}x{C}, M = {M}): kernels "
+                f"{t['dev']:.4f} ms (call {t['call']:.4f}), bound {b_ms:.4f} ms ({bound[k]} "
+                f"bytes), at {b_ms / t['dev']:.3f} of it; plain {t['plain']:.4f} ms [{card}]")
+
+    # the stage-1 mask losses, forward and backward: kernels against the dense chain
+    def chain(fn):
+        def run():
+            f = feat.detach().requires_grad_(True)
+            sep, c = fn(f, ids, sil, M, 30_001, 0.1)
+            torch.autograd.grad(sep + c, f)
+        return run
+
+    chain_res = {}
+    for k, fn in (("kernels", losses.sam_mask_loss), ("plain", losses.sam_mask_loss_plain)):
+        counts: dict = {}
+        ms = cuda_ms(chain(fn), iters=10, warmup=2)
+        busy, _wall = profile(chain(fn), 5, f"mask losses ({k}), stage 1", counts)
+        chain_res[k] = dict(ms=ms, busy=busy, launches=counts["launches"])
+        log(f"timing: mask losses ({k}), stage-1 forward and backward on the training frame: "
+            f"{ms:.4f} ms a call, device busy {busy:.4f} ms, {counts['launches']} kernels "
+            f"[{card}]")
+
+    # launches per step on the stage-0 and stage-1 paths (the blob trainer)
+    tr = blob_trainer(dev, RasterizeConfig(), out_dir)
+    per_step = {}
+    for stage in ("0", "1"):
+        before = {w.__name__: w.launches for w in mk.KERNEL_WRAPPERS}
+        eager_step(tr, stage)
+        torch.cuda.synchronize()
+        per_step[stage] = {w.__name__: w.launches - before[w.__name__]
+                           for w in mk.KERNEL_WRAPPERS}
+        log(f"launches: mask-loss kernels in one stage-{stage} step: {per_step[stage]}")
+    if set(per_step["0"].values()) != {0} or set(per_step["1"].values()) != {1}:
+        raise AssertionError(f"the mask-loss kernels' launches a step: {per_step}")
+    log(f"mask-loss phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return dict(errs=errs, times=times, chain=chain_res, per_step=per_step)
+
+
 def launch_counts() -> dict:
     """{wrapper: the module attribute whose .launches it counts}: the
     rasterizer's kernels, whose launches the paths below expect exactly;
-    the geometry kernels' launches are held by `geometry_phase`."""
+    the geometry kernels' launches are held by `geometry_phase`, the mask
+    losses' by `mask_loss_phase`."""
     from opengaussian_tpu_torch.ops import geometry_kernels as gk
+    from opengaussian_tpu_torch.ops import mask_loss_kernels as mk
     from opengaussian_tpu_torch.ops import rasterize_kernels as rk
 
-    return {w.__name__: w for w in rk.KERNEL_WRAPPERS if w not in gk.KERNEL_WRAPPERS}
+    other = gk.KERNEL_WRAPPERS + mk.KERNEL_WRAPPERS
+    return {w.__name__: w for w in rk.KERNEL_WRAPPERS if w not in other}
 
 
 def vote_launches(views: int, config) -> int:
@@ -4384,6 +4542,8 @@ def main(argv=None) -> int:
         # benchmark's training frame, the blend's at the frame's own streams
         os.makedirs(os.path.join(root, "geometry"))
         geometry = geometry_phase(dev, card, peak_bytes, os.path.join(root, "geometry"))
+        os.makedirs(os.path.join(root, "mask_losses"))
+        mask_losses = mask_loss_phase(dev, card, peak_bytes, os.path.join(root, "mask_losses"))
         chunk = RasterizeConfig().chunk
         with torch.no_grad():
             streams = frame_streams(views[0].camera, state)
@@ -4922,7 +5082,10 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": kernels, "geometry": {
         "max_err": {k: e.get("field", e["bits"]) for k, e in geometry["errs"].items()},
         "times": geometry["times"], "chain": geometry["chain"],
-        "per_step": geometry["per_step"]}}))
+        "per_step": geometry["per_step"]}, "mask_losses": {
+        "max_err": {str(m): e for m, e in mask_losses["errs"].items()},
+        "times": mask_losses["times"], "chain": mask_losses["chain"],
+        "per_step": mask_losses["per_step"]}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

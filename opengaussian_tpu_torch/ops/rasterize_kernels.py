@@ -41,6 +41,10 @@ and the build and launch of every kernel of the port.
     are the geometry layer in front of the blend: covariance, projection and
     SH colour, forward and backward, one thread per splat. They replace no
     Pallas kernel (the JAX package leaves this math to XLA's fusion).
+  * `mask_loss_fwd`/`mask_loss_bwd` (csrc/mask_losses.cu, wrapped in
+    ops/mask_loss_kernels.py) are the stage-1 SAM-mask losses: per-mask
+    sums by pixel id, forward and backward. They replace no Pallas kernel
+    (the JAX package builds these losses from dense mask stacks).
 
 Each source notes the bound on the card and what its design does about it.
 Each wrapper dispatches on the device of its inputs: a CPU tensor runs the
@@ -65,7 +69,7 @@ from pathlib import Path
 
 import torch
 
-from opengaussian_tpu_torch.ops import blend, geometry_kernels
+from opengaussian_tpu_torch.ops import blend, geometry_kernels, mask_loss_kernels
 from opengaussian_tpu_torch.ops.projection import TILE
 
 NPIX = TILE * TILE  # pixels per tile, one CUDA thread each
@@ -79,7 +83,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 MAX_C = 16  # payload channels one thread holds: kMaxC in the blend sources
 
-_p, _i = ctypes.c_void_p, ctypes.c_int
+_p, _i, _l = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> (source stem, argument types); each returns a cudaError_t
 _ENTRIES = {
     "og_blend_stream_fwd": ("blend_stream_fwd", [_p, _i, _p, _p, _p, _i, _i, _i, _p, _p, _p]),
@@ -106,6 +110,8 @@ _ENTRIES = {
     "og_project_bwd": ("geometry", [_p] * 6 + [_p, _i] * 3 + [_i] * 3 + [_p] * 4),
     "og_sh_fwd": ("geometry", [_i, _p, _i, _p, _p, _i, _p, _p]),
     "og_sh_bwd": ("geometry", [_i, _p, _i, _p, _p, _p, _i, _i, _p, _p, _p]),
+    "og_mask_loss_fwd": ("mask_losses", [_p, _l, _l, _p, _p] + [_i] * 4 + [_p] * 8),
+    "og_mask_loss_bwd": ("mask_losses", [_p, _l, _l, _p, _p] + [_i] * 4 + [_p] * 8),
 }
 
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -1136,4 +1142,5 @@ blend_tiles_bwd_groups.launches = 0
 KERNEL_WRAPPERS = (blend_stream_fwd, blend_stream_bwd, blend_stream_bwd_compact,
                    segment_reduce, segment_reduce_sorted, segment_reduce_perm,
                    blend_tiles_fwd, blend_tiles_bwd, blend_tiles_fwd_groups,
-                   blend_tiles_bwd_groups, *geometry_kernels.KERNEL_WRAPPERS)
+                   blend_tiles_bwd_groups, *geometry_kernels.KERNEL_WRAPPERS,
+                   *mask_loss_kernels.KERNEL_WRAPPERS)

@@ -41,7 +41,6 @@ from opengaussian_tpu_torch.parallel.mesh import Mesh
 from opengaussian_tpu_torch.parallel.render import render_sharded
 from opengaussian_tpu_torch.render import encoded_ins_feat
 from opengaussian_tpu_torch.train import losses
-from opengaussian_tpu_torch.utils import masks as masku
 
 
 def make_sharded_steps(mesh: Mesh, rcfg: RasterizeConfig, ocfg,
@@ -113,10 +112,9 @@ def make_sharded_steps(mesh: Mesh, rcfg: RasterizeConfig, ocfg,
         gs = state.with_params(params)
         feat_img, sil_a, _d, _r, n_lost = _feat_pass(gs, camera, bg, rescale)
         sil = (sil_a > 0.7).to(torch.float32)
-        masks, valid = masku.masks_onehot(sam, max_masks)
-        means = masku.mask_feature_mean(feat_img, masks, image_mask=sil)
-        loss = (losses.separation_loss(means, valid, iteration)
-                + ocfg.loss_weight * losses.cohesion_loss(feat_img, masks, valid, means))
+        l_sep, l_coh = losses.sam_mask_loss(feat_img, sam, sil, max_masks, iteration,
+                                            ocfg.loss_weight)
+        loss = l_sep + l_coh
         a_term, a_lost = _alpha_term(gs, camera, bg, alpha_mask, has_alpha)
         loss = loss + a_term
         state, adam = _feature_update(state, adam, params, loss, iteration, ocfg)

@@ -88,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import os
 import time
 
@@ -412,11 +413,9 @@ def stage1_step(state: G.GaussianState, adam: opt_mod.AdamState, bundle: ViewBun
                  rescale_factor=rescale_factor, frozen=frozen)
     with span(LOSS):
         sil = (out.silhouette > 0.7).to(torch.float32)
-        masks, valid = masku.masks_onehot(_at(bundle.sam_ids, view_idx), bundle.max_masks)
-        means = masku.mask_feature_mean(out.ins_feat, masks, image_mask=sil)
-        l_coh = losses.cohesion_loss(out.ins_feat, masks, valid, means)
-        l_sep = losses.separation_loss(means, valid, iteration)
-        loss = l_sep + ocfg.loss_weight * l_coh
+        l_sep, l_coh = losses.sam_mask_loss(out.ins_feat, _at(bundle.sam_ids, view_idx), sil,
+                                            bundle.max_masks, iteration, ocfg.loss_weight)
+        loss = l_sep + l_coh
         if with_alpha_loss:
             loss = loss + _alpha_mask_loss(out.alpha, bundle, view_idx)
     state, adam = _feature_update(state, adam, params, loss, iteration, ocfg, hyper=hyper)
@@ -1578,8 +1577,18 @@ class _CapturedStep:
         torch.cuda.current_stream(self.tr.device).wait_stream(side)
         before = {w: w.launches for w in rk.KERNEL_WRAPPERS}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._body(write_back=True)
+        # a dead graph (in a dropped trainer's or step's reference cycle)
+        # goes now: a collection inside the capture would release it there,
+        # which the capture does not permit, and the capture fails
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self._body(write_back=True)
+        finally:
+            if collecting:
+                gc.enable()
         self.deltas = {w: w.launches - before[w] for w in rk.KERNEL_WRAPPERS}
         for w, c in counters.items():
             w.launches = c

@@ -3,13 +3,17 @@
 stage-1 intra-mask cohesion (reference train.py:102-121) and inter-mask
 separation (reference train.py:123-155) losses. Mask stacks are [M, H, W]
 with a validity vector, as in the JAX package; the math over padded entries
-reproduces the reference's dynamic shapes."""
+reproduces the reference's dynamic shapes. `sam_mask_loss` is the stage-1
+step's entry: on the card the cohesion loss and the mask means come from
+per-mask sums by pixel id (ops/mask_loss_kernels.py), with no mask stack."""
 
 from __future__ import annotations
 
 import torch
 
+from opengaussian_tpu_torch.ops.mask_loss_kernels import MaskLoss
 from opengaussian_tpu_torch.ops.ssim import ssim
+from opengaussian_tpu_torch.utils import masks as masku
 
 
 def l1_loss(pred, gt, mask=None, weight=None):
@@ -80,6 +84,30 @@ def separation_loss(feat_means, mask_valid, iteration: int):
         weight = torch.where(weight < 0.9, 0.1, weight)
     inv = inv * weight
     return inv.sum() / torch.clamp(n_valid * (n_valid - 1.0), min=1.0)
+
+
+def sam_mask_loss(feat_map, ids, sil, max_masks: int, iteration: int, loss_weight: float):
+    """The stage-1 losses of the feature image [H, W, C] against the view's
+    SAM ids [H, W] (0 invalid, masks 1..max_masks), the mask means weighted
+    by sil [H, W] (the silhouette > 0.7): -> (separation, loss_weight *
+    cohesion). CPU tensors run `sam_mask_loss_plain`; CUDA tensors take the
+    means and the cohesion loss from the per-mask sums by id, forward and
+    backward in kernels (`mask_loss_kernels.MaskLoss`), and the separation
+    loss from those means."""
+    if feat_map.device.type == "cpu":
+        return sam_mask_loss_plain(feat_map, ids, sil, max_masks, iteration, loss_weight)
+    means, valid, coh = MaskLoss.apply(feat_map, ids, sil, max_masks)
+    return separation_loss(means, valid, iteration), loss_weight * coh
+
+
+def sam_mask_loss_plain(feat_map, ids, sil, max_masks: int, iteration: int,
+                        loss_weight: float):
+    """sam_mask_loss over dense mask stacks [M, H, W], as the JAX package
+    computes it."""
+    masks, valid = masku.masks_onehot(ids, max_masks)
+    means = masku.mask_feature_mean(feat_map, masks, image_mask=sil)
+    return (separation_loss(means, valid, iteration),
+            loss_weight * cohesion_loss(feat_map, masks, valid, means))
 
 
 def psnr(pred, gt):
